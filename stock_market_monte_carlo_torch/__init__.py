@@ -8,9 +8,12 @@ counter stream, so a run here reproduces a JAX run under
 ``SMMC_PRNG_IMPL=arith``. It imports neither jax nor the JAX package.
 
 Ported so far: ``simulate_stats`` / ``simulate_final_values`` /
-``simulate`` / ``run`` on ``HistoricalBootstrap`` (the month loop), and
-with ``EngineOptions(terminal_law=True)`` on Gaussian or historical models.
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
+``simulate`` / ``run`` on ``HistoricalBootstrap`` and ``GaussianReturns``:
+the month loop (historical bootstrap or Gaussian ICDF draw), the CLT
+Gaussian sampler (``EngineOptions(gaussian_sampler="clt" | "clt-prefix")``)
+and, with ``EngineOptions(terminal_law=True)``, the terminal law. The
+sampler is chosen as the JAX package chooses it. What is not ported raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from stock_market_monte_carlo_torch.config import (

@@ -36,8 +36,12 @@ class EngineOptions:
     - ``fuse_chunks``: no effect. It fused chunks into one TPU dispatch to
       save a per-dispatch floor; CUDA launches are already asynchronous and
       every chunk is queued before the first host sync anyway.
-    - ``gaussian_sampler``: only ``"icdf"`` runs; the CLT samplers raise
-      ``NotImplementedError`` (ROADMAP queue 1 item 9).
+    - ``gaussian_sampler``: honoured as the JAX package's Pallas backend
+      honours it (``engine._effective_sampler``): "clt" and "clt-prefix"
+      run the CLT kernel (``ops/clt.py``) where the JAX package would, and
+      the Gaussian ICDF month loop elsewhere. The CLT kernel has no
+      finals-free variant (``SMMC_CLT_FINALSFREE``): it writes finals only
+      when asked for them, which is the same thing.
     - ``trajectory_dtype``: only ``"float32"`` runs; trajectories are not
       ported (ROADMAP queue 1 item 10).
     """

@@ -49,16 +49,13 @@ law_kernel(const float* __restrict__ law, int law_d, uint32_t seed_base,
     for (int i = threadIdx.x; i < hb; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
 
-  const float sqrt2 = F(1.4142135623730951);
   Stats st;
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < valid;
        p += gridDim.x * blockDim.x) {
     const uint32_t seed = tile_seed(seed_base, tile0 + ((uint32_t)p >> 13));
     const uint32_t w =
         arith_word(tile_seed(seed, 0u), (uint32_t)p & (kTilePaths - 1));
-    const float u = u23(w);
-    const float z = sqrt2 * erfinv_poly(2.0f * u - 1.0f);
-    const float s = z * inv_zmax;
+    const float s = normal_z(w) * inv_zmax;
     const float two_s = 2.0f * s;
     float b1 = 0.0f, b2 = 0.0f;
     for (int k = law_d - 1; k > 0; --k) {

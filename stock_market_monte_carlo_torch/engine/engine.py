@@ -2,10 +2,12 @@
 
 Counterpart of ``stock_market_monte_carlo_tpu/engine/engine.py`` on its
 Pallas backend, for the slice the port covers: ``simulate_stats``,
-``simulate_final_values``, ``simulate`` and ``run`` on a
-``HistoricalBootstrap`` model (the month loop) and, with
-``EngineOptions(terminal_law=True)``, on Gaussian or historical models
-(the terminal law).
+``simulate_final_values``, ``simulate`` and ``run`` on
+``HistoricalBootstrap`` and ``GaussianReturns`` models. The sampler is
+chosen as the JAX package chooses it on its Pallas backend
+(``_effective_sampler``): the month loop with the historical or the
+Gaussian ICDF draw, the CLT kernel (``EngineOptions.gaussian_sampler``
+"clt" / "clt-prefix"), or, with ``terminal_law=True``, the terminal law.
 
 A run streams in chunks of ``chunk_paths`` paths. Each chunk reduces on
 the device to one float32 stats row and a histogram
@@ -16,8 +18,8 @@ host sync, in batches of at most ``_DEFER_FLUSH_CHUNKS``.
 
 Out of this slice, and raising ``NotImplementedError`` with the ROADMAP
 item that ports them: checkpoints, meshes, runs past one seed segment,
-trajectories, Sobol models, the reference-parity stream, Gaussian models
-through the month loop, trajectory bands and RQMC.
+trajectories, Sobol models, the reference-parity stream, trajectory bands
+and RQMC.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from stock_market_monte_carlo_torch.models.strategies import (
     NoWithdrawal,
     VariablePercentWithdrawal,
 )
+from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine
 from stock_market_monte_carlo_torch.ops import reductions as red
 
@@ -171,6 +174,45 @@ def _validate_terminal_law(strategy, options) -> None:
         )
 
 
+def _effective_sampler(model, strategy, options: EngineOptions) -> str:
+    """The sampler that runs (``engine._effective_sampler`` of the JAX
+    package on its Pallas backend, which the port always is):
+
+    - ``"law"``: ``terminal_law=True``;
+    - ``"icdf"``: the month loop; historical models (whatever
+      ``gaussian_sampler`` says), Gaussian models by default, and the cases
+      below that the CLT kernels do not take;
+    - ``"clt"``: Gaussian, ``gaussian_sampler`` "clt" or "clt-prefix",
+      no withdrawals;
+    - ``"clt-nw"``: the same with a percent strategy and
+      ``track_withdrawn=False`` (keep factors folded into the constants);
+    - ``"clt-prefix"``: ``gaussian_sampler="clt-prefix"`` with a percent
+      strategy, tracking the withdrawn total.
+
+    Extreme-volatility models (1 + mean/100 <= 16 * std/100) stay on the
+    ICDF: the CLT kernels take logs of growth products, and growth must be
+    positive over the mix's bounded z support (|z| <= ~15.7).
+    """
+    if options.terminal_law:
+        return "law"
+    if model.kind != "gaussian":
+        return "icdf"
+    clt_asked = options.gaussian_sampler in ("clt", "clt-prefix")
+    if clt_asked:
+        a = 1.0 + float(model.mean_pct) / 100.0
+        b = float(model.std_pct) / 100.0
+        if a <= 16.0 * b:
+            return "icdf"
+    if clt_asked and strategy.kind == "none":
+        return "clt"
+    percent = strategy.kind in ("fixed_percent", "variable_percent")
+    if clt_asked and percent and not options.track_withdrawn:
+        return "clt-nw"
+    if options.gaussian_sampler == "clt-prefix" and percent:
+        return "clt-prefix"
+    return "icdf"
+
+
 def _check_slice(model, options, n_paths: int) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP
     item (queue 1) so the next slice knows where to start."""
@@ -178,17 +220,6 @@ def _check_slice(model, options, n_paths: int) -> None:
         raise NotImplementedError(
             f"{model.kind!r} models are not ported yet (ROADMAP queue 1 "
             "item 11: Sobol and RQMC)"
-        )
-    if model.kind == "gaussian" and not options.terminal_law:
-        raise NotImplementedError(
-            "GaussianReturns through the month loop needs the ICDF and "
-            "CLT kernels, not ported yet (ROADMAP queue 1 items 7 and 9); "
-            "use EngineOptions(terminal_law=True)"
-        )
-    if options.gaussian_sampler != "icdf":
-        raise NotImplementedError(
-            f"gaussian_sampler={options.gaussian_sampler!r}: the CLT "
-            "samplers are not ported yet (ROADMAP queue 1 item 9)"
         )
     if options.trajectory_dtype != "float32":
         raise NotImplementedError(
@@ -300,33 +331,63 @@ class StreamUpdate:
 
 def _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev):
     """The chunk function of this run, with its run-constant operands
-    uploaded once: ``fn(tile0=, valid=, n_paths=, **common)``."""
+    uploaded once: ``fn(offset=, valid=, n_paths=, **common)``, where
+    ``offset`` is the chunk's first global path."""
     base = int(cuda_engine.seed_base_i32(seed).view(np.uint32))
-    if options.terminal_law:
+    sampler = _effective_sampler(model, strategy, options)
+    if sampler == "law":
         from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
 
         _validate_terminal_law(strategy, options)
         fit = tlaw.fit_terminal_law(model, strategy, n_periods, v0f)
         law = torch.as_tensor(fit.operand(), device=dev)
 
-        def fn(**kw):
+        def fn(offset, **kw):
             return cuda_engine.law_chunk(
                 law, seed_base=base ^ cuda_engine.LAW_STREAM_XOR,
-                inv_zmax=1.0 / tlaw.LAW_ZMAX, **kw)
+                tile0=offset // KEY_TILE, inv_zmax=1.0 / tlaw.LAW_ZMAX, **kw)
         return fn
 
-    table_np, n_table = cuda_engine._pad_table(model.returns_pct)
-    table = torch.as_tensor(table_np, device=dev)
     keep_np = (_keep_factors_np(strategy, n_periods)
                if _is_multiplicative(strategy)
                else np.ones((n_periods,), np.float32))
+    if sampler.startswith("clt"):
+        variant = {"clt": "plain", "clt-nw": "keep_fold",
+                   "clt-prefix": "prefix"}[sampler]
+        a, b = cuda_engine.gaussian_ab(model.mean_pct, model.std_pct)
+        arow, cs = clt.block_consts(
+            a, b, n_periods, keep_np if variant == "keep_fold" else None)
+        q = clt.q_tensor(dev)
+        arow, cs = torch.as_tensor(arow, device=dev), torch.as_tensor(
+            cs, device=dev)
+        keep_rows = (torch.as_tensor(clt.keep_rows(keep_np, n_periods),
+                                     device=dev)
+                     if variant == "prefix" else None)
+        p_tile = clt.tile_paths(variant)
+
+        def fn(offset, **kw):
+            return clt.clt_chunk(
+                q, arow, cs, keep_rows, variant=variant,
+                seed_base=base ^ clt.CLT_STREAM_XOR, tile0=offset // p_tile,
+                **kw)
+        return fn
+
     keep = torch.as_tensor(keep_np, device=dev)
+    if model.kind == "historical":
+        table_np, n_table = cuda_engine._pad_table(model.returns_pct)
+        draw = dict(draw="historical", n_table=n_table)
+        table = torch.as_tensor(table_np, device=dev)
+    else:
+        a, b = cuda_engine.gaussian_ab(model.mean_pct, model.std_pct)
+        draw = dict(draw="gaussian", a=a, b=b)
+        table = None
     amount = float(getattr(strategy, "amount", 0.0))
 
-    def fn(**kw):
+    def fn(offset, **kw):
         return cuda_engine.month_loop_chunk(
-            table, keep, n_table=n_table, strategy=strategy.kind,
-            amount=amount, n_periods=n_periods, seed_base=base, **kw)
+            table, keep, strategy=strategy.kind, amount=amount,
+            n_periods=n_periods, seed_base=base, tile0=offset // KEY_TILE,
+            **draw, **kw)
     return fn
 
 
@@ -444,8 +505,7 @@ def simulate_stats(
             # bucket small runs to a power of two of at least one tile
             b = _round_up(this_valid, KEY_TILE)
             b = min(chunk_b, 1 << (b - 1).bit_length())
-        out = fn(tile0=offset // KEY_TILE, valid=this_valid, n_paths=b,
-                 **common)
+        out = fn(offset=offset, valid=this_valid, n_paths=b, **common)
         if defer_absorb:
             deferred.append((out[0], out[1], done + this_valid, this_valid))
             done += this_valid

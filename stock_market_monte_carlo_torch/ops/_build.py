@@ -5,7 +5,7 @@ interface (no PyTorch headers, so the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -o build/torch_kernels/libsmmc_cuda_<hash>.so
-         csrc/month_loop.cu csrc/terminal_law.cu
+         csrc/month_loop.cu csrc/terminal_law.cu csrc/clt.cu
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into an fma, which
 would round differently from the JAX package and the plain versions (the
@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("month_loop.cu", "terminal_law.cu")
+SOURCES = ("month_loop.cu", "terminal_law.cu", "clt.cu")
 HEADERS = ("smmc_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -37,10 +37,13 @@ _i = ctypes.c_int
 _u = ctypes.c_uint
 _f = ctypes.c_float
 _ARGTYPES = {
-    "smmc_month_loop": (_vp, _i, _i, _i, _vp, _i, _f, _i, _u, _u, _i,
-                        _f, _f, _f, _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
+    "smmc_month_loop": (_i, _vp, _i, _i, _i, _f, _f, _vp, _i, _f, _i, _u,
+                        _u, _i, _f, _f, _f, _f, _f, _f, _i, _vp, _vp, _vp,
+                        _i, _vp),
     "smmc_law": (_vp, _i, _u, _u, _i, _f, _f, _f, _f, _f, _f, _i,
                  _vp, _vp, _vp, _i, _vp),
+    "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,
+                 _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
 }
 
 _LIB = None

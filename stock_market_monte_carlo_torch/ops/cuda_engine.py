@@ -1,16 +1,19 @@
-"""The per-chunk device work: the historical month loop and the terminal
-law, each as a hand-written CUDA kernel and its plain PyTorch version.
+"""The per-chunk device work: the month loop (historical bootstrap or
+Gaussian ICDF draw) and the terminal law, each as a hand-written CUDA
+kernel and its plain PyTorch version. The CLT sampler is ``ops/clt.py``.
 
 Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 
-- ``month_loop_chunk`` replaces ``_build_kernel`` (kind="historical",
-  rng_mode="counter"), source ``csrc/month_loop.cu``;
+- ``month_loop_chunk`` replaces ``_build_kernel`` (rng_mode="counter",
+  kind="historical" or "gaussian"), source ``csrc/month_loop.cu``;
 - ``law_chunk`` replaces ``_build_law_kernel`` and
   ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``.
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
-``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count).
+``LAUNCHES`` counts kernel launches per kernel (plain runs do not count):
+``month_loop`` (historical draw), ``month_loop_gaussian``, ``law`` and
+``clt``.
 
 The random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
@@ -67,8 +70,9 @@ _BLOCKS_PER_SM = 8
 
 STRATEGY_CODES = {"none": 0, "fixed_percent": 1, "variable_percent": 1,
                   "fixed_amount": 2}
+DRAW_CODES = {"historical": 0, "gaussian": 1}
 
-LAUNCHES = {"month_loop": 0, "law": 0}
+LAUNCHES = {"month_loop": 0, "month_loop_gaussian": 0, "law": 0, "clt": 0}
 
 
 def reset_launch_counts() -> None:
@@ -133,6 +137,20 @@ def _erfinv_poly(x):
     for c in _ERFINV_Q[1:]:
         q = q * wt + _f32(c)
     return torch.where(w < 5.0, p, q) * x
+
+
+def _normal_z(bits):
+    """z = sqrt(2) * erfinv(2u - 1) of a word (the Gaussian draw)."""
+    return _SQRT2 * _erfinv_poly(2.0 * _u23_from_bits(bits) - 1.0)
+
+
+def gaussian_ab(mean_pct, std_pct):
+    """Growth constants of a Gaussian model, growth = a + b*z, rounded in
+    float32 as ``pallas_chunk_stats`` builds them: a = 1 + mean*0.01,
+    b = std*0.01."""
+    f32 = np.float32
+    return (float(f32(1.0) + f32(mean_pct) * f32(0.01)),
+            float(f32(std_pct) * f32(0.01)))
 
 
 def _bootstrap_idx_exact_i32(st, n):
@@ -232,20 +250,33 @@ def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
     return stats, hist
 
 
-def month_loop_chunk_plain(table, keep, *, n_table, strategy, amount,
-                           n_periods, seed_base, tile0, valid, n_paths, v0,
-                           target, shift, log_lo, inv_w, hb, with_hist,
-                           keep_finals):
+def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
+                           seed_base, tile0, valid, n_paths, v0, target,
+                           shift, log_lo, inv_w, hb, with_hist, keep_finals,
+                           draw="historical", n_table=0, a=0.0, b=0.0):
     """Plain PyTorch version of ``csrc/month_loop.cu``: the same integer
     and float32 arithmetic, vectorised over the chunk's (tiles, 64, 128)
-    paths and looped over the months."""
-    dev = table.device
+    paths and looped over the months. ``draw="historical"`` reads
+    ``table`` (``n_table`` rows); ``draw="gaussian"`` grows by a + b*z and
+    takes ``table=None``."""
+    dev = keep.device
     ntiles = n_paths // TILE_PATHS
-    k_chunks = table.numel() // 128
-    tail_n = n_table - 128 * (k_chunks - 1)
-    table2d = table.reshape(k_chunks, 128)
-    lane = torch.arange(128, device=dev)
-    n_valid = torch.where(lane < tail_n, k_chunks, k_chunks - 1)
+    if draw == "historical":
+        k_chunks = table.numel() // 128
+        tail_n = n_table - 128 * (k_chunks - 1)
+        table2d = table.reshape(k_chunks, 128)
+        lane = torch.arange(128, device=dev)
+        n_valid = torch.where(lane < tail_n, k_chunks, k_chunks - 1)
+
+        def growth(w):
+            return _sliced_rotation_draw(table2d, n_valid, n_table, tail_n, w)
+    elif draw == "gaussian":
+        a, b = _f32(a), _f32(b)
+
+        def growth(w):
+            return a + b * _normal_z(w)
+    else:
+        raise ValueError(f"unknown draw {draw!r}")
     tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
     seeds = _tile_seed_i32(int(seed_base) & MASK32, tiles)
     pos = torch.arange(TILE_PATHS, device=dev).reshape(TILE_ROWS, 128)
@@ -258,9 +289,7 @@ def month_loop_chunk_plain(table, keep, *, n_table, strategy, amount,
     wsum = torch.zeros_like(total)
     for t in range(n_periods):
         h = _tile_seed_i32(seeds, t)[:, None, None]
-        w = _finalize((h + pos_term) & MASK32)
-        grown = total * _sliced_rotation_draw(table2d, n_valid, n_table,
-                                              tail_n, w)
+        grown = total * growth(_finalize((h + pos_term) & MASK32))
         if code == 0:
             total = grown
             continue
@@ -288,10 +317,7 @@ def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
     tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
     seeds = _tile_seed_i32(int(seed_base) & MASK32, tiles)[:, None]
     pos = torch.arange(TILE_PATHS, device=dev)[None, :]
-    w = _arith_bits(seeds, 0, pos)
-    u = _u23_from_bits(w)
-    z = _SQRT2 * _erfinv_poly(2.0 * u - 1.0)
-    s = z * _f32(inv_zmax)
+    s = _normal_z(_arith_bits(seeds, 0, pos)) * _f32(inv_zmax)
     two_s = 2.0 * s
     b1 = torch.zeros_like(s)
     b2 = torch.zeros_like(s)
@@ -325,14 +351,15 @@ def _check(t, name, device, numel=None, dtype=torch.float32):
         raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
 
 
-def _launch_geometry(device, valid, hb, with_hist):
+def _launch_geometry(device, valid, hb, with_hist, rows_per_block,
+                     blocks_per_sm):
     if with_hist and hb > MAX_HIST_CELLS:
         raise ValueError(
             f"histogram of {hb} cells exceeds the kernels' shared-memory "
             f"histogram ({MAX_HIST_CELLS} cells); use fewer histogram_bins"
         )
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-valid // _BLOCK), sms * _BLOCKS_PER_SM))
+    return max(1, min(-(-valid // rows_per_block), sms * blocks_per_sm))
 
 
 def _reduce_partials(partials, valid):
@@ -352,16 +379,20 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _prepare(entry, args, dev, valid, hb, with_hist, keep_finals):
+def _prepare(entry, args, dev, valid, hb, with_hist, keep_finals,
+             rows_per_block=_BLOCK, blocks_per_sm=_BLOCKS_PER_SM):
     """Allocate one chunk's outputs on ``dev`` and return ``(launch,
     outputs)``: ``launch()`` runs the C entry point ``entry`` of the kernel
     library into them on the current stream (``args`` are its leading
     arguments, before the output pointers); ``outputs()`` reduces the
-    per-block partials to the (stats, hist, finals-or-None) contract."""
+    per-block partials to the (stats, hist, finals-or-None) contract. The
+    grid covers ``valid`` paths at ``rows_per_block`` paths per block, at
+    most ``blocks_per_sm`` blocks per SM (the blocks stride)."""
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     fn = getattr(load_library(), entry)
-    n_blocks = _launch_geometry(dev, valid, hb, with_hist)
+    n_blocks = _launch_geometry(dev, valid, hb, with_hist, rows_per_block,
+                                blocks_per_sm)
     partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
     hist = (torch.zeros((hb,), dtype=torch.int32, device=dev)
             if with_hist else None)
@@ -389,23 +420,32 @@ def _check_chunk(dev, what, valid, n_paths):
         raise ValueError(f"bad chunk: valid={valid}, n_paths={n_paths}")
 
 
-def month_loop_launcher(table, keep, *, n_table, strategy, amount,
-                        n_periods, seed_base, tile0, valid, n_paths, v0,
-                        target, shift, log_lo, inv_w, hb, with_hist,
-                        keep_finals):
+def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
+                        seed_base, tile0, valid, n_paths, v0, target, shift,
+                        log_lo, inv_w, hb, with_hist, keep_finals,
+                        draw="historical", n_table=0, a=0.0, b=0.0):
     """Checked inputs of one month-loop chunk on a CUDA device ->
     ``(launch, outputs)`` (see ``_prepare``). ``launch()`` alone is the
     kernel, uncounted: ``month_loop_chunk`` is the counted entry point."""
-    dev = table.device
+    dev = keep.device
     _check_chunk(dev, "month-loop", valid, n_paths)
-    if not 0 < n_table < (1 << 15):
-        raise ValueError(f"table length {n_table} outside [1, 2^15)")
-    k_chunks = -(-n_table // 128)
-    _check(table, "table", dev, k_chunks * 128)
     _check(keep, "keep", dev, n_periods)
-    args = (_ptr(table), k_chunks, n_table, n_table - 128 * (k_chunks - 1),
-            _ptr(keep), STRATEGY_CODES[strategy], _f32(amount), n_periods,
-            int(seed_base) & MASK32, int(tile0) & MASK32, valid, _f32(v0),
+    if draw == "historical":
+        if not 0 < n_table < (1 << 15):
+            raise ValueError(f"table length {n_table} outside [1, 2^15)")
+        k_chunks = -(-n_table // 128)
+        _check(table, "table", dev, k_chunks * 128)
+        tail_n = n_table - 128 * (k_chunks - 1)
+    elif draw == "gaussian":
+        if table is not None:
+            raise ValueError("the Gaussian draw takes no table")
+        k_chunks = tail_n = n_table = 0
+    else:
+        raise ValueError(f"unknown draw {draw!r}")
+    args = (DRAW_CODES[draw], _ptr(table), k_chunks, n_table, tail_n,
+            _f32(a), _f32(b), _ptr(keep), STRATEGY_CODES[strategy],
+            _f32(amount), n_periods, int(seed_base) & MASK32,
+            int(tile0) & MASK32, valid, _f32(v0),
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
     return _prepare("smmc_month_loop", args, dev, valid, hb, with_hist,
@@ -435,18 +475,23 @@ def _launch_counted(name, launcher):
 
 
 def month_loop_chunk(table, keep, **kw):
-    """One chunk of the historical month loop.
+    """One chunk of the month loop.
 
-    ``table``: float32 (C*128,) padded growth table (``_pad_table``);
-    ``keep``: float32 (n_periods,) keep factors (read by the percent
-    strategies); keywords as ``month_loop_chunk_plain``, with
-    ``seed_base``/``tile0`` the uint32 stream base and first global tile
-    and ``valid`` of the ``n_paths`` (a multiple of 8192) paths counting.
-    Returns (stats, hist, finals-or-None) on ``table.device``."""
-    if table.device.type == "cpu":
+    ``draw="historical"`` (the default): ``table`` is the float32 (C*128,)
+    padded growth table (``_pad_table``) of ``n_table`` rows.
+    ``draw="gaussian"``: ``table`` is None and the growth is a + b*z
+    (``gaussian_ab``). ``keep``: float32 (n_periods,) keep factors (read by
+    the percent strategies); keywords as ``month_loop_chunk_plain``, with
+    ``seed_base``/``tile0`` the uint32 stream base and first global
+    8192-path tile and ``valid`` of the ``n_paths`` (a multiple of 8192)
+    paths counting. Returns (stats, hist, finals-or-None) on
+    ``keep.device``; counts its launch under ``month_loop`` or
+    ``month_loop_gaussian``."""
+    if keep.device.type == "cpu":
         return month_loop_chunk_plain(table, keep, **kw)
-    return _launch_counted("month_loop",
-                           month_loop_launcher(table, keep, **kw))
+    name = ("month_loop_gaussian" if kw.get("draw") == "gaussian"
+            else "month_loop")
+    return _launch_counted(name, month_loop_launcher(table, keep, **kw))
 
 
 def law_chunk(law, **kw):

@@ -158,6 +158,28 @@ def test_month_loop_matches_jax(name, monkeypatch):
                                   got.histogram_counts)
 
 
+@pytest.mark.parametrize("sampler", ["clt", "clt-prefix"])
+def test_historical_ignores_clt_sampler_as_jax_does(sampler, monkeypatch):
+    """A CLT ``gaussian_sampler`` on a historical model runs the
+    historical month loop, in the JAX package and in the port."""
+    n, t = 8192 + 321, 12
+    model = smmc.HistoricalBootstrap.from_csv()
+    strategy = _strategy("fixed_percent")
+    monkeypatch.setenv("SMMC_PRNG_IMPL", "arith")
+    want = smmc.simulate_final_values(
+        model, n, t, seed=8, strategy=strategy, options=JaxOptions(
+            backend="pallas", chunk_paths=8192, gaussian_sampler=sampler))
+    got = smt.simulate_final_values(
+        from_reference(model), n, t, seed=8,
+        strategy=from_reference(strategy),
+        options=smt.EngineOptions(gaussian_sampler=sampler, **CPU))
+    np.testing.assert_array_equal(got, want)
+    icdf = smt.simulate_final_values(
+        from_reference(model), n, t, seed=8,
+        strategy=from_reference(strategy), options=smt.EngineOptions(**CPU))
+    np.testing.assert_array_equal(got, icdf)
+
+
 @pytest.mark.parametrize("kind", ["historical", "gaussian"])
 def test_terminal_law_matches_jax(kind, monkeypatch):
     n, t, target = 2 * 8192 + 5, 360, 5000.0
@@ -272,15 +294,10 @@ def _out_of_slice_calls():
                 device="cpu", seed_segment_paths=8192)),
         "trajectories": lambda: smt.run(hist, 8192, 12, options=cpu,
                                         keep_trajectories=4),
-        "gaussian_month_loop": lambda: smt.simulate_stats(
-            smt.GaussianReturns(), 8192, 12, options=cpu),
         "reference_rng": lambda: smt.HistoricalBootstrap(
             hist.returns_pct, rng="reference"),
         "sobol": lambda: from_reference(smmc.SobolGaussianReturns.create(12)),
         "bands": lambda: smt.simulate_bands(hist, 8192, 12),
-        "clt_sampler": lambda: smt.simulate_stats(
-            hist, 8192, 12, options=smt.EngineOptions(
-                device="cpu", gaussian_sampler="clt")),
         "bfloat16_trajectories": lambda: smt.run(
             hist, 8192, 12, options=smt.EngineOptions(
                 device="cpu", trajectory_dtype="bfloat16")),

@@ -2,7 +2,10 @@
 shapes the smoke test does not reach: ragged chunks at a nonzero tile
 offset, the hostile 97-row table, a 20000-row table (whose shared-memory
 table needs the opt-in above 48 KB), odd histogram sizes and no
-histogram. Also the wrappers' input checks and launch counters.
+histogram; the Gaussian month loop under every strategy; the CLT kernel's
+three variants over one and two 128-month blocks. Also the wrappers' input
+checks and launch counters, and the launch counts of the engine's
+samplers.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -20,6 +23,7 @@ from stock_market_monte_carlo_torch.data.loader import (
     SYNTHETIC_CSV,
     read_historical_returns,
 )
+from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
 pytestmark = pytest.mark.gpu
@@ -101,6 +105,104 @@ def test_law_kernel_matches_plain(cuda, keep_finals, hb):
         assert k_out[2] is None
         k_out = (k_out[0], k_out[1], p_out[2])
     _assert_kernel_matches_plain(k_out, p_out, finals_rel=1e-6)
+
+
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "variable_percent", "fixed_amount"])
+@pytest.mark.parametrize("hb,with_hist", [(4096, True), (102, True),
+                                          (4096, False)])
+def test_gaussian_month_loop_kernel_matches_plain(cuda, strategy, hb,
+                                                  with_hist):
+    keep = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.99, 1.0, 24).astype(np.float32), device=cuda)
+    a, b = ce.gaussian_ab(0.5, 10.0 / 12)
+    kw = dict(_month_kw(strategy, 0, 24, hb, with_hist), draw="gaussian",
+              a=a, b=b, shift=1.05)
+    _assert_kernel_matches_plain(ce.month_loop_chunk(None, keep, **kw),
+                                 ce.month_loop_chunk_plain(None, keep, **kw))
+
+
+def _clt_operands(cuda, variant, n_periods, mean=0.5, std=10.0 / 12):
+    a, b = ce.gaussian_ab(mean, std)
+    keep = np.random.default_rng(6).uniform(0.995, 1.0, n_periods).astype(
+        np.float32)
+    arow, cs = clt.block_consts(a, b, n_periods,
+                                keep if variant == "keep_fold" else None)
+    return (clt.q_tensor(cuda), torch.as_tensor(arow, device=cuda),
+            torch.as_tensor(cs, device=cuda),
+            torch.as_tensor(clt.keep_rows(keep, n_periods), device=cuda)
+            if variant == "prefix" else None)
+
+
+# tensor-core accumulation order against torch.matmul's; chip_smoke.py
+# prints the measured maximum
+CLT_KERNEL_REL = 1e-5
+
+
+@pytest.mark.parametrize("variant", ["plain", "keep_fold", "prefix"])
+@pytest.mark.parametrize("n_periods", [7, 200])
+@pytest.mark.parametrize("hb", [4096, 102])
+def test_clt_kernel_matches_plain(cuda, variant, n_periods, hb):
+    ops = _clt_operands(cuda, variant, n_periods)
+    kw = dict(variant=variant, seed_base=0x9E3779B9 ^ clt.CLT_STREAM_XOR,
+              tile0=37, valid=2 * 8192 + 1001, n_paths=4 * 8192, v0=1000.0,
+              target=1000.0, shift=1.01, log_lo=float(np.log(300.0)),
+              inv_w=float(np.float32((hb - 2) / np.log(10.0))), hb=hb,
+              with_hist=True, keep_finals=True)
+    sk, hk, fk = clt.clt_chunk(*ops, **kw)
+    sp, hp, fp = clt.clt_chunk_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    fk, fp = fk.cpu().numpy(), fp.cpu().numpy()
+    np.testing.assert_allclose(fk, fp, rtol=CLT_KERNEL_REL, atol=0)
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    assert sk[0] == sp[0]
+    # a final within the bar of the target may fall on either side
+    near = np.sum(np.abs(fp / 1000.0 - 1.0) <= CLT_KERNEL_REL)
+    assert abs(sk[7] - sp[7]) <= near
+    np.testing.assert_allclose(sk[[5, 6]], sp[[5, 6]], rtol=CLT_KERNEL_REL)
+    np.testing.assert_allclose(sk[[1, 2, 8]], sp[[1, 2, 8]], rtol=1e-5,
+                               atol=1e-5 * np.abs(sp[2]))
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    assert hk.sum() == hp.sum() == sk[0]
+    assert np.abs(hk - hp).sum() <= 2 * np.sum(fk != fp)
+
+
+def test_clt_kernel_without_finals_or_histogram(cuda):
+    ops = _clt_operands(cuda, "plain", 360)
+    kw = dict(variant="plain", seed_base=0x11C7, tile0=0, valid=8192 + 5,
+              n_paths=2 * 8192, v0=1000.0, target=5000.0, shift=6.0,
+              log_lo=float(np.log(100.0)),
+              inv_w=float(np.float32(4094 / np.log(1e3))), hb=4096,
+              with_hist=True, keep_finals=True)
+    sk, hk, _ = clt.clt_chunk(*ops, **dict(kw, keep_finals=False,
+                                            with_hist=False))
+    sf, hf, ff = clt.clt_chunk(*ops, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(sk.cpu().numpy(), sf.cpu().numpy())
+    assert float(hk.sum()) == 0.0 and float(hf.sum()) == 8192 + 5
+    assert ff.shape == (8192 + 5,)
+
+
+@pytest.mark.parametrize("sampler,key", [("icdf", "month_loop_gaussian"),
+                                         ("clt", "clt")])
+def test_engine_gaussian_launch_counts(cuda, sampler, key):
+    """The Gaussian samplers launch their own kernel once per chunk, and
+    the result on the card matches the CPU run."""
+    args = (smt.GaussianReturns(), 3 * 8192 + 123, 24)
+    ce.reset_launch_counts()
+    got = smt.simulate_stats(*args, seed=4, target_amount=1000.0,
+                             keep_final_values=True,
+                             options=smt.EngineOptions(
+                                 chunk_paths=8192, gaussian_sampler=sampler))
+    assert ce.LAUNCHES == dict({k: 0 for k in ce.LAUNCHES}, **{key: 4})
+    want = smt.simulate_stats(*args, seed=4, target_amount=1000.0,
+                              keep_final_values=True,
+                              options=smt.EngineOptions(
+                                  chunk_paths=8192, gaussian_sampler=sampler,
+                                  device="cpu"))
+    np.testing.assert_allclose(got.final_values, want.final_values,
+                               rtol=CLT_KERNEL_REL, atol=0)
+    assert got.histogram_counts.sum() == want.histogram_counts.sum()
 
 
 def test_engine_on_cuda_matches_cpu(cuda):
