@@ -1,20 +1,28 @@
-"""Where the time goes in one 100M x 360 ``simulate_stats`` call of each
-main path of the PyTorch port, on one CUDA card.
+"""Where the time goes in one 100M x 360 call of each main path of the
+PyTorch port, on one CUDA card.
 
     python3 chip_profile.py
 
-For each path (historical month loop, terminal law, Gaussian ICDF month
-loop, Gaussian CLT): one warm-up call, then ``torch.profiler`` (CPU and
-CUDA activity) over one call that ends in ``torch.cuda.synchronize()``.
+For each path (``simulate_stats`` through the historical month loop, the
+terminal law, the Gaussian ICDF month loop and the Gaussian CLT;
+``simulate_bands`` on the historical model in hist mode and on the
+Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
+``torch.profiler`` (CPU and CUDA activity) over one call that ends in
+``torch.cuda.synchronize()``; then ``cProfile`` over one more call, for
+the host functions that took most of its wall.
 Prints, per path, the profiled wall, the summed time of the CUDA-device
 rows of ``key_averages()`` (kernels and copies, each counted once), the
-device busy share (device time over wall) and the rows that took most
-device time. Imports neither jax nor the JAX package.
+device busy share (device time over wall), the rows that took most
+device time and the port's host functions that took most cumulative time
+under ``cProfile`` (which slows Python calls, so those times read high).
+Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import cProfile
 import json
+import pstats
 import subprocess
 import time
 
@@ -37,18 +45,25 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     hist = smt.HistoricalBootstrap.from_csv()
     gauss = smt.GaussianReturns()
-    paths = {
-        "historical month loop": (hist, {}),
-        "terminal law": (hist, dict(terminal_law=True)),
-        "Gaussian ICDF month loop": (gauss, {}),
-        "Gaussian CLT": (gauss, dict(gaussian_sampler="clt")),
-    }
-    for label, (model, opts) in paths.items():
-        def run():
-            return smt.simulate_stats(model, N_PATHS, N_PERIODS,
-                                      target_amount=2000.0,
-                                      options=smt.EngineOptions(**opts))
 
+    def stats(model, **opts):
+        return lambda: smt.simulate_stats(model, N_PATHS, N_PERIODS,
+                                          target_amount=2000.0,
+                                          options=smt.EngineOptions(**opts))
+
+    def bands(model, **kw):
+        return lambda: smt.simulate_bands(model, N_PATHS, N_PERIODS,
+                                          sample_paths=32, **kw)
+
+    paths = {
+        "historical month loop": stats(hist),
+        "terminal law": stats(hist, terminal_law=True),
+        "Gaussian ICDF month loop": stats(gauss),
+        "Gaussian CLT": stats(gauss, gaussian_sampler="clt"),
+        "historical bands (hist)": bands(hist, band_mode="hist"),
+        "Gaussian bands (cdf)": bands(gauss, band_mode="cdf"),
+    }
+    for label, run in paths.items():
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -60,12 +75,21 @@ def main():
         rows = [r for r in prof.key_averages()
                 if r.device_type == DeviceType.CUDA]
         dev_ms = sum(r.self_device_time_total for r in rows) / 1e3
-        top = sorted(rows, key=lambda r: -r.self_device_time_total)[:4]
+        top = sorted(rows, key=lambda r: -r.self_device_time_total)[:6]
+        host = cProfile.Profile()
+        host.runcall(run)
+        torch.cuda.synchronize()
+        funcs = [(f"{fn[0].rsplit('/', 1)[-1]}:{fn[2]}", st[3])
+                 for fn, st in pstats.Stats(host).stats.items()
+                 if "stock_market_monte_carlo_torch" in fn[0]]
         print(json.dumps({
             "path": label, "card": card, "wall_ms": wall_ms,
             "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
             "top": [dict(name=r.key[:60], count=r.count,
                          ms=r.self_device_time_total / 1e3) for r in top],
+            "host_cumulative_ms": [
+                dict(name=name, ms=t * 1e3)
+                for name, t in sorted(funcs, key=lambda x: -x[1])[:8]],
         }), flush=True)
 
 

@@ -1,7 +1,9 @@
 """GPU smoke test of the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, drives the main paths at
 100M paths x 360 months (historical month loop, terminal law, Gaussian ICDF
-month loop, CLT sampler), and times them.
+month loop, CLT sampler, historical bands in hist mode, Gaussian bands in
+cdf mode), checks trajectories on the card against the CPU, and times the
+kernels and the paths.
 
     python3 chip_smoke.py
 
@@ -44,8 +46,11 @@ MOMENT_REL = 1e-6
 MAIN_PATHS = 100_000_000
 MAIN_MONTHS = 360
 CHUNK = 1 << 24
+# paths of the kernel-against-plain checks at the main paths' months
+CHECK_PATHS = 1 << 20
 DEVICE = torch.device("cuda")
 _PE = "stock_market_monte_carlo_tpu/ops/pallas_engine.py"
+_PB = "stock_market_monte_carlo_tpu/ops/pallas_bands.py"
 _CSRC = "stock_market_monte_carlo_torch/csrc"
 KERNELS = {
     "month_loop": dict(source=f"{_CSRC}/month_loop.cu",
@@ -54,7 +59,19 @@ KERNELS = {
                                 replaces=f"{_PE}:1097"),
     "law": dict(source=f"{_CSRC}/terminal_law.cu", replaces=f"{_PE}:1445"),
     "clt": dict(source=f"{_CSRC}/clt.cu", replaces=f"{_PE}:1048"),
+    "bands_hist": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:249"),
+    "bands_cdf": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:494"),
 }
+BAND_BINS = 1024
+BAND_THRESHOLDS = 32
+# the median band of a 100M-path run against the exact marginal law
+BAND_MEDIAN_REL = 0.01
+BAND_MONTHS = (12, 120, 360)
+TRAJ_PATHS = 10_000
+# trajectories on the card against the CPU: the two devices' log1p and the
+# cumulative product's order differ in the last bits, which compound over
+# 360 months (the CPU tests hold the port to the JAX package at 3e-5)
+TRAJ_REL = 3e-5
 
 # Peak rates for the bounds: NVIDIA's H100 SXM data sheet (HBM, bf16 tensor
 # cores) and the Hopper architecture white paper (132 SMs, 4 sub-partitions
@@ -129,9 +146,9 @@ def _keep(strategy, n_periods):
 
 
 def _base(seed):
-    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+    from stock_market_monte_carlo_torch.engine import engine as eng
 
-    return int(ce.seed_base_i32(seed).view(np.uint32))
+    return eng._segment_base(seed, 0)
 
 
 def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
@@ -140,13 +157,7 @@ def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
     model (historical table or Gaussian a + b*z)."""
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    if model.kind == "historical":
-        table_np, n_table = ce._pad_table(model.returns_pct)
-        table = torch.as_tensor(table_np, device=DEVICE)
-        draw = dict(draw="historical", n_table=n_table)
-    else:
-        a, b = ce.gaussian_ab(model.mean_pct, model.std_pct)
-        table, draw = None, dict(draw="gaussian", a=a, b=b)
+    table, draw = ce.draw_operands(model, DEVICE)
     kw = dict(_common(model, strategy, n_periods, valid, n_paths, target,
                       tile0),
               strategy=strategy.kind,
@@ -168,6 +179,32 @@ def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
               seed_base=_base(seed) ^ ce.LAW_STREAM_XOR,
               inv_zmax=1.0 / tlaw.LAW_ZMAX, keep_finals=keep_finals)
     return (torch.as_tensor(fit.operand(), device=DEVICE),), kw
+
+
+def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
+                    tile0=0):
+    """(table, keep, coef_a, coef_b), kwargs of one band chunk with the
+    coefficients simulate_bands builds; ``kind`` "hist" or "cdf"."""
+    from stock_market_monte_carlo_torch.engine import bands as bands_eng
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+
+    centers, scales = bands_eng.band_grid(model, strategy, n_periods, 1000.0)
+    if kind == "hist":
+        ca, cb, _ = bands_eng.hist_coefficients(centers, scales, BAND_BINS,
+                                                1000.0)
+        reduce_kw = dict(n_bins=BAND_BINS)
+    else:
+        ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(
+            centers, scales, BAND_THRESHOLDS, 1000.0)
+        reduce_kw = dict(kappa_lo=klo, kappa_hi=khi,
+                         n_thresholds=BAND_THRESHOLDS)
+    table, draw = ce.draw_operands(model, DEVICE)
+    keep = (None if strategy.kind == "none"
+            else torch.as_tensor(_keep(strategy, n_periods), device=DEVICE))
+    kw = dict(n_periods=n_periods, seed_base=_base(seed), tile0=tile0,
+              valid=valid, n_paths=n_paths, v0=1000.0, **draw, **reduce_kw)
+    return (table, keep, torch.as_tensor(ca, device=DEVICE),
+            torch.as_tensor(cb, device=DEVICE)), kw
 
 
 def clt_chunk_args(variant, strategy, n_periods, valid, n_paths, target,
@@ -270,6 +307,28 @@ def compare_chunk(label, k_out, p_out, kw, finals_rel):
     return err, r
 
 
+def compare_counts(label, k_out, p_out, kind, valid):
+    """Band counts of the kernel against the plain version: equal bit for
+    bit; each histogram row holds ``valid`` paths, each counts-below row
+    is non-decreasing and at most ``valid``. Returns the largest absolute
+    difference (0)."""
+    torch.cuda.synchronize()
+    check(k_out.dtype == p_out.dtype == torch.int32
+          and k_out.shape == p_out.shape,
+          f"{label}: {k_out.dtype} {tuple(k_out.shape)} vs {p_out.dtype} "
+          f"{tuple(p_out.shape)}")
+    err = int((k_out.long() - p_out.long()).abs().max())
+    check(torch.equal(k_out, p_out), f"{label}: counts differ by {err}")
+    if kind == "hist":
+        check(bool((k_out.long().sum(1) == valid).all()),
+              f"{label}: a month's mass is not {valid}")
+    else:
+        check(bool((k_out.diff(dim=1) >= 0).all())
+              and int(k_out.max()) <= valid,
+              f"{label}: counts below not monotone or above {valid}")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Timing and bounds.
 # ---------------------------------------------------------------------------
@@ -328,7 +387,35 @@ def bound(name, ops, kw):
 
     valid = kw["valid"]
     tensor_flop = 0.0
-    if name.startswith("month_loop"):
+    if name.startswith("bands"):
+        t = kw["n_periods"]
+        if kw["draw"] == "historical":
+            n = kw["n_table"]
+            tail_n = n - (ops[0].numel() - 128)
+            per = _WORD + _IDX + 1 + 3 * (1.0 - tail_n / n) + 13
+        else:
+            per = _WORD + _NORMAL_Z + 2
+        keep = 0 if ops[1] is None else 1
+        if name.startswith("bands_hist"):
+            # fmaxf, logf, multiply, add, floorf, two clamps, convert, +1,
+            # the shared-memory atomic
+            reduce_ops, cells = 10, kw["n_bins"] + 2
+        else:
+            # what the count needs, not the kernel's binary search: the
+            # interior thresholds lie on an affine log grid, so the
+            # histogram's cell arithmetic and atomic give the cell; then a
+            # threshold load and a compare correct it, and two compares
+            # place the guard rows
+            k = kw["n_thresholds"]
+            reduce_ops = 10 + 4
+            cells = k + 1
+        # per path-month: draw, keep, compounding, reduction; per
+        # tile-month the draw key
+        scalar = (valid * t * (per + keep + 1 + reduce_ops)
+                  + (valid / ce.TILE_PATHS) * t * _WORD)
+        nbytes = (sum(x.numel() * x.element_size() for x in ops
+                      if x is not None) + t * cells * 4)
+    elif name.startswith("month_loop"):
         t = kw["n_periods"]
         strat = {"none": 0, "fixed_percent": 3, "variable_percent": 3,
                  "fixed_amount": 4}[kw["strategy"]]
@@ -405,8 +492,8 @@ def main():
     # 3. kernels against their plain versions on the card
     hist_model = smt.HistoricalBootstrap.from_csv()
     gauss = smt.GaussianReturns()
-    schedule = np.random.default_rng(7).uniform(0.0, 1.0, 360).astype(
-        np.float32)
+    schedule = np.random.default_rng(7).uniform(
+        0.0, 1.0, MAIN_MONTHS).astype(np.float32)
     strategies = {
         "none": smt.NoWithdrawal(),
         "fixed_percent": smt.FixedPercentWithdrawal(0.4),
@@ -431,7 +518,7 @@ def main():
 
     for n_periods, valid, n_paths, target in (
             (7, 8192 + 777, 2 * 8192, 1000.0),
-            (360, 1 << 20, 1 << 20, 5000.0)):
+            (MAIN_MONTHS, CHECK_PATHS, CHECK_PATHS, 5000.0)):
         for model, name in ((hist_model, "month_loop"),
                             (gauss, "month_loop_gaussian")):
             for sname, strategy in strategies.items():
@@ -446,9 +533,10 @@ def main():
             run_pair("clt", f"clt {variant} {valid}x{n_periods}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops, kw, CLT_REL)
     for keep_finals in (True, False):
-        ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, 1 << 20, 1 << 20,
-                                 5000.0, seed=9, keep_finals=keep_finals)
-        run_pair("law", f"law finals={keep_finals} {1 << 20}x{MAIN_MONTHS}",
+        ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, CHECK_PATHS,
+                                 CHECK_PATHS, 5000.0, seed=9,
+                                 keep_finals=keep_finals)
+        run_pair("law", f"law finals={keep_finals} {CHECK_PATHS}x{MAIN_MONTHS}",
                  ce.law_chunk, ce.law_chunk_plain, ops, kw, 0.0,
                  plain_kw=dict(kw, keep_finals=True))
     # ... and at the main paths' own chunks: the first, and the ragged
@@ -481,6 +569,34 @@ def main():
                      f"clt {variant} main chunk tile0={tile0} valid={valid}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops,
                      dict(kw, keep_finals=finals), CLT_REL, plain_kw=kw)
+
+    # 3b. the band kernels against their plain versions, bit for bit: both
+    # draws, with and without a percent strategy, at 2^20 x 360 and at the
+    # first and the ragged last chunk of a 100M run
+    from stock_market_monte_carlo_torch.ops import bands as bk
+
+    band_fns = {"bands_hist": ("hist", bk.month_hist_chunk,
+                               bk.month_hist_chunk_plain),
+                "bands_cdf": ("cdf", bk.month_cdf_chunk,
+                              bk.month_cdf_chunk_plain)}
+    for valid, n_paths, tile0 in ((CHECK_PATHS, CHECK_PATHS, 0),
+                                  (CHUNK, CHUNK, 0),
+                                  (MAIN_PATHS - last, CHUNK,
+                                   last // ce.TILE_PATHS)):
+        for model in (hist_model, gauss):
+            for sname in ("none", "fixed_percent"):
+                for name, (reduce_kind, chunk, plain) in band_fns.items():
+                    ops, kw = band_chunk_args(model, strategies[sname],
+                                              reduce_kind, MAIN_MONTHS,
+                                              valid, n_paths, seed=0,
+                                              tile0=tile0)
+                    label = (f"{name} {model.kind} {sname} valid={valid} "
+                             f"tile0={tile0}")
+                    err = compare_counts(label, chunk(*ops, **kw),
+                                         plain(*ops, **kw), reduce_kind,
+                                         valid)
+                    max_err[name] = max(max_err[name], err)
+                    say("3b", f"{label}: kernel == plain")
 
     # 4. goldens on the card
     f = smt.simulate_final_values(
@@ -545,11 +661,103 @@ def main():
                f"rel dev {dev:.2e}), std {res.std!r}, count_below "
                f"{res.count_below}")
 
+    # 5b. bands at 100M x 360, each counted on its own
+    from stock_market_monte_carlo_torch.ops import analytic as ana
+
+    band_paths = {
+        # kernel key: (label, model, simulate_bands keywords)
+        "bands_hist": ("historical bands (hist)", hist_model,
+                       dict(band_mode="hist", n_bins=BAND_BINS)),
+        "bands_cdf": ("Gaussian bands (cdf)", gauss,
+                      dict(band_mode="cdf", n_thresholds=BAND_THRESHOLDS)),
+    }
+    qs = (0.05, 0.5, 0.95)
+
+    def exact_marginals(model):
+        if model.kind == "gaussian":
+            return ana.marginal_value_quantiles(
+                "gaussian", (model.mean_pct, model.std_pct), MAIN_MONTHS,
+                1000.0, qs)
+        return ana.marginal_value_quantiles(
+            "bootstrap", model.returns_pct.astype(np.float64), MAIN_MONTHS,
+            1000.0, qs)
+
+    def band_run(key):
+        _, model, kw = band_paths[key]
+        return smt.simulate_bands(model, MAIN_PATHS, MAIN_MONTHS,
+                                  quantile_levels=qs, sample_paths=32, **kw)
+
+    for key, (label, model, kw) in band_paths.items():
+        ce.reset_launch_counts()
+        res = band_run(key)
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        launches[key] = counts[key]
+        want = dict({k: 0 for k in counts}, **{key: n_chunks})
+        check(counts == want, f"{label}: launches {counts}")
+        mh = res.month_hist
+        if kw["band_mode"] == "hist":
+            check(bool((mh.sum(axis=1) == MAIN_PATHS).all()),
+                  f"{label}: month masses {mh.sum(axis=1)}")
+            mass = "every month's histogram holds 1e8 paths"
+        else:
+            # every path lies between the -14 and +14 sigma guards
+            check(bool((mh[:, -1] == MAIN_PATHS).all()
+                       and (mh[:, 0] == 0).all()
+                       and (np.diff(mh, axis=1) >= 0).all()),
+                  f"{label}: guard counts {mh[:, 0]} {mh[:, -1]}")
+            mass = "every month's 1e8 paths between the guards"
+        exact = exact_marginals(model)
+        devs = [rel(res.values[1, t], exact[1, t]) for t in BAND_MONTHS]
+        check(max(devs) <= BAND_MEDIAN_REL,
+              f"{label}: median vs exact marginal rel {devs}")
+        check(res.sample_paths.shape == (32, MAIN_MONTHS + 1)
+              and np.isfinite(res.sample_paths).all(),
+              f"{label}: sample paths {res.sample_paths.shape}")
+        say("5b", f"{label} 100M x 360: {counts[key]} launches of {key}, "
+                  f"{mass}; median at months {BAND_MONTHS}: "
+                  f"{[float(res.values[1, t]) for t in BAND_MONTHS]} vs "
+                  f"exact {[float(exact[1, t]) for t in BAND_MONTHS]} "
+                  f"(rel {devs})")
+    res = smt.simulate_bands(gauss, MAIN_PATHS, MAIN_MONTHS, quantile_levels=qs,
+                             sample_paths=32, band_mode="analytic")
+    check(np.array_equal(res.values, exact_marginals(gauss))
+          and res.sample_paths.shape == (32, MAIN_MONTHS + 1),
+          "analytic bands")
+    say("5b", "analytic bands: the exact marginals, 32 sample paths drawn "
+              "on the card")
+
+    # 5c. trajectories on the card against the same call on the CPU
+    for model in (gauss, hist_model):
+        for sname in ("none", "fixed_percent"):
+            args = (model, TRAJ_PATHS, MAIN_MONTHS, 1000.0, 11,
+                    strategies[sname])
+            got = smt.simulate_paths(*args)
+            want = smt.simulate_paths(*args, options=smt.EngineOptions(
+                device="cpu"))
+            r = float(np.max(np.abs(got / want - 1.0)))
+            check(got.shape == (TRAJ_PATHS, MAIN_MONTHS + 1)
+                  and np.isfinite(got).all() and r <= TRAJ_REL,
+                  f"simulate_paths {model.kind} {sname}: rel {r}")
+            say("5c", f"simulate_paths {model.kind} {sname} {TRAJ_PATHS} x "
+                      f"{MAIN_MONTHS}: card vs CPU max rel {r} (bar "
+                      f"{TRAJ_REL})")
+    res = smt.run(hist_model, 1 << 20, MAIN_MONTHS, keep_trajectories=16,
+                  options=smt.EngineOptions(trajectory_dtype="bfloat16"))
+    want = smt.simulate_paths(hist_model, 16, MAIN_MONTHS, dtype="bfloat16")
+    check(np.array_equal(res.trajectories, want),
+          "run(keep_trajectories) differs from simulate_paths")
+    say("5c", "run(keep_trajectories=16, bfloat16) == simulate_paths")
+
     # 6. timings: walls of the main paths, then per 2^24-path chunk at 360
     # months the kernel alone (the launcher's bare C call, uncounted), the
     # counted wrapper (kernel plus its torch epilogue) and the plain version
     for key, (label, _, _, _) in main_paths.items():
         wall, reps = wall_median(lambda: main_run(key))
+        say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
+               f"{reps}")
+    for key, (label, _, _) in band_paths.items():
+        wall, reps = wall_median(lambda: band_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
                f"{reps}")
     none = smt.NoWithdrawal()
@@ -579,10 +787,23 @@ def main():
                                            seed=0),
                             clt.clt_launcher, clt.clt_chunk,
                             clt.clt_chunk_plain, 5, 1)
+    band_kinds = {"bands_hist": (hist_model, "hist"),
+                  "bands_hist_gaussian": (gauss, "hist"),
+                  "bands_cdf": (gauss, "cdf"),
+                  "bands_cdf_historical": (hist_model, "cdf")}
+    band_launchers = {"hist": bk.month_hist_launcher,
+                      "cdf": bk.month_cdf_launcher}
+    for key, (model, reduce_kind) in band_kinds.items():
+        _, wrapper, plain = band_fns["bands_" + reduce_kind]
+        launcher = band_launchers[reduce_kind]
+        chunk_cases[key] = (band_chunk_args(model, none, reduce_kind,
+                                            MAIN_MONTHS, CHUNK, CHUNK,
+                                            seed=0),
+                            launcher, wrapper, plain, 5, 1)
     timings = {}
     for key, ((ops, kw), launcher, wrapper, plain, reps,
               plain_reps) in chunk_cases.items():
-        if not key.startswith("law_"):
+        if "keep_finals" in kw and not key.startswith("law_"):
             kw = dict(kw, keep_finals=False)
         launch, _ = launcher(*ops, **kw)
         ms = device_ms(launch, reps)

@@ -7,12 +7,15 @@ kernels (``csrc/``), and on the CPU with their plain PyTorch versions
 counter stream, so a run here reproduces a JAX run under
 ``SMMC_PRNG_IMPL=arith``. It imports neither jax nor the JAX package.
 
-Ported so far: ``simulate_stats`` / ``simulate_final_values`` /
-``simulate`` / ``run`` on ``HistoricalBootstrap`` and ``GaussianReturns``:
-the month loop (historical bootstrap or Gaussian ICDF draw), the CLT
-Gaussian sampler (``EngineOptions(gaussian_sampler="clt" | "clt-prefix")``)
-and, with ``EngineOptions(terminal_law=True)``, the terminal law. The
-sampler is chosen as the JAX package chooses it. What is not ported raises
+Ported so far, on ``HistoricalBootstrap`` and ``GaussianReturns``:
+``simulate_stats`` / ``simulate_final_values`` / ``simulate`` / ``run``
+through the month loop (historical bootstrap or Gaussian ICDF draw), the
+CLT Gaussian sampler (``EngineOptions(gaussian_sampler="clt" |
+"clt-prefix")``) or, with ``EngineOptions(terminal_law=True)``, the
+terminal law, chosen as the JAX package chooses it, with seed segments
+past ``seed_segment_paths``; ``simulate_bands`` (hist, cdf and analytic
+modes) on the band kernels; and ``simulate_paths`` / ``run(
+keep_trajectories=...)`` on the threefry stream. What is not ported raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -37,9 +40,13 @@ from stock_market_monte_carlo_torch.engine.engine import (
     rqmc_estimate,
     run,
     simulate,
-    simulate_bands,
     simulate_final_values,
+    simulate_paths,
     simulate_stats,
+)
+from stock_market_monte_carlo_torch.engine.bands import (
+    TrajectoryBands,
+    simulate_bands,
 )
 from stock_market_monte_carlo_torch.engine.results import SimulationResult
 from stock_market_monte_carlo_torch.data.loader import (
@@ -64,8 +71,10 @@ __all__ = [
     "simulate",
     "simulate_final_values",
     "simulate_stats",
+    "simulate_paths",
     "run",
     "simulate_bands",
+    "TrajectoryBands",
     "rqmc_estimate",
     "SimulationResult",
     "read_historical_returns",

@@ -42,8 +42,6 @@ class EngineOptions:
       the Gaussian ICDF month loop elsewhere. The CLT kernel has no
       finals-free variant (``SMMC_CLT_FINALSFREE``): it writes finals only
       when asked for them, which is the same thing.
-    - ``trajectory_dtype``: only ``"float32"`` runs; trajectories are not
-      ported (ROADMAP queue 1 item 10).
     """
 
     backend: str = "auto"
@@ -63,9 +61,11 @@ class EngineOptions:
     # (ops/terminal_law.py) instead of looping the months.
     terminal_law: bool = False
     fuse_chunks: int = 64
-    # Runs larger than one segment need threefry-keyed segment streams
-    # (ROADMAP queue 1 item 8); the port raises for them.
+    # Runs larger than this run as seed segments, each on its own
+    # threefry-keyed stream.
     seed_segment_paths: int = 1 << 31
+    # run(keep_trajectories=...) trajectories: "float32" or "bfloat16"
+    # (rounded, returned as float32).
     trajectory_dtype: str = "float32"
     # Where the chunks run: "cuda" (the kernels) or "cpu" (plain versions).
     device: str = "cuda"

@@ -72,30 +72,6 @@ struct Args {
   int* hist;           // (hb,) or null
 };
 
-// Historical growth of path `pos` (lane `lane`, row start `row0`) in the
-// month keyed by h: the sliced-rotation bootstrap draw of word w.
-__device__ __forceinline__ float bootstrap_growth(const float* s_table,
-                                                  uint32_t n_table,
-                                                  uint32_t tail_n,
-                                                  uint32_t k_full, uint32_t h,
-                                                  uint32_t w, uint32_t lane,
-                                                  uint32_t row0) {
-  // dest role: column of this path's draw
-  const uint32_t idx_dest = idx_exact(w, n_table);
-  uint32_t w_col;
-  if (idx_dest < tail_n) {
-    w_col = idx_dest;
-  } else {
-    const uint32_t w0 = lane == 0 ? w : arith_word(h, row0);
-    w_col = (lane + (w0 & 127u)) & 127u;
-  }
-  // source role of lane w_col: its chunk row c'
-  const uint32_t ws = w_col == lane ? w : arith_word(h, row0 + w_col);
-  const uint32_t n_valid = w_col < tail_n ? k_full : k_full - 1u;
-  const uint32_t cprime = idx_exact(ws * n_table, n_valid);
-  return s_table[cprime * 128u + w_col];
-}
-
 template <int DRAW, int STRATEGY>
 __global__ void __launch_bounds__(kBlock) month_loop_kernel(const Args g) {
   extern __shared__ __align__(16) unsigned char smem[];

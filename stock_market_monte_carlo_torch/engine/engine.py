@@ -2,7 +2,7 @@
 
 Counterpart of ``stock_market_monte_carlo_tpu/engine/engine.py`` on its
 Pallas backend, for the slice the port covers: ``simulate_stats``,
-``simulate_final_values``, ``simulate`` and ``run`` on
+``simulate_final_values``, ``simulate``, ``run`` and ``simulate_paths`` on
 ``HistoricalBootstrap`` and ``GaussianReturns`` models. The sampler is
 chosen as the JAX package chooses it on its Pallas backend
 (``_effective_sampler``): the month loop with the historical or the
@@ -14,12 +14,18 @@ the device to one float32 stats row and a histogram
 (``ops/cuda_engine.py``); the host merges the rows in float64, in chunk
 order (``_absorb``). When nothing consumes per-chunk results (no progress
 or stream callback, no finals), every chunk is launched before the first
-host sync, in batches of at most ``_DEFER_FLUSH_CHUNKS``.
+host sync, in batches of at most ``_DEFER_FLUSH_CHUNKS``. Runs past
+``EngineOptions.seed_segment_paths`` paths run as seed segments, each on
+its own stream, as the JAX package runs them.
+
+Trajectories (``simulate_paths``, ``run(keep_trajectories=...)``) come
+from the threefry stream (``ops/threefry.py``) through ``sample_growth``
+and ``compound_paths``: plain torch on the device, as the JAX package runs
+them as XLA. Bands are ``engine/bands.py``.
 
 Out of this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: checkpoints, meshes, runs past one seed segment,
-trajectories, Sobol models, the reference-parity stream, trajectory bands
-and RQMC.
+item that ports them: checkpoints, meshes, Sobol models, the
+reference-parity stream and RQMC.
 """
 
 from __future__ import annotations
@@ -42,8 +48,15 @@ from stock_market_monte_carlo_torch.models.strategies import (
 from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine
 from stock_market_monte_carlo_torch.ops import reductions as red
+from stock_market_monte_carlo_torch.ops import threefry
 
 KEY_TILE = cuda_engine.TILE_PATHS
+
+# fold_in tag of seed-segment keys: segment s >= 1 draws under
+# fold_in(key(seed), _SEG_FOLD + s) (the JAX package's engine._SEG_FOLD)
+_SEG_FOLD = 0x5E6C0000
+# fold_in tag of the scramble key (read by the Sobol models only)
+_SCRAMBLE_FOLD = 0x50B0
 
 # deferred-absorb queue bound: flush (one stacked fetch + f64 merges)
 # every N chunks so device memory stays O(N), not O(n_chunks)
@@ -213,36 +226,36 @@ def _effective_sampler(model, strategy, options: EngineOptions) -> str:
     return "icdf"
 
 
-def _check_slice(model, options, n_paths: int) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP
+def _check_slice(model) -> None:
+    """Raise for models the port does not run yet, naming their ROADMAP
     item (queue 1) so the next slice knows where to start."""
     if model.kind not in ("gaussian", "historical"):
         raise NotImplementedError(
             f"{model.kind!r} models are not ported yet (ROADMAP queue 1 "
             "item 11: Sobol and RQMC)"
         )
-    if options.trajectory_dtype != "float32":
-        raise NotImplementedError(
-            f"trajectory_dtype={options.trajectory_dtype!r}: trajectories "
-            "are not ported yet (ROADMAP queue 1 item 10)"
-        )
-    if n_paths > options.seed_segment_paths:
-        raise NotImplementedError(
-            f"n_paths={n_paths} exceeds one seed segment "
-            f"({options.seed_segment_paths}); segment keys need threefry "
-            "fold_in, not ported yet (ROADMAP queue 1 items 3 and 8)"
-        )
 
 
 def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
-                  draws_bootstrap: bool = True) -> None:
+                  draws_bootstrap: bool = True,
+                  seg_paths: Optional[int] = None) -> None:
     """Hard limits of the RNG index spaces: oversized runs error instead
-    of wrapping (global path offsets are uint32)."""
+    of wrapping (global path offsets are uint32). ``seg_paths``
+    (simulate_stats only) arms seed segmentation: runs larger than one
+    segment re-key each segment's stream, so only the per-segment offset
+    space must fit in uint32."""
     if n_paths <= 0:
         raise ValueError(f"n_paths must be positive, got {n_paths}")
     if n_periods <= 0:
         raise ValueError(f"n_periods must be positive, got {n_periods}")
-    if n_paths > (1 << 32) - per_dispatch:
+    if seg_paths is not None and n_paths > seg_paths:
+        if seg_paths > (1 << 32) - per_dispatch:
+            raise ValueError(
+                f"seed_segment_paths={seg_paths} leaves no uint32 offset "
+                f"headroom for a {per_dispatch}-path dispatch; lower "
+                "seed_segment_paths or chunk_paths"
+            )
+    elif n_paths > (1 << 32) - per_dispatch:
         raise ValueError(
             f"n_paths={n_paths} exceeds the uint32 global-path-offset space "
             f"(limit {(1 << 32) - per_dispatch} at this chunk size); split "
@@ -274,6 +287,16 @@ def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _segment_base(seed: int, segment: int) -> int:
+    """uint32 stream base of a seed segment: that of ``key(seed)`` for
+    segment 0, of ``fold_in(key(seed), _SEG_FOLD + segment)`` after
+    (engine._segment_keys and pallas_engine._seed_base_i32)."""
+    key = threefry.key(seed)
+    if segment:
+        key = threefry.fold_in(key, _SEG_FOLD + segment)
+    return cuda_engine.key_seed_base(*threefry.key_data(key))
 
 
 def _resolve_device(options: EngineOptions) -> torch.device:
@@ -329,11 +352,11 @@ class StreamUpdate:
         return red.prob_below_from_histogram(self.spec, self.hist, amount)
 
 
-def _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev):
+def _chunk_fn(model, strategy, n_periods, v0f, options, dev):
     """The chunk function of this run, with its run-constant operands
-    uploaded once: ``fn(offset=, valid=, n_paths=, **common)``, where
-    ``offset`` is the chunk's first global path."""
-    base = int(cuda_engine.seed_base_i32(seed).view(np.uint32))
+    uploaded once: ``fn(base, offset, valid=, n_paths=, **common)``, where
+    ``base`` is the seed segment's uint32 stream base (``_segment_base``)
+    and ``offset`` the chunk's first path in the segment."""
     sampler = _effective_sampler(model, strategy, options)
     if sampler == "law":
         from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
@@ -342,7 +365,7 @@ def _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev):
         fit = tlaw.fit_terminal_law(model, strategy, n_periods, v0f)
         law = torch.as_tensor(fit.operand(), device=dev)
 
-        def fn(offset, **kw):
+        def fn(base, offset, **kw):
             return cuda_engine.law_chunk(
                 law, seed_base=base ^ cuda_engine.LAW_STREAM_XOR,
                 tile0=offset // KEY_TILE, inv_zmax=1.0 / tlaw.LAW_ZMAX, **kw)
@@ -365,7 +388,7 @@ def _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev):
                      if variant == "prefix" else None)
         p_tile = clt.tile_paths(variant)
 
-        def fn(offset, **kw):
+        def fn(base, offset, **kw):
             return clt.clt_chunk(
                 q, arow, cs, keep_rows, variant=variant,
                 seed_base=base ^ clt.CLT_STREAM_XOR, tile0=offset // p_tile,
@@ -373,17 +396,10 @@ def _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev):
         return fn
 
     keep = torch.as_tensor(keep_np, device=dev)
-    if model.kind == "historical":
-        table_np, n_table = cuda_engine._pad_table(model.returns_pct)
-        draw = dict(draw="historical", n_table=n_table)
-        table = torch.as_tensor(table_np, device=dev)
-    else:
-        a, b = cuda_engine.gaussian_ab(model.mean_pct, model.std_pct)
-        draw = dict(draw="gaussian", a=a, b=b)
-        table = None
+    table, draw = cuda_engine.draw_operands(model, dev)
     amount = float(getattr(strategy, "amount", 0.0))
 
-    def fn(offset, **kw):
+    def fn(base, offset, **kw):
         return cuda_engine.month_loop_chunk(
             table, keep, strategy=strategy.kind, amount=amount,
             n_periods=n_periods, seed_base=base, tile0=offset // KEY_TILE,
@@ -415,7 +431,10 @@ def simulate_stats(
 
     ``progress(done, n_paths)`` and ``stream(StreamUpdate)`` are called
     after every absorbed chunk; ``keep_final_values`` collects per-path
-    finals on the host.
+    finals on the host. Runs larger than ``options.seed_segment_paths``
+    are partitioned into seed segments, each drawing its own stream
+    (segment 0 under the plain seed), merged by the same float64 host
+    merges that combine chunks; no chunk straddles a segment boundary.
     """
     t_start = time.perf_counter()
     if mesh is not None:
@@ -427,10 +446,11 @@ def simulate_stats(
         raise NotImplementedError(
             "checkpoint_path is not ported yet (ROADMAP queue 1 item 8)"
         )
-    _check_slice(model, options, n_paths)
+    _check_slice(model)
     dev = _resolve_device(options)
     _validate_run(model, n_paths, options.chunk_paths, n_periods,
-                  draws_bootstrap=not options.terminal_law)
+                  draws_bootstrap=not options.terminal_law,
+                  seg_paths=options.seed_segment_paths)
     v0f = float(initial_capital)
     if not (v0f > 0.0 and np.isfinite(v0f)):
         raise ValueError(
@@ -449,7 +469,7 @@ def simulate_stats(
         model, strategy, n_periods, initial_capital, options.histogram_bins
     )
     chunk_b = options.chunk_paths
-    fn = _chunk_fn(model, strategy, n_periods, seed, v0f, options, dev)
+    fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev)
     shift_c = analytic_moment_shift(model, strategy, n_periods)
     common = dict(
         v0=v0f, target=np.inf if target_amount is None else target_amount,
@@ -470,6 +490,10 @@ def simulate_stats(
     done = 0
     offset = 0
     remaining = n_paths
+    seg_paths = options.seed_segment_paths
+    segmented = n_paths > seg_paths
+    seg = 0
+    base = _segment_base(seed, 0)
     defer_absorb = stream is None and progress is None and not keep_finals
 
     def _flush_deferred():
@@ -498,14 +522,23 @@ def simulate_stats(
             ))
 
     while remaining > 0:
-        this_valid = min(remaining, chunk_b)
+        cap = remaining
+        if segmented:
+            done_v = n_paths - remaining
+            if done_v // seg_paths != seg:
+                # a fresh segment: its own stream, offsets from 0
+                seg = done_v // seg_paths
+                offset = 0
+                base = _segment_base(seed, seg)
+            cap = min(remaining, (seg + 1) * seg_paths - done_v)
+        this_valid = min(cap, chunk_b)
         if n_paths > chunk_b:
             b = chunk_b
         else:
             # bucket small runs to a power of two of at least one tile
             b = _round_up(this_valid, KEY_TILE)
             b = min(chunk_b, 1 << (b - 1).bit_length())
-        out = fn(offset=offset, valid=this_valid, n_paths=b, **common)
+        out = fn(base, offset, valid=this_valid, n_paths=b, **common)
         if defer_absorb:
             deferred.append((out[0], out[1], done + this_valid, this_valid))
             done += this_valid
@@ -602,6 +635,119 @@ def simulate_final_values(
     return result.final_values
 
 
+# ---------------------------------------------------------------------------
+# Trajectories: the threefry stream, plain torch on the device.
+# ---------------------------------------------------------------------------
+
+
+def sample_growth(model, root_key, scramble_key, path_offset, shape):
+    """(B, T) float32 growth factors (100 + r)/100 for paths [path_offset,
+    path_offset + B) of the segment keyed by ``root_key`` (a threefry key
+    on the run's device). ``B`` is a multiple of KEY_TILE: each 8192-path
+    tile draws under ``fold_in(root_key, tile)``, so a path's draws depend
+    only on (seed, its position). ``scramble_key`` is read by the Sobol
+    models only."""
+    del scramble_key
+    b, t = shape
+    if getattr(model, "is_quasi", False):
+        raise NotImplementedError(
+            "quasi-random models are not ported yet (ROADMAP queue 1 item "
+            "11: Sobol and RQMC)"
+        )
+    if getattr(model, "rng", "counter") == "reference":
+        raise NotImplementedError(
+            "the reference-parity stream is not ported yet (ROADMAP queue 1 "
+            "item 12)"
+        )
+    if b % KEY_TILE:
+        raise ValueError(f"{b} paths: not a multiple of {KEY_TILE}")
+    first = (int(path_offset) & cuda_engine.MASK32) // KEY_TILE
+    tiles = (first + torch.arange(b // KEY_TILE, device=root_key[0].device)
+             ) & cuda_engine.MASK32
+    r = model.sample_returns_pct(threefry.fold_in(root_key, tiles),
+                                 (KEY_TILE, t))
+    return (100.0 + r.reshape(b, t)) * cuda_engine._f32(0.01)
+
+
+def compound_paths(growth, v0, strategy):
+    """(B, T+1) trajectories from (B, T) growth, month 0 = v0. Percent
+    strategies as v0 * cumprod(growth * keep); a fixed amount month by
+    month as max(V * g - amount, 0)."""
+    b, t = growth.shape
+    v0 = cuda_engine._f32(v0)
+    first = torch.full((b, 1), v0, dtype=torch.float32, device=growth.device)
+    if _is_multiplicative(strategy):
+        keep = torch.as_tensor(_keep_factors_np(strategy, t),
+                               device=growth.device)
+        return torch.cat([first, v0 * torch.cumprod(growth * keep, dim=1)],
+                         dim=1)
+    amount = cuda_engine._f32(strategy.amount)
+    cols = [first[:, 0]]
+    for m in range(t):
+        cols.append(torch.clamp_min(cols[-1] * growth[:, m] - amount, 0.0))
+    return torch.stack(cols, dim=1)
+
+
+def _check_paths(n_paths: int, n_periods: int, dtype: str) -> None:
+    """simulate_paths' argument checks, which run() makes before its stats
+    run."""
+    est_bytes = 4 * (n_paths + KEY_TILE) * (n_periods + 1) * 3
+    if est_bytes > 8 << 30:
+        raise ValueError(
+            f"simulate_paths would materialize ~{est_bytes / 2**30:.0f} GiB "
+            f"of trajectories ({n_paths} paths x {n_periods + 1} months); "
+            "use simulate_stats/simulate_final_values for statistics at "
+            "scale, or cap the trajectory count (run(keep_trajectories=N))."
+        )
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be float32|bfloat16, got {dtype!r}")
+
+
+def simulate_paths(
+    model,
+    n_paths: int,
+    n_periods: int,
+    initial_capital: float = 1000.0,
+    seed: int = 0,
+    strategy=NoWithdrawal(),
+    path_offset: int = 0,
+    dtype: str = "float32",
+    options: EngineOptions = EngineOptions(),
+) -> np.ndarray:
+    """(n_paths, n_periods+1) float32 host trajectories, month 0 = capital:
+    rows [path_offset, path_offset + n_paths) of the seed's stream, for
+    visualization-scale path counts (memory is O(n_paths * n_periods)).
+
+    The window aligns down to the 8192-path tile and the lead rows are
+    dropped, so any ``path_offset`` returns exactly those rows.
+    ``dtype="bfloat16"`` rounds the trajectories to bfloat16; the array is
+    float32 either way. Runs on ``options.device``, in chunks of two
+    tiles.
+    """
+    _check_paths(n_paths, n_periods, dtype)
+    _check_slice(model)
+    dev = _resolve_device(options)
+    lead = int(path_offset) % KEY_TILE
+    base = int(path_offset) - lead
+    b = _round_up(lead + n_paths, KEY_TILE)
+    root_key = threefry.key(seed, dev)
+    scramble_key = threefry.fold_in(root_key, _SCRAMBLE_FOLD)
+    out = np.empty((n_paths, n_periods + 1), np.float32)
+    chunk = 2 * KEY_TILE
+    for off in range(0, b, chunk):
+        rows = min(chunk, b - off)
+        part = compound_paths(
+            sample_growth(model, root_key, scramble_key, base + off,
+                          (rows, n_periods)), initial_capital, strategy)
+        if dtype == "bfloat16":
+            part = part.to(torch.bfloat16).to(torch.float32)
+        # window rows [off, off + rows) against the kept [lead, lead + n)
+        lo, hi = max(off, lead), min(off + rows, lead + n_paths)
+        if hi > lo:
+            out[lo - lead:hi - lead] = part[lo - off:hi - off].cpu().numpy()
+    return out
+
+
 def simulate(config, model, strategy=NoWithdrawal(),
              options: EngineOptions = EngineOptions(), mesh=None,
              progress=None) -> SimulationResult:
@@ -627,24 +773,22 @@ def run(
     keep_trajectories: int = 0,
     stream: Optional[Callable[[StreamUpdate], None]] = None,
 ) -> SimulationResult:
-    """One-call experiment: fused stats (trajectories are not ported)."""
-    if keep_trajectories > 0:
-        raise NotImplementedError(
-            "run(keep_trajectories>0) needs simulate_paths, whose draws "
-            "come from threefry; not ported yet (ROADMAP queue 1 item 10)"
-        )
-    return simulate_stats(
+    """One-call experiment: fused stats plus, with ``keep_trajectories``,
+    that many trajectories (``simulate_paths`` in
+    ``options.trajectory_dtype``) for fan plots."""
+    k = min(keep_trajectories, n_paths)
+    if k > 0:
+        _check_paths(k, n_periods, options.trajectory_dtype)
+    result = simulate_stats(
         model, n_paths, n_periods, initial_capital, seed, strategy,
         target_amount, options, mesh, progress, stream=stream,
     )
-
-
-def simulate_bands(*args, **kwargs):
-    """Per-month trajectory bands: not ported yet."""
-    raise NotImplementedError(
-        "simulate_bands is not ported yet (ROADMAP queue 1 item 10: "
-        "trajectories and bands)"
-    )
+    if k > 0:
+        result.trajectories = simulate_paths(
+            model, k, n_periods, initial_capital, seed, strategy,
+            dtype=options.trajectory_dtype, options=options,
+        )
+    return result
 
 
 def rqmc_estimate(*args, **kwargs):

@@ -5,9 +5,12 @@ and ``kind`` tags. Returns are in percent per month; a month compounds as
 ``V *= (100 + r) / 100``. Bootstrap draws are i.i.d. uniform over table
 rows, with replacement.
 
-The port samples only the counter stream (``rng="counter"``): the JAX
-package's arithmetic stream (``SMMC_PRNG_IMPL=arith``). The reference-parity
-stream (``rng="reference"``) and the Sobol models are not ported yet.
+The kernels sample the counter stream (``rng="counter"``): the JAX
+package's arithmetic stream (``SMMC_PRNG_IMPL=arith``). Trajectories
+(``engine.sample_growth``) draw from the threefry stream through
+``sample_returns_pct``, as the JAX package's XLA paths do. The
+reference-parity stream (``rng="reference"``) and the Sobol models are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import dataclasses
 from typing import Union
 
 import numpy as np
+import torch
 
 from stock_market_monte_carlo_torch.config import (
     DEFAULT_GAUSSIAN_MEAN_PCT,
@@ -25,17 +29,21 @@ from stock_market_monte_carlo_torch.config import (
 
 @dataclasses.dataclass(frozen=True)
 class GaussianReturns:
-    """Monthly returns ~ N(mean_pct, std_pct), in percent.
-
-    In this port a Gaussian model runs only with
-    ``EngineOptions(terminal_law=True)``; the month-loop ICDF kernel is
-    ROADMAP queue 1 item 7.
-    """
+    """Monthly returns ~ N(mean_pct, std_pct), in percent."""
 
     mean_pct: float = DEFAULT_GAUSSIAN_MEAN_PCT
     std_pct: float = DEFAULT_GAUSSIAN_STD_PCT
 
     kind = "gaussian"
+
+    def sample_returns_pct(self, key, shape) -> torch.Tensor:
+        """float32 returns of ``shape`` per key of the batch ``key``:
+        mean + std * ``jax.random.normal``, in float32."""
+        from stock_market_monte_carlo_torch.ops import threefry
+
+        return (float(np.float32(self.mean_pct))
+                + float(np.float32(self.std_pct))
+                * threefry.normal(key, shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +81,14 @@ class HistoricalBootstrap:
         )
 
         return cls(returns_pct=read_historical_returns(path), rng=rng)
+
+    def sample_returns_pct(self, key, shape) -> torch.Tensor:
+        """float32 returns of ``shape`` per key of the batch ``key``: table
+        rows drawn by ``jax.random.randint``, looked up by a gather."""
+        from stock_market_monte_carlo_torch.ops import threefry
+
+        table = torch.tensor(self.returns_pct, device=key[0].device)
+        return table[threefry.randint(key, shape, 0, table.shape[0])]
 
 
 MarketModel = Union[GaussianReturns, HistoricalBootstrap]

@@ -1,18 +1,21 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``csrc/`` compile into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds):
+interface (no PyTorch headers, so the build takes seconds). Each source
+compiles in its own nvcc process, all started together, then one nvcc
+links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/torch_kernels/libsmmc_cuda_<hash>.so
-         csrc/month_loop.cu csrc/terminal_law.cu csrc/clt.cu
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu   (each source)
+    nvcc -shared -o build/torch_kernels/libsmmc_cuda_<hash>.so *.o
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into an fma, which
 would round differently from the JAX package and the plain versions (the
-withdrawn total, the centred moments, the Clenshaw step). The library is
-built at first use into ``build/torch_kernels`` at the repository root
-(resolved from this file, not from the working directory) and named by a
-hash of the sources and flags, so an edited source is rebuilt.
+withdrawn total, the centred moments, the Clenshaw step, the band bins).
+The library is built at first use into ``build/torch_kernels`` at the
+repository root (resolved from this file, not from the working directory)
+and named by a hash of the sources and flags, so an edited source is
+rebuilt.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("month_loop.cu", "terminal_law.cu", "clt.cu")
+SOURCES = ("month_loop.cu", "terminal_law.cu", "clt.cu", "bands.cu")
 HEADERS = ("smmc_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -44,6 +47,8 @@ _ARGTYPES = {
                  _vp, _vp, _vp, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,
                  _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
+    "smmc_bands": (_i, _i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _vp, _i, _u,
+                   _u, _i, _f, _i, _f, _f, _vp, _i, _vp),
 }
 
 _LIB = None
@@ -69,6 +74,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsmmc_cuda_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails; return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the library unless it is already built; return its path.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
@@ -77,19 +96,21 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS]
+    nvcc = _find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    extra = ["-Xptxas", "-v"] if verbose else []
+    try:
+        report = _run_all([
+            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj),
+             str(CSRC_DIR / src)] for src, obj in zip(SOURCES, objs)])
+        tmp = out.with_name(f"{tag}.tmp.so")
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(CSRC_DIR / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
+        print(report, end="")
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,246 @@
+"""The per-month band kernels: the month loop with a reduction of every
+month's values, as hand-written CUDA kernels and their plain PyTorch
+versions.
+
+Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_bands.py``:
+
+- ``month_hist_chunk`` replaces ``_build_bands_kernel`` (``pl.pallas_call``
+  in ``_build_bands_call``), run by ``pallas_chunk_month_hist``: each
+  month's values binned into ``n_bins + 2`` cells at
+  ``clip(floor(log(max(V, 1e-37)) * A_t + B_t) + 1, 0, n_bins + 1)``;
+- ``month_cdf_chunk`` replaces ``_build_cdf_kernel`` (``_build_cdf_call``),
+  run by ``pallas_chunk_month_cdf``: each month, the count of values below
+  each of K thresholds ``exp(A_t + kk_k * B_t)``, where kk_k is k except
+  the guard rows 0 and K-1 at ``kappa_lo`` and ``kappa_hi``.
+
+Source ``csrc/bands.cu``. Both run the month step of ``csrc/month_loop.cu``
+(historical bootstrap or Gaussian ICDF draw on the arithmetic counter
+stream) with the keep factor of a percent strategy folded into the growth
+first, ``V *= g * keep``, as the JAX kernels do; so a seed, offset and
+months give the sample of the stats kernels. Both emit months 1..T of one
+chunk; month 0 (every path at v0) is the caller's. Counts are int32 (at
+most 2^24 per cell per chunk).
+
+Each wrapper takes its plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; there is no fallback. Launches
+count under ``cuda_engine.LAUNCHES["bands_hist"]`` and ``["bands_cdf"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+
+TILE_PATHS = ce.TILE_PATHS
+CDF_THRESHOLDS = 32
+# the JAX kernel's VMEM budget for its (T*K, 128) int32 accumulator;
+# cdf_supported keeps its cap so the same inputs are accepted
+_CDF_VMEM_CAP = 8 << 20
+# shared memory of one block: the 32 KB of a tile's running values, the
+# table and two month histograms must fit under the opt-in maximum
+_MAX_SMEM = 227 * 1024
+
+
+def bands_supported(model, strategy_kind: str) -> bool:
+    """The band kernels' models and strategies
+    (``pallas_bands.bands_supported``)."""
+    return (
+        model.kind in ("gaussian", "historical")
+        and getattr(model, "rng", "counter") == "counter"
+        and strategy_kind in ("none", "fixed_percent", "variable_percent")
+    )
+
+
+def cdf_supported(model, strategy_kind: str, n_periods: int,
+                  n_thresholds: int = CDF_THRESHOLDS) -> bool:
+    """CDF band mode's inputs (``pallas_bands.cdf_supported``): the band
+    kernels' models, K a multiple of 8, and T*K under the JAX kernel's
+    accumulator cap."""
+    return (
+        bands_supported(model, strategy_kind)
+        and n_thresholds % 8 == 0
+        and n_thresholds >= 8
+        and n_periods * n_thresholds * 128 * 4 <= _CDF_VMEM_CAP
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _month_values(dev, table, keep, *, draw, n_table, a, b, n_periods,
+                  seed_base, tile0, n_paths, v0):
+    """The chunk's running values on ``dev`` after each month: yields
+    ``(t, total)`` for t = 0..T-1 with ``total`` the (tiles, 64, 128)
+    float32 values after month t+1. The stream and the draw are
+    ``month_loop_chunk_plain``'s (``cuda_engine.month_growth``); the keep
+    factor multiplies the growth before the compounding."""
+    growth = ce.month_growth(dev, table, draw=draw, n_table=n_table, a=a,
+                             b=b, seed_base=seed_base, tile0=tile0,
+                             n_paths=n_paths)
+    total = torch.full((n_paths // TILE_PATHS, ce.TILE_ROWS, 128),
+                       ce._f32(v0), dtype=torch.float32, device=dev)
+    for t in range(n_periods):
+        g = growth(t)
+        if keep is not None:
+            g = g * keep[t]
+        total = total * g
+        yield t, total
+
+
+def month_hist_chunk_plain(table, keep, coef_a, coef_b, *, n_bins, valid,
+                           **kw):
+    """Plain PyTorch version of the band-histogram kernel: (T, n_bins+2)
+    int32 counts of the first ``valid`` paths of the chunk, months 1..T.
+    ``kw`` as ``_month_values``."""
+    floor_v = torch.full((), ce._f32(1e-37), device=coef_a.device)
+    rows = []
+    for t, total in _month_values(coef_a.device, table, keep, **kw):
+        logv = torch.log(torch.fmax(total.reshape(-1)[:valid], floor_v))
+        x = torch.floor(logv * coef_a[t] + coef_b[t])
+        idx = torch.clamp(x, -1.0, float(n_bins)).to(torch.int64) + 1
+        rows.append(torch.bincount(idx, minlength=n_bins + 2))
+    return torch.stack(rows).to(torch.int32)
+
+
+def cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_thresholds):
+    """(T, K) float32 thresholds exp(A_t + kk_k * B_t): kk_k = k, the
+    guard rows 0 and K-1 at ``kappa_lo`` / ``kappa_hi``."""
+    kk = torch.arange(n_thresholds, dtype=torch.float32,
+                      device=coef_a.device)
+    kk[0], kk[-1] = ce._f32(kappa_lo), ce._f32(kappa_hi)
+    return torch.exp(coef_a[:, None] + kk[None, :] * coef_b[:, None])
+
+
+def month_cdf_chunk_plain(table, keep, coef_a, coef_b, *, kappa_lo,
+                          kappa_hi, n_thresholds, valid, **kw):
+    """Plain PyTorch version of the counts-below kernel: (T, K) int32
+    counts of the first ``valid`` paths with V_t below each threshold
+    (``cdf_thresholds``), months 1..T. ``kw`` as ``_month_values``."""
+    thr = cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_thresholds)
+    rows = []
+    for t, total in _month_values(coef_a.device, table, keep, **kw):
+        v = total.reshape(-1)[:valid]
+        rows.append((v[:, None] < thr[t][None, :]).sum(0))
+    return torch.stack(rows).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
+              n_periods, seed_base, tile0, valid, n_paths, v0, n_cells,
+              kappa_lo=0.0, kappa_hi=0.0):
+    """Checked inputs of one band chunk on a CUDA device -> ``(launch,
+    counts)``: ``launch()`` runs the kernel (``mode`` 0: histogram of
+    ``n_cells`` cells, 1: counts below ``n_cells`` thresholds) into a
+    zeroed int32 (T, cells) tensor on the current stream; ``counts()``
+    returns the (T, n_cells) result. One block per 8192-path tile."""
+    from stock_market_monte_carlo_torch.ops._build import load_library
+
+    dev = coef_a.device
+    ce._check_chunk(dev, "band", valid, n_paths)
+    ce._check(coef_a, "coef_a", dev, n_periods)
+    ce._check(coef_b, "coef_b", dev, n_periods)
+    if keep is not None:
+        ce._check(keep, "keep", dev, n_periods)
+    if draw == "historical":
+        if not 0 < n_table < (1 << 15):
+            raise ValueError(f"table length {n_table} outside [1, 2^15)")
+        k_chunks = -(-n_table // 128)
+        ce._check(table, "table", dev, k_chunks * 128)
+        tail_n = n_table - 128 * (k_chunks - 1)
+    elif draw == "gaussian":
+        if table is not None:
+            raise ValueError("the Gaussian draw takes no table")
+        k_chunks = tail_n = n_table = 0
+    else:
+        raise ValueError(f"unknown draw {draw!r}")
+    # the counts-below kernel counts, per path, the thresholds it is not
+    # below and cumulates them here: exact for thresholds that do not
+    # decrease along a month's row, which B_t > 0 and ordered kk give
+    if mode == 1 and not (bool((coef_b > 0).all())
+                          and kappa_lo <= 1.0 <= n_cells - 2 <= kappa_hi):
+        raise ValueError("thresholds must increase along k: coef_b > 0 "
+                         "and kappa_lo <= 1, kappa_hi >= K - 2")
+    # shared memory: the table, a tile's running values, two months of
+    # cells (the counts-below kernel adds a cell "below none") and, for
+    # that kernel, two months of thresholds
+    cells = n_cells + mode
+    smem = 4 * (k_chunks * 128 + TILE_PATHS + 2 * cells + 2 * mode * n_cells)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"{n_cells} cells and a {n_table}-row table need {smem} bytes "
+            f"of shared memory per block (at most {_MAX_SMEM})")
+    out = torch.zeros((n_periods, cells), dtype=torch.int32, device=dev)
+    args = (mode, ce.DRAW_CODES[draw], ce._ptr(table), k_chunks, n_table,
+            tail_n, ce._f32(a), ce._f32(b), ce._ptr(keep), ce._ptr(coef_a),
+            ce._ptr(coef_b), n_periods, int(seed_base) & ce.MASK32,
+            int(tile0) & ce.MASK32, valid, ce._f32(v0), n_cells,
+            ce._f32(kappa_lo), ce._f32(kappa_hi), ce._ptr(out),
+            -(-valid // TILE_PATHS),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    fn = load_library().smmc_bands
+
+    def launch():
+        ce._raise_on(fn(*args), "smmc_bands")
+
+    def counts():
+        if mode == 0:
+            return out
+        return torch.cumsum(out[:, :n_cells], dim=1, dtype=torch.int32)
+
+    return launch, counts
+
+
+def month_hist_launcher(table, keep, coef_a, coef_b, *, n_bins, **kw):
+    """``(launch, counts)`` of one band-histogram chunk (see
+    ``_launcher``); ``launch()`` alone is the kernel, uncounted."""
+    return _launcher(0, table, keep, coef_a, coef_b, n_cells=n_bins + 2,
+                     **kw)
+
+
+def month_cdf_launcher(table, keep, coef_a, coef_b, *, n_thresholds, **kw):
+    """``(launch, counts)`` of one counts-below chunk (see ``_launcher``);
+    ``launch()`` alone is the kernel, uncounted."""
+    return _launcher(1, table, keep, coef_a, coef_b, n_cells=n_thresholds,
+                     **kw)
+
+
+def month_hist_chunk(table, keep, coef_a, coef_b, **kw):
+    """(T, n_bins+2) int32 month histograms of one chunk, months 1..T.
+
+    ``table``: the float32 (C*128,) padded growth table
+    (``cuda_engine._pad_table``) of ``n_table`` rows for
+    ``draw="historical"``, None for ``draw="gaussian"`` (growth a + b*z,
+    ``cuda_engine.gaussian_ab``). ``keep``: float32 (T,) keep factors of a
+    percent strategy, or None. ``coef_a``/``coef_b``: float32 (T,) bin
+    coefficients A_t, B_t. Keywords: ``draw``, ``n_table``, ``a``, ``b``,
+    ``n_periods``, ``seed_base`` and ``tile0`` (the uint32 stream base and
+    the first global 8192-path tile), ``valid`` of the ``n_paths`` (a
+    multiple of 8192) paths counting, ``v0``, ``n_bins``. Counts its launch
+    under ``bands_hist``."""
+    if coef_a.device.type == "cpu":
+        return month_hist_chunk_plain(table, keep, coef_a, coef_b, **kw)
+    return ce._launch_counted("bands_hist",
+                              month_hist_launcher(table, keep, coef_a,
+                                                  coef_b, **kw))
+
+
+def month_cdf_chunk(table, keep, coef_a, coef_b, **kw):
+    """(T, K) int32 counts below the K thresholds of each month of one
+    chunk, months 1..T. As ``month_hist_chunk``, with ``coef_a``/``coef_b``
+    the log-threshold coefficients and ``kappa_lo``, ``kappa_hi``,
+    ``n_thresholds`` in place of ``n_bins``. Counts its launch under
+    ``bands_cdf``."""
+    if coef_a.device.type == "cpu":
+        return month_cdf_chunk_plain(table, keep, coef_a, coef_b, **kw)
+    return ce._launch_counted("bands_cdf",
+                              month_cdf_launcher(table, keep, coef_a,
+                                                 coef_b, **kw))

@@ -12,8 +12,9 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel (plain runs do not count):
-``month_loop`` (historical draw), ``month_loop_gaussian``, ``law`` and
-``clt``.
+``month_loop`` (historical draw), ``month_loop_gaussian``, ``law``,
+``clt`` (``ops/clt.py``), ``bands_hist`` and ``bands_cdf``
+(``ops/bands.py``).
 
 The random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
@@ -72,7 +73,8 @@ STRATEGY_CODES = {"none": 0, "fixed_percent": 1, "variable_percent": 1,
                   "fixed_amount": 2}
 DRAW_CODES = {"historical": 0, "gaussian": 1}
 
-LAUNCHES = {"month_loop": 0, "month_loop_gaussian": 0, "law": 0, "clt": 0}
+LAUNCHES = {"month_loop": 0, "month_loop_gaussian": 0, "law": 0, "clt": 0,
+            "bands_hist": 0, "bands_cdf": 0}
 
 
 def reset_launch_counts() -> None:
@@ -206,12 +208,22 @@ def _pad_table(returns_pct):
     return flat, n
 
 
-def seed_base_i32(seed: int) -> np.int32:
-    """Stream base of seed segment 0: ``_seed_base_i32(jax.random.key(
-    seed))``. jax's default key data is [0, seed mod 2^32], so the base is
-    (seed mod 2^32) * 0x6C62272E mod 2^32; no threefry is needed."""
-    u = ((int(seed) & MASK32) * _SEED_MUL) & MASK32
-    return np.uint32(u).view(np.int32)
+def key_seed_base(k0: int, k1: int) -> int:
+    """uint32 stream base of a threefry key with data (k0, k1):
+    ``pallas_engine._seed_base_i32``, k0 ^ (k1 * 0x6C62272E) mod 2^32."""
+    return (k0 ^ (k1 * _SEED_MUL)) & MASK32
+
+
+def draw_operands(model, device):
+    """(table, draw keywords) of the month-loop and band kernels for
+    ``model``: the padded growth table on ``device`` and its length
+    (historical), or None and the growth constants a, b (Gaussian)."""
+    if model.kind == "historical":
+        table_np, n_table = _pad_table(model.returns_pct)
+        return (torch.as_tensor(table_np, device=device),
+                dict(draw="historical", n_table=n_table, a=0.0, b=0.0))
+    a, b = gaussian_ab(model.mean_pct, model.std_pct)
+    return None, dict(draw="gaussian", n_table=0, a=a, b=b)
 
 
 # ---------------------------------------------------------------------------
@@ -250,17 +262,14 @@ def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
     return stats, hist
 
 
-def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
-                           seed_base, tile0, valid, n_paths, v0, target,
-                           shift, log_lo, inv_w, hb, with_hist, keep_finals,
-                           draw="historical", n_table=0, a=0.0, b=0.0):
-    """Plain PyTorch version of ``csrc/month_loop.cu``: the same integer
-    and float32 arithmetic, vectorised over the chunk's (tiles, 64, 128)
-    paths and looped over the months. ``draw="historical"`` reads
-    ``table`` (``n_table`` rows); ``draw="gaussian"`` grows by a + b*z and
-    takes ``table=None``."""
-    dev = keep.device
-    ntiles = n_paths // TILE_PATHS
+def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
+                 n_paths):
+    """``growth(t)``: the (tiles, 64, 128) float32 growth factors of month
+    t of a chunk's paths on ``dev``, from the arithmetic counter stream
+    (one word per path and month, keyed by the tile and the month).
+    ``draw="historical"`` reads ``table`` (``n_table`` rows) by the
+    sliced-rotation bootstrap; ``draw="gaussian"`` grows by a + b*z and
+    takes ``table=None``. The plain month loop's and band kernels' draw."""
     if draw == "historical":
         k_chunks = table.numel() // 128
         tail_n = n_table - 128 * (k_chunks - 1)
@@ -268,28 +277,45 @@ def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
         lane = torch.arange(128, device=dev)
         n_valid = torch.where(lane < tail_n, k_chunks, k_chunks - 1)
 
-        def growth(w):
+        def draw_fn(w):
             return _sliced_rotation_draw(table2d, n_valid, n_table, tail_n, w)
     elif draw == "gaussian":
         a, b = _f32(a), _f32(b)
 
-        def growth(w):
+        def draw_fn(w):
             return a + b * _normal_z(w)
     else:
         raise ValueError(f"unknown draw {draw!r}")
-    tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
+    tiles = (int(tile0) + torch.arange(n_paths // TILE_PATHS, device=dev)
+             ) & MASK32
     seeds = _tile_seed_i32(int(seed_base) & MASK32, tiles)
     pos = torch.arange(TILE_PATHS, device=dev).reshape(TILE_ROWS, 128)
     pos_term = _mul32(pos, _GOLDEN)
+
+    def growth(t):
+        h = _tile_seed_i32(seeds, t)[:, None, None]
+        return draw_fn(_finalize((h + pos_term) & MASK32))
+    return growth
+
+
+def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
+                           seed_base, tile0, valid, n_paths, v0, target,
+                           shift, log_lo, inv_w, hb, with_hist, keep_finals,
+                           draw="historical", n_table=0, a=0.0, b=0.0):
+    """Plain PyTorch version of ``csrc/month_loop.cu``: the same integer
+    and float32 arithmetic, vectorised over the chunk's (tiles, 64, 128)
+    paths and looped over the months; the draw as ``month_growth``."""
+    dev = keep.device
+    growth = month_growth(dev, table, draw=draw, n_table=n_table, a=a, b=b,
+                          seed_base=seed_base, tile0=tile0, n_paths=n_paths)
     code = STRATEGY_CODES[strategy]
     amount = _f32(amount)
 
-    total = torch.full((ntiles, TILE_ROWS, 128), _f32(v0),
+    total = torch.full((n_paths // TILE_PATHS, TILE_ROWS, 128), _f32(v0),
                        dtype=torch.float32, device=dev)
     wsum = torch.zeros_like(total)
     for t in range(n_periods):
-        h = _tile_seed_i32(seeds, t)[:, None, None]
-        grown = total * growth(_finalize((h + pos_term) & MASK32))
+        grown = total * growth(t)
         if code == 0:
             total = grown
             continue

@@ -193,6 +193,43 @@ def norm_icdf64(p):
     return out
 
 
+def cdf_band_quantiles(counts_below: np.ndarray,
+                       log_thresholds: np.ndarray, qs,
+                       n_valid: int) -> np.ndarray:
+    """Quantiles (in log-value space) from counts below K monotone
+    thresholds: the host inversion of the bands CDF mode.
+
+    Interpolation runs in probit space: with F_k the empirical CDF at
+    threshold k, the crossing of level q between thresholds j-1 and j is
+    placed at the z-fraction (z(q) - z(F_{j-1})) / (z(F_j) - z(F_{j-1})),
+    exact where the sample is lognormal between the two thresholds.
+    Returns -inf for quantiles whose rank falls below the first
+    (underflow-guard) threshold, the depleted mass, which the caller maps
+    to fund value 0.0; quantiles past the last threshold clamp to it.
+    """
+    F = np.asarray(counts_below, np.float64) / float(n_valid)
+    L = np.asarray(log_thresholds, np.float64)
+    eps = 0.5 / float(max(n_valid, 1))
+    z = norm_icdf64(np.clip(F, eps, 1.0 - eps))
+    out = []
+    for q in np.atleast_1d(qs):
+        j = int(np.searchsorted(F, q, side="left"))  # first F_j >= q
+        if j == 0:
+            out.append(-np.inf)
+            continue
+        if j >= len(F):
+            out.append(L[-1])
+            continue
+        za, zb = z[j - 1], z[j]
+        if zb <= za:  # flat segment (both clipped / zero mass between)
+            w = 0.5
+        else:
+            zq = float(norm_icdf64(np.clip(q, eps, 1.0 - eps)))
+            w = float(np.clip((zq - za) / (zb - za), 0.0, 1.0))
+        out.append(L[j - 1] + w * (L[j] - L[j - 1]))
+    return np.asarray(out)
+
+
 def default_histogram_spec(initial_capital: float, n_periods: int,
                            log_growth_mean: float, log_growth_std: float,
                            n_bins: int) -> HistogramSpec:

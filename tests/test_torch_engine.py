@@ -10,6 +10,7 @@ import functools
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -289,18 +290,17 @@ def _out_of_slice_calls():
             hist, 8192, 12, options=cpu, checkpoint_path="x.npz"),
         "mesh": lambda: smt.simulate_stats(hist, 8192, 12, options=cpu,
                                            mesh=object()),
-        "segments": lambda: smt.simulate_stats(
-            hist, 3 * 8192, 12, options=smt.EngineOptions(
-                device="cpu", seed_segment_paths=8192)),
-        "trajectories": lambda: smt.run(hist, 8192, 12, options=cpu,
-                                        keep_trajectories=4),
         "reference_rng": lambda: smt.HistoricalBootstrap(
             hist.returns_pct, rng="reference"),
         "sobol": lambda: from_reference(smmc.SobolGaussianReturns.create(12)),
-        "bands": lambda: smt.simulate_bands(hist, 8192, 12),
-        "bfloat16_trajectories": lambda: smt.run(
-            hist, 8192, 12, options=smt.EngineOptions(
-                device="cpu", trajectory_dtype="bfloat16")),
+        "bands_mesh": lambda: smt.simulate_bands(hist, 8192, 12, options=cpu,
+                                                 mesh=object()),
+        "quasi_growth": lambda: port_engine.sample_growth(
+            types.SimpleNamespace(kind="sobol_gaussian", is_quasi=True),
+            None, None, 0, (8192, 12)),
+        "reference_growth": lambda: port_engine.sample_growth(
+            types.SimpleNamespace(kind="historical", rng="reference"),
+            None, None, 0, (8192, 12)),
         "rqmc": lambda: smt.rqmc_estimate(hist, 8192, 12),
     }
 

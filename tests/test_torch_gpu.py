@@ -3,9 +3,11 @@ shapes the smoke test does not reach: ragged chunks at a nonzero tile
 offset, the hostile 97-row table, a 20000-row table (whose shared-memory
 table needs the opt-in above 48 KB), odd histogram sizes and no
 histogram; the Gaussian month loop under every strategy; the CLT kernel's
-three variants over one and two 128-month blocks. Also the wrappers' input
-checks and launch counters, and the launch counts of the engine's
-samplers.
+three variants over one and two 128-month blocks; the two band kernels
+under both draws and every percent strategy, odd bin and threshold
+counts, one and two months. Also the wrappers' input checks and launch
+counters, the launch counts of the engine's samplers, and bands,
+trajectories and seed segments on the card against the CPU.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -240,3 +242,164 @@ def test_wrappers_check_inputs_and_count_launches(cuda):
     with pytest.raises(ValueError):
         ce.month_loop_chunk(table, keep, **dict(kw, hb=ce.MAX_HIST_CELLS + 2))
     assert ce.LAUNCHES["month_loop"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Band kernels, bands, trajectories, segments
+# ---------------------------------------------------------------------------
+
+
+def _band_args(cuda, reduce_kind, draw, strategy, n_periods=24, n_cells=None,
+               table_name="n1127", valid=2 * 8192 + 1001, n_paths=4 * 8192,
+               tile0=37):
+    """(table, keep, coef_a, coef_b), kwargs of one band chunk with the
+    coefficients simulate_bands builds."""
+    from stock_market_monte_carlo_torch.engine import bands as bands_eng
+    from stock_market_monte_carlo_torch.engine import engine as eng
+
+    model = (smt.HistoricalBootstrap(_table(table_name))
+             if draw == "historical" else smt.GaussianReturns())
+    strat = {"none": smt.NoWithdrawal(),
+             "fixed_percent": smt.FixedPercentWithdrawal(0.4),
+             "variable_percent": smt.VariablePercentWithdrawal(
+                 np.random.default_rng(5).uniform(0.0, 1.0, n_periods)
+                 .astype(np.float32))}[strategy]
+    centers, scales = bands_eng.band_grid(model, strat, n_periods, 1000.0)
+    if reduce_kind == "hist":
+        n_bins = n_cells or 1024
+        ca, cb, _ = bands_eng.hist_coefficients(centers, scales, n_bins,
+                                                1000.0)
+        reduce_kw = dict(n_bins=n_bins)
+    else:
+        k = n_cells or 32
+        ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(centers, scales,
+                                                            k, 1000.0)
+        reduce_kw = dict(kappa_lo=klo, kappa_hi=khi, n_thresholds=k)
+    table, draw_kw = ce.draw_operands(model, cuda)
+    keep = (None if strategy == "none" else torch.as_tensor(
+        eng._keep_factors_np(strat, n_periods), device=cuda))
+    kw = dict(n_periods=n_periods, seed_base=0x9E3779B9, tile0=tile0,
+              valid=valid, n_paths=n_paths, v0=1000.0, **draw_kw,
+              **reduce_kw)
+    return (table, keep, torch.as_tensor(ca, device=cuda),
+            torch.as_tensor(cb, device=cuda)), kw
+
+
+def _band_fns(reduce_kind):
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    return ((kb.month_hist_chunk, kb.month_hist_chunk_plain)
+            if reduce_kind == "hist"
+            else (kb.month_cdf_chunk, kb.month_cdf_chunk_plain))
+
+
+def _assert_band_kernel_matches_plain(reduce_kind, ops, kw):
+    chunk, plain = _band_fns(reduce_kind)
+    got, want = chunk(*ops, **kw), plain(*ops, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    if reduce_kind == "hist":
+        assert bool((got.sum(1) == kw["valid"]).all())
+
+
+@pytest.mark.parametrize("reduce_kind", ["hist", "cdf"])
+@pytest.mark.parametrize("draw", ["historical", "gaussian"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "variable_percent"])
+def test_band_kernels_match_plain(cuda, reduce_kind, draw, strategy):
+    _assert_band_kernel_matches_plain(
+        reduce_kind, *_band_args(cuda, reduce_kind, draw, strategy))
+
+
+@pytest.mark.parametrize("reduce_kind,n_cells", [("hist", 101),
+                                                 ("hist", 4094),
+                                                 ("cdf", 8), ("cdf", 64)])
+@pytest.mark.parametrize("n_periods,valid", [(1, 1), (2, 8192 + 3),
+                                             (37, 3 * 8192)])
+def test_band_kernel_shapes_match_plain(cuda, reduce_kind, n_cells,
+                                        n_periods, valid):
+    _assert_band_kernel_matches_plain(reduce_kind, *_band_args(
+        cuda, reduce_kind, "historical", "fixed_percent", n_periods,
+        n_cells, valid=valid))
+
+
+@pytest.mark.parametrize("reduce_kind", ["hist", "cdf"])
+@pytest.mark.parametrize("table_name", ["hostile_n97", "n20000"])
+def test_band_kernel_tables_match_plain(cuda, reduce_kind, table_name):
+    _assert_band_kernel_matches_plain(reduce_kind, *_band_args(
+        cuda, reduce_kind, "historical", "none", table_name=table_name))
+
+
+def test_band_wrappers_check_inputs_and_count_launches(cuda):
+    ops, kw = _band_args(cuda, "cdf", "gaussian", "none")
+    chunk, plain = _band_fns("cdf")
+    ce.reset_launch_counts()
+    plain(*ops, **kw)
+    assert ce.LAUNCHES["bands_cdf"] == 0
+    chunk(*ops, **kw)
+    assert ce.LAUNCHES["bands_cdf"] == 1
+    # thresholds that do not increase along k
+    with pytest.raises(ValueError, match="increase"):
+        chunk(*ops, **dict(kw, kappa_lo=2.0))
+    with pytest.raises(ValueError, match="increase"):
+        chunk(ops[0], ops[1], ops[2], -ops[3], **kw)
+    with pytest.raises(TypeError):
+        chunk(ops[0], ops[1], ops[2].double(), ops[3], **kw)
+    hops, hkw = _band_args(cuda, "hist", "historical", "none",
+                           table_name="n20000")
+    with pytest.raises(ValueError, match="shared memory"):
+        _band_fns("hist")[0](*hops, **dict(hkw, n_bins=30000))
+    assert ce.LAUNCHES["bands_cdf"] == 1 and ce.LAUNCHES["bands_hist"] == 0
+
+
+@pytest.mark.parametrize("mode", ["hist", "cdf"])
+@pytest.mark.parametrize("kind", ["historical", "gaussian"])
+def test_simulate_bands_on_cuda_matches_cpu(cuda, mode, kind):
+    """Bands on the card against the plain versions on the CPU: the
+    kernels launch once per chunk; the masses agree exactly; a cell may
+    differ for a value within an ulp of an edge (the two devices' log,
+    and for the Gaussian draw log1p, differ in the last bit)."""
+    model = (smt.HistoricalBootstrap.from_csv() if kind == "historical"
+             else smt.GaussianReturns())
+    n = 3 * 8192 + 123
+    kw = dict(seed=4, strategy=smt.FixedPercentWithdrawal(0.2),
+              band_mode=mode, sample_paths=5)
+    ce.reset_launch_counts()
+    got = smt.simulate_bands(model, n, 24, options=smt.EngineOptions(
+        chunk_paths=8192), **kw)
+    key = "bands_hist" if mode == "hist" else "bands_cdf"
+    assert ce.LAUNCHES == dict({k: 0 for k in ce.LAUNCHES}, **{key: 4})
+    want = smt.simulate_bands(model, n, 24, options=smt.EngineOptions(
+        chunk_paths=8192, device="cpu"), **kw)
+    if mode == "hist":
+        np.testing.assert_array_equal(got.month_hist.sum(1), n)
+    assert np.abs(got.month_hist - want.month_hist).max() <= 2
+    np.testing.assert_allclose(got.values, want.values, rtol=1e-4)
+    np.testing.assert_allclose(got.sample_paths, want.sample_paths,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["historical", "gaussian"])
+def test_simulate_paths_on_cuda_matches_cpu(cuda, kind):
+    model = (smt.HistoricalBootstrap.from_csv() if kind == "historical"
+             else smt.GaussianReturns())
+    args = (model, 300, 24, 1000.0, 3, smt.FixedAmountWithdrawal(5.0))
+    got = smt.simulate_paths(*args, path_offset=8000)
+    want = smt.simulate_paths(*args, path_offset=8000,
+                              options=smt.EngineOptions(device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-2)
+
+
+def test_segmented_run_on_cuda_matches_cpu(cuda):
+    """Four seed segments of one tile each: one launch per segment, and
+    the historical finals as on the CPU, bit for bit."""
+    args = (smt.HistoricalBootstrap.from_csv(), 3 * 8192 + 5, 12)
+    opts = dict(chunk_paths=2 * 8192, seed_segment_paths=8192)
+    ce.reset_launch_counts()
+    got = smt.simulate_final_values(*args, seed=9,
+                                    options=smt.EngineOptions(**opts))
+    assert ce.LAUNCHES["month_loop"] == 4
+    want = smt.simulate_final_values(*args, seed=9, options=smt.EngineOptions(
+        device="cpu", **opts))
+    np.testing.assert_array_equal(got, want)

@@ -151,5 +151,7 @@ def test_kernel_bin_indices_match_jax():
 
 @pytest.mark.parametrize("seed", [0, 1, 12, 2**31 - 1, 2**32 - 1])
 def test_seed_base_matches_jax(seed):
+    from stock_market_monte_carlo_torch.engine import engine as port_engine
+
     want = np.asarray(pe._seed_base_i32(jax.random.key(seed)))
-    assert ce.seed_base_i32(seed) == want
+    assert port_engine._segment_base(seed, 0) == int(want.view(np.uint32))
