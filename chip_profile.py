@@ -4,7 +4,8 @@ PyTorch port, on one CUDA card.
     python3 chip_profile.py
 
 For each path (``simulate_stats`` through the historical month loop, the
-terminal law, the Gaussian ICDF month loop and the Gaussian CLT;
+terminal law, the Gaussian ICDF month loop, the Gaussian CLT and the Sobol
+Gaussian, Sobol historical and reference-parity historical month loops;
 ``simulate_bands`` on the historical model in hist mode and on the
 Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
 ``torch.profiler`` (CPU and CUDA activity) over one call that ends in
@@ -45,6 +46,10 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     hist = smt.HistoricalBootstrap.from_csv()
     gauss = smt.GaussianReturns()
+    sobol_gauss = smt.SobolGaussianReturns.create(N_PERIODS)
+    sobol_hist = smt.SobolHistoricalBootstrap.create(hist.returns_pct,
+                                                     N_PERIODS)
+    reference = smt.HistoricalBootstrap(hist.returns_pct, rng="reference")
 
     def stats(model, **opts):
         return lambda: smt.simulate_stats(model, N_PATHS, N_PERIODS,
@@ -60,6 +65,9 @@ def main():
         "terminal law": stats(hist, terminal_law=True),
         "Gaussian ICDF month loop": stats(gauss),
         "Gaussian CLT": stats(gauss, gaussian_sampler="clt"),
+        "Sobol Gaussian month loop": stats(sobol_gauss),
+        "Sobol historical month loop": stats(sobol_hist),
+        "reference-parity month loop": stats(reference),
         "historical bands (hist)": bands(hist, band_mode="hist"),
         "Gaussian bands (cdf)": bands(gauss, band_mode="cdf"),
     }

@@ -1,9 +1,11 @@
 """GPU smoke test of the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, drives the main paths at
 100M paths x 360 months (historical month loop, terminal law, Gaussian ICDF
-month loop, CLT sampler, historical bands in hist mode, Gaussian bands in
-cdf mode), checks trajectories on the card against the CPU, and times the
-kernels and the paths.
+month loop, CLT sampler, the Sobol Gaussian, Sobol historical and
+reference-parity historical month loops, historical bands in hist mode,
+Gaussian bands in cdf mode), checks replicated-RQMC intervals, Sobol bands
+and trajectories on the card against the CPU, and times the kernels and
+the paths.
 
     python3 chip_smoke.py
 
@@ -57,6 +59,12 @@ KERNELS = {
                        replaces=f"{_PE}:1097"),
     "month_loop_gaussian": dict(source=f"{_CSRC}/month_loop.cu",
                                 replaces=f"{_PE}:1097"),
+    "month_loop_sobol_gaussian": dict(source=f"{_CSRC}/month_loop.cu",
+                                      replaces=f"{_PE}:1097"),
+    "month_loop_sobol_historical": dict(source=f"{_CSRC}/month_loop.cu",
+                                        replaces=f"{_PE}:1097"),
+    "month_loop_reference": dict(source=f"{_CSRC}/month_loop.cu",
+                                 replaces=f"{_PE}:1097"),
     "law": dict(source=f"{_CSRC}/terminal_law.cu", replaces=f"{_PE}:1445"),
     "clt": dict(source=f"{_CSRC}/clt.cu", replaces=f"{_PE}:1048"),
     "bands_hist": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:249"),
@@ -72,6 +80,11 @@ TRAJ_PATHS = 10_000
 # cumulative product's order differ in the last bits, which compound over
 # 360 months (the CPU tests hold the port to the JAX package at 3e-5)
 TRAJ_REL = 3e-5
+# a Sobol run positioned past 2^33: 64-bit positions, the (T, 64) table
+DEEP_OFFSET = (1 << 33) + 777
+RQMC_REPLICATES = 8
+RQMC_PATHS = 1 << 24
+SOBOL_BAND_PATHS = 1 << 22
 
 # Peak rates for the bounds: NVIDIA's H100 SXM data sheet (HBM, bf16 tensor
 # cores) and the Hopper architecture white paper (132 SMs, 4 sub-partitions
@@ -94,6 +107,11 @@ _IDX = 7                      # idx_exact
 # |2u-1| >= sqrt(1 - e^-5)
 _NORMAL_Z = 30 + 18 * (1.0 - math.sqrt(1.0 - math.exp(-5.0)))
 _EPILOGUE = 25                # Stats.add (16) and bin_index + atomic (9)
+# a Sobol word as the function needs it: the Gray-code recurrence along
+# consecutive positions (one direction load, one XOR), then the shift XOR;
+# the kernel's per-bit fold is a cost of its design, not counted
+_SOBOL = 3
+_XORSHIFT = 6                 # three shifts, three xors
 
 
 def say(phase, msg):
@@ -154,10 +172,15 @@ def _base(seed):
 def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
                      seed, tile0=0):
     """(table, keep), kwargs of one month-loop chunk; the draw follows the
-    model (historical table or Gaussian a + b*z)."""
+    model (historical table, Gaussian a + b*z, the Sobol draws with the
+    seed's digital shift, the reference stream)."""
+    from stock_market_monte_carlo_torch.engine import engine as eng
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+    from stock_market_monte_carlo_torch.ops import sobol
 
-    table, draw = ce.draw_operands(model, DEVICE)
+    shift = (sobol.digital_shift(eng._scramble_key(seed, DEVICE), n_periods)
+             if model.is_quasi else None)
+    table, draw = ce.draw_operands(model, DEVICE, n_periods, shift)
     kw = dict(_common(model, strategy, n_periods, valid, n_paths, target,
                       tile0),
               strategy=strategy.kind,
@@ -419,18 +442,33 @@ def bound(name, ops, kw):
         t = kw["n_periods"]
         strat = {"none": 0, "fixed_percent": 3, "variable_percent": 3,
                  "fixed_amount": 4}[kw["strategy"]]
-        if kw["draw"] == "historical":
+        draw = kw["draw"]
+        # per path-month: the draw, its growth; per path: the stream's
+        # setup (the reference state's pcg hash); per tile-month: the
+        # counter stream's draw key
+        setup, key_words = 0, 0
+        if draw == "historical":
             table, n = ops[0].numel(), kw["n_table"]
             tail_n = n - (table - 128)
             # own word, dest index and test, the row rotation where the
             # draw leaves the tail, the source lane's index map and the
             # shared-memory gather
             per = _WORD + _IDX + 1 + 3 * (1.0 - tail_n / n) + 13
-        else:
+            key_words = _WORD
+        elif draw == "gaussian":
             per = _WORD + _NORMAL_Z + 2
-        per_path = t * (per + 1 + strat) + _EPILOGUE
-        scalar = valid * per_path + (valid / ce.TILE_PATHS) * t * _WORD
-        nbytes = _io_bytes(ops, kw, 256, 8)
+            key_words = _WORD
+        elif draw == "sobol_gaussian":
+            per = _SOBOL + _NORMAL_Z + 2
+        elif draw == "sobol_historical":
+            per = _SOBOL + _IDX + 1
+        else:
+            per = _XORSHIFT + _IDX + 1
+            setup = 6
+        per_path = t * (per + 1 + strat) + setup + _EPILOGUE
+        scalar = valid * per_path + (valid / ce.TILE_PATHS) * t * key_words
+        sobol_ops = [kw.get("direction"), kw.get("sobol_shift")]
+        nbytes = _io_bytes(list(ops) + sobol_ops, kw, 256, 8)
     elif name.startswith("law"):
         d = ops[0].numel() - 1
         scalar = valid * (_WORD + _NORMAL_Z + 2 + 3 * (d - 1) + 5
@@ -492,6 +530,21 @@ def main():
     # 3. kernels against their plain versions on the card
     hist_model = smt.HistoricalBootstrap.from_csv()
     gauss = smt.GaussianReturns()
+    sobol_gauss = smt.SobolGaussianReturns.create(MAIN_MONTHS)
+    sobol_hist = smt.SobolHistoricalBootstrap.create(hist_model.returns_pct,
+                                                     MAIN_MONTHS)
+    reference = smt.HistoricalBootstrap(hist_model.returns_pct,
+                                        rng="reference")
+    # month-loop kernel -> the model it draws for
+    month_models = {"month_loop": hist_model, "month_loop_gaussian": gauss,
+                    "month_loop_sobol_gaussian": sobol_gauss,
+                    "month_loop_sobol_historical": sobol_hist,
+                    "month_loop_reference": reference}
+    deep_models = {
+        "month_loop_sobol_gaussian": smt.SobolGaussianReturns.create(
+            MAIN_MONTHS, index_offset=DEEP_OFFSET),
+        "month_loop_sobol_historical": smt.SobolHistoricalBootstrap.create(
+            hist_model.returns_pct, MAIN_MONTHS, index_offset=DEEP_OFFSET)}
     schedule = np.random.default_rng(7).uniform(
         0.0, 1.0, MAIN_MONTHS).astype(np.float32)
     strategies = {
@@ -519,8 +572,7 @@ def main():
     for n_periods, valid, n_paths, target in (
             (7, 8192 + 777, 2 * 8192, 1000.0),
             (MAIN_MONTHS, CHECK_PATHS, CHECK_PATHS, 5000.0)):
-        for model, name in ((hist_model, "month_loop"),
-                            (gauss, "month_loop_gaussian")):
+        for name, model in month_models.items():
             for sname, strategy in strategies.items():
                 ops, kw = month_chunk_args(model, strategy, n_periods,
                                            valid, n_paths, target, seed=5)
@@ -532,6 +584,16 @@ def main():
                                      valid, n_paths, target, seed=5)
             run_pair("clt", f"clt {variant} {valid}x{n_periods}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops, kw, CLT_REL)
+    # the Sobol draws at 64-bit positions (index_offset 2^33 + 777)
+    for name, model in deep_models.items():
+        for sname in ("none", "fixed_percent"):
+            ops, kw = month_chunk_args(model, strategies[sname], MAIN_MONTHS,
+                                       CHECK_PATHS, CHECK_PATHS, 5000.0,
+                                       seed=5)
+            run_pair(name, f"{name} deep index_offset={DEEP_OFFSET} {sname} "
+                           f"{CHECK_PATHS}x{MAIN_MONTHS}",
+                     ce.month_loop_chunk, ce.month_loop_chunk_plain, ops, kw,
+                     0.0)
     for keep_finals in (True, False):
         ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, CHECK_PATHS,
                                  CHECK_PATHS, 5000.0, seed=9,
@@ -546,8 +608,7 @@ def main():
     for first, valid in ((0, CHUNK), (last, MAIN_PATHS - last)):
         finals = first != 0
         tile0 = first // ce.TILE_PATHS
-        for model, name in ((hist_model, "month_loop"),
-                            (gauss, "month_loop_gaussian")):
+        for name, model in month_models.items():
             ops, kw = month_chunk_args(model, smt.NoWithdrawal(),
                                        MAIN_MONTHS, valid, CHUNK, 2000.0,
                                        seed=0, tile0=tile0)
@@ -632,6 +693,12 @@ def main():
                                 g_gauss),
         "clt": ("Gaussian CLT", gauss, dict(gaussian_sampler="clt"),
                 g_gauss),
+        "month_loop_sobol_gaussian": ("Sobol Gaussian month loop",
+                                      sobol_gauss, {}, g_gauss),
+        "month_loop_sobol_historical": ("Sobol historical month loop",
+                                        sobol_hist, {}, g_hist),
+        "month_loop_reference": ("reference-parity historical month loop",
+                                 reference, {}, g_hist),
     }
 
     def main_run(key):
@@ -660,6 +727,39 @@ def main():
                f"{MAIN_PATHS}, mean {res.mean!r} (analytic {analytic!r}, "
                f"rel dev {dev:.2e}), std {res.std!r}, count_below "
                f"{res.count_below}")
+
+    # 5a. replicated RQMC: 8 digital shifts of 2^24 Sobol Gaussian points,
+    # beside 8 seeds of the pseudo-random Gaussian model; the 99 % interval
+    # must hold the analytic mean. Each replicate is unbiased for the mean
+    # of the model as the kernels sample it, whose growth constant is the
+    # float32 a = 1 + mean * 0.01 (1.0049999952 for 1.005): E[V_T] =
+    # 1000 * a^360, 1.7e-6 below 1000 * 1.005^360 and far outside an
+    # interval of RQMC's width.
+    a32 = ce.gaussian_ab(sobol_gauss.mean_pct, sobol_gauss.std_pct)[0]
+    analytic = 1000.0 * a32 ** MAIN_MONTHS
+    est = {}
+    for label, model in (("Sobol Gaussian", sobol_gauss),
+                         ("GaussianReturns", gauss)):
+        ce.reset_launch_counts()
+        est[label] = smt.rqmc_estimate(model, RQMC_PATHS, MAIN_MONTHS,
+                                       replicates=RQMC_REPLICATES,
+                                       confidence=0.99)
+        torch.cuda.synchronize()
+        key = ("month_loop_sobol_gaussian" if model.is_quasi
+               else "month_loop_gaussian")
+        check(ce.LAUNCHES[key] == RQMC_REPLICATES,
+              f"rqmc {label}: launches {ce.LAUNCHES}")
+    e = est["Sobol Gaussian"]
+    check(e.ci_lo <= analytic <= e.ci_hi,
+          f"rqmc: 99 % interval [{e.ci_lo}, {e.ci_hi}] misses {analytic}")
+    say("5a", f"rqmc_estimate Sobol Gaussian {RQMC_REPLICATES} x "
+              f"{RQMC_PATHS} x {MAIN_MONTHS}: mean {e.mean!r}, 99 % interval "
+              f"[{e.ci_lo!r}, {e.ci_hi!r}] holds the analytic {analytic!r} "
+              f"(1000 * {a32!r}^{MAIN_MONTHS}; at 1.005 exactly "
+              f"{1000.0 * g_gauss ** MAIN_MONTHS!r}); "
+              f"sem {e.sem!r} vs {est['GaussianReturns'].sem!r} for "
+              f"GaussianReturns (ratio "
+              f"{est['GaussianReturns'].sem / e.sem:.3g})")
 
     # 5b. bands at 100M x 360, each counted on its own
     from stock_market_monte_carlo_torch.ops import analytic as ana
@@ -719,6 +819,26 @@ def main():
                   f"{[float(res.values[1, t]) for t in BAND_MONTHS]} vs "
                   f"exact {[float(exact[1, t]) for t in BAND_MONTHS]} "
                   f"(rel {devs})")
+    # Sobol Gaussian bands: the trajectory route (no band kernel draws
+    # Sobol points), plain torch on the card
+    ce.reset_launch_counts()
+    res = smt.simulate_bands(sobol_gauss, SOBOL_BAND_PATHS, MAIN_MONTHS,
+                             quantile_levels=qs, sample_paths=32,
+                             n_bins=BAND_BINS)
+    torch.cuda.synchronize()
+    check(sum(ce.LAUNCHES.values()) == 0,
+          f"Sobol bands: kernel launches {ce.LAUNCHES}")
+    check(bool((res.month_hist.sum(axis=1) == SOBOL_BAND_PATHS).all()),
+          f"Sobol bands: month masses {res.month_hist.sum(axis=1)}")
+    exact = exact_marginals(gauss)
+    devs = [rel(res.values[1, t], exact[1, t]) for t in BAND_MONTHS]
+    check(max(devs) <= BAND_MEDIAN_REL,
+          f"Sobol bands: median vs exact marginal rel {devs}")
+    say("5b", f"Sobol Gaussian bands (hist) {SOBOL_BAND_PATHS} x "
+              f"{MAIN_MONTHS}: every month's histogram holds "
+              f"{SOBOL_BAND_PATHS} paths; median at months {BAND_MONTHS}: "
+              f"{[float(res.values[1, t]) for t in BAND_MONTHS]} vs exact "
+              f"{[float(exact[1, t]) for t in BAND_MONTHS]} (rel {devs})")
     res = smt.simulate_bands(gauss, MAIN_PATHS, MAIN_MONTHS, quantile_levels=qs,
                              sample_paths=32, band_mode="analytic")
     check(np.array_equal(res.values, exact_marginals(gauss))
@@ -728,7 +848,7 @@ def main():
               "on the card")
 
     # 5c. trajectories on the card against the same call on the CPU
-    for model in (gauss, hist_model):
+    for model in (gauss, hist_model, sobol_gauss, sobol_hist, reference):
         for sname in ("none", "fixed_percent"):
             args = (model, TRAJ_PATHS, MAIN_MONTHS, 1000.0, 11,
                     strategies[sname])
@@ -739,9 +859,10 @@ def main():
             check(got.shape == (TRAJ_PATHS, MAIN_MONTHS + 1)
                   and np.isfinite(got).all() and r <= TRAJ_REL,
                   f"simulate_paths {model.kind} {sname}: rel {r}")
-            say("5c", f"simulate_paths {model.kind} {sname} {TRAJ_PATHS} x "
-                      f"{MAIN_MONTHS}: card vs CPU max rel {r} (bar "
-                      f"{TRAJ_REL})")
+            say("5c", f"simulate_paths {model.kind} "
+                      f"rng={getattr(model, 'rng', '-')} {sname} "
+                      f"{TRAJ_PATHS} x {MAIN_MONTHS}: card vs CPU max rel "
+                      f"{r} (bar {TRAJ_REL})")
     res = smt.run(hist_model, 1 << 20, MAIN_MONTHS, keep_trajectories=16,
                   options=smt.EngineOptions(trajectory_dtype="bfloat16"))
     want = smt.simulate_paths(hist_model, 16, MAIN_MONTHS, dtype="bfloat16")
@@ -787,6 +908,16 @@ def main():
                                            seed=0),
                             clt.clt_launcher, clt.clt_chunk,
                             clt.clt_chunk_plain, 5, 1)
+    timed_models = {name: month_models[name] for name in (
+        "month_loop_sobol_gaussian", "month_loop_sobol_historical",
+        "month_loop_reference")}
+    timed_models.update({f"{name}_deep": model
+                         for name, model in deep_models.items()})
+    for key, model in timed_models.items():
+        chunk_cases[key] = (month_chunk_args(model, none, MAIN_MONTHS, CHUNK,
+                                             CHUNK, 2000.0, seed=0),
+                            ce.month_loop_launcher, ce.month_loop_chunk,
+                            ce.month_loop_chunk_plain, 5, 1)
     band_kinds = {"bands_hist": (hist_model, "hist"),
                   "bands_hist_gaussian": (gauss, "hist"),
                   "bands_cdf": (gauss, "cdf"),

@@ -7,16 +7,18 @@ kernels (``csrc/``), and on the CPU with their plain PyTorch versions
 counter stream, so a run here reproduces a JAX run under
 ``SMMC_PRNG_IMPL=arith``. It imports neither jax nor the JAX package.
 
-Ported so far, on ``HistoricalBootstrap`` and ``GaussianReturns``:
-``simulate_stats`` / ``simulate_final_values`` / ``simulate`` / ``run``
-through the month loop (historical bootstrap or Gaussian ICDF draw), the
-CLT Gaussian sampler (``EngineOptions(gaussian_sampler="clt" |
+Ported so far: ``simulate_stats`` / ``simulate_final_values`` /
+``simulate`` / ``run`` through the month loop under every model
+(``HistoricalBootstrap`` on the counter or the reference-parity stream,
+``GaussianReturns``, ``SobolGaussianReturns``, ``SobolHistoricalBootstrap``),
+the CLT Gaussian sampler (``EngineOptions(gaussian_sampler="clt" |
 "clt-prefix")``) or, with ``EngineOptions(terminal_law=True)``, the
 terminal law, chosen as the JAX package chooses it, with seed segments
 past ``seed_segment_paths``; ``simulate_bands`` (hist, cdf and analytic
-modes) on the band kernels; and ``simulate_paths`` / ``run(
-keep_trajectories=...)`` on the threefry stream. What is not ported raises
-``NotImplementedError`` naming its ROADMAP item.
+modes); ``simulate_paths`` / ``run(keep_trajectories=...)``; and
+replicated-RQMC intervals (``rqmc_estimate``). What is not ported
+(checkpoints, meshes) raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from stock_market_monte_carlo_torch.config import (
@@ -27,6 +29,8 @@ from stock_market_monte_carlo_torch.models.market import (
     GaussianReturns,
     HistoricalBootstrap,
     MarketModel,
+    SobolGaussianReturns,
+    SobolHistoricalBootstrap,
 )
 from stock_market_monte_carlo_torch.models.strategies import (
     FixedAmountWithdrawal,
@@ -37,7 +41,6 @@ from stock_market_monte_carlo_torch.models.strategies import (
 )
 from stock_market_monte_carlo_torch.engine.engine import (
     StreamUpdate,
-    rqmc_estimate,
     run,
     simulate,
     simulate_final_values,
@@ -49,6 +52,10 @@ from stock_market_monte_carlo_torch.engine.bands import (
     simulate_bands,
 )
 from stock_market_monte_carlo_torch.engine.results import SimulationResult
+from stock_market_monte_carlo_torch.engine.rqmc import (
+    RqmcEstimate,
+    rqmc_estimate,
+)
 from stock_market_monte_carlo_torch.data.loader import (
     default_returns_path,
     read_historical_returns,
@@ -62,6 +69,8 @@ __all__ = [
     "MarketModel",
     "GaussianReturns",
     "HistoricalBootstrap",
+    "SobolGaussianReturns",
+    "SobolHistoricalBootstrap",
     "WithdrawalStrategy",
     "NoWithdrawal",
     "FixedAmountWithdrawal",
@@ -76,6 +85,7 @@ __all__ = [
     "simulate_bands",
     "TrajectoryBands",
     "rqmc_estimate",
+    "RqmcEstimate",
     "SimulationResult",
     "read_historical_returns",
     "default_returns_path",

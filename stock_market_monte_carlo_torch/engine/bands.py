@@ -12,11 +12,13 @@ Pallas backend, with the same routing:
   same z-grid, from the counts-below kernel (``month_cdf_chunk``),
   inverted on the host by probit interpolation;
 - ``band_mode="analytic"``: the exact infinite-path marginals on the host
-  (``ops/analytic.marginal_value_quantiles``), no sampling;
-- a fixed-amount strategy: trajectories from the threefry stream
-  (``engine.sample_growth``/``compound_paths``) binned linearly on
-  [0, hi_t], plain torch on the device (``_chunk_month_hist``), as the JAX
-  package runs it as XLA.
+  (``ops/analytic.marginal_value_quantiles``), no sampling; counter and
+  reference historical and Gaussian models;
+- what the band kernels do not take (a fixed-amount strategy; Sobol and
+  reference-parity models, in hist mode): the chunk's trajectories
+  (``engine.sample_growth``/``compound_paths``) binned on the same grids,
+  plain torch on the device (``_chunk_month_hist``), as the JAX package
+  runs it as XLA; a fixed amount bins linearly on [0, hi_t].
 
 The kernels emit months 1..T; month 0 (every path at v0) is added on the
 host. Sample paths come from ``engine.simulate_paths``. The JAX package's
@@ -77,16 +79,25 @@ def _expand(counts, valid, from_kernel: bool, idx0: int) -> np.ndarray:
 
 
 def _chunk_month_hist(model, strategy, root_key, scramble_key, v0, offset,
-                      valid, inv_scales, b, t, n_bins):
-    """(T+1, n_bins+2) counts of one chunk of a fixed-amount run: the
-    chunk's threefry trajectories binned linearly, V/hi_t on [0, 1] into
-    cells 1..n_bins+1, depleted paths (V <= 0) into cell 0; paths at or
-    past ``valid`` are dropped."""
+                      valid, centers, inv_scales, b, t, n_bins, linear):
+    """(T+1, n_bins+2) counts of one chunk's trajectories (``engine.
+    sample_growth``); paths at or past ``valid`` are dropped. ``linear``
+    (fixed amount): V/hi_t on [0, 1] into cells 1..n_bins+1, depleted
+    paths (V <= 0) into cell 0. Otherwise the z-grid: z = (log V - c_t) *
+    inv_scale_t, cell floor((z + 12) * n_bins / 24) + 1 clamped to [0,
+    n_bins+1], depleted paths (log V <= log 1e-37) into cell 0."""
     growth = eng.sample_growth(model, root_key, scramble_key, offset, (b, t))
     traj = eng.compound_paths(growth, v0, strategy)[:valid]   # (valid, T+1)
-    raw = torch.floor(traj * inv_scales[None, :] * float(n_bins))
-    idx = torch.clamp(raw, 0.0, float(n_bins)).to(torch.int64) + 1
-    idx = torch.where(traj <= 0.0, 0, idx)
+    if linear:
+        raw = torch.floor(traj * inv_scales[None, :] * float(n_bins))
+        idx = torch.clamp(raw, 0.0, float(n_bins)).to(torch.int64) + 1
+        idx = torch.where(traj <= 0.0, 0, idx)
+    else:
+        logv = torch.log(torch.clamp_min(traj, 1e-37))
+        z = (logv - centers[None, :]) * inv_scales[None, :]
+        raw = torch.floor((z + Z_RANGE) * ce._f32(n_bins / (2 * Z_RANGE)))
+        idx = torch.clamp(raw, -1.0, float(n_bins)).to(torch.int64) + 1
+        idx = torch.where(logv <= ce._f32(np.log(1e-37)), 0, idx)
     cells = n_bins + 2
     flat = idx + cells * torch.arange(t + 1, device=idx.device)[None, :]
     return torch.bincount(flat.reshape(-1), minlength=(t + 1) * cells
@@ -197,7 +208,7 @@ def simulate_bands(
             "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
             "multi-GPU over torch.distributed)"
         )
-    eng._check_slice(model)
+    eng._check_model(model)
     eng._validate_run(model, n_paths, options.chunk_paths, n_periods)
     months = np.arange(n_periods + 1)
     # fixed-amount withdrawals shift values additively, which a log-z grid
@@ -235,6 +246,12 @@ def simulate_bands(
             raise ValueError(
                 "band_mode='analytic' needs a multiplicative strategy "
                 "(fixed-amount withdrawals have no closed marginal law)"
+            )
+        if model.kind not in ("gaussian", "historical"):
+            raise ValueError(
+                "band_mode='analytic' supports gaussian/historical "
+                f"models (the marginal law is closed-form); got "
+                f"{model.kind!r}"
             )
         if model.kind == "gaussian":
             kind, params = "gaussian", (float(model.mean_pct),
@@ -320,14 +337,16 @@ def simulate_bands(
                             **reduce_kw)
     else:
         root_key = threefry.key(seed, dev)
-        scramble_key = threefry.fold_in(root_key, eng._SCRAMBLE_FOLD)
+        scramble_key = eng._scramble_key(seed, dev)
+        centers_t = torch.as_tensor(centers.astype(np.float32), device=dev)
         inv_scales = torch.as_tensor((1.0 / scales).astype(np.float32),
                                      device=dev)
 
         def run_chunk(offset, valid, this_b):
             return _chunk_month_hist(model, strategy, root_key, scramble_key,
                                      initial_capital, offset, valid,
-                                     inv_scales, this_b, n_periods, n_bins)
+                                     centers_t, inv_scales, this_b,
+                                     n_periods, n_bins, linear)
 
     done, offset, remaining = 0, 0, n_paths
     pending = None  # (device counts, valid): absorbed after the next launch

@@ -1,13 +1,14 @@
 """The simulation engine: a host chunk loop over the device chunk functions.
 
 Counterpart of ``stock_market_monte_carlo_tpu/engine/engine.py`` on its
-Pallas backend, for the slice the port covers: ``simulate_stats``,
-``simulate_final_values``, ``simulate``, ``run`` and ``simulate_paths`` on
-``HistoricalBootstrap`` and ``GaussianReturns`` models. The sampler is
-chosen as the JAX package chooses it on its Pallas backend
-(``_effective_sampler``): the month loop with the historical or the
-Gaussian ICDF draw, the CLT kernel (``EngineOptions.gaussian_sampler``
-"clt" / "clt-prefix"), or, with ``terminal_law=True``, the terminal law.
+Pallas backend: ``simulate_stats``, ``simulate_final_values``,
+``simulate``, ``run`` and ``simulate_paths`` on every model of
+``models/market.py``. The sampler is chosen as the JAX package chooses it
+on its Pallas backend (``_effective_sampler``): the month loop with the
+model's draw (counter-stream historical or Gaussian ICDF, Sobol Gaussian
+or historical, reference-parity historical), the CLT kernel (Gaussian,
+``EngineOptions.gaussian_sampler`` "clt" / "clt-prefix"), or, with
+``terminal_law=True``, the terminal law (counter-stream models).
 
 A run streams in chunks of ``chunk_paths`` paths. Each chunk reduces on
 the device to one float32 stats row and a histogram
@@ -16,16 +17,19 @@ order (``_absorb``). When nothing consumes per-chunk results (no progress
 or stream callback, no finals), every chunk is launched before the first
 host sync, in batches of at most ``_DEFER_FLUSH_CHUNKS``. Runs past
 ``EngineOptions.seed_segment_paths`` paths run as seed segments, each on
-its own stream, as the JAX package runs them.
+its own stream, as the JAX package runs them; Sobol runs never segment
+(they split by ``index_offset``) and the reference-parity stream refuses
+to (its paths would repeat).
 
 Trajectories (``simulate_paths``, ``run(keep_trajectories=...)``) come
-from the threefry stream (``ops/threefry.py``) through ``sample_growth``
-and ``compound_paths``: plain torch on the device, as the JAX package runs
-them as XLA. Bands are ``engine/bands.py``.
+from ``sample_growth`` and ``compound_paths``: the threefry stream
+(``ops/threefry.py``), the Sobol points (``ops/sobol.py``) or the
+reference stream (``ops/rng.py``), plain torch on the device, as the JAX
+package runs them as XLA. Bands are ``engine/bands.py``, replicated RQMC
+``engine/rqmc.py``.
 
 Out of this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: checkpoints, meshes, Sobol models, the
-reference-parity stream and RQMC.
+item that ports them: checkpoints and meshes.
 """
 
 from __future__ import annotations
@@ -39,7 +43,10 @@ import torch
 
 from stock_market_monte_carlo_torch.config import EngineOptions
 from stock_market_monte_carlo_torch.engine.results import SimulationResult
-from stock_market_monte_carlo_torch.models.market import GaussianReturns
+from stock_market_monte_carlo_torch.models.market import (
+    GaussianReturns,
+    SobolGaussianReturns,
+)
 from stock_market_monte_carlo_torch.models.strategies import (
     FixedPercentWithdrawal,
     NoWithdrawal,
@@ -48,6 +55,7 @@ from stock_market_monte_carlo_torch.models.strategies import (
 from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine
 from stock_market_monte_carlo_torch.ops import reductions as red
+from stock_market_monte_carlo_torch.ops import sobol
 from stock_market_monte_carlo_torch.ops import threefry
 
 KEY_TILE = cuda_engine.TILE_PATHS
@@ -55,8 +63,10 @@ KEY_TILE = cuda_engine.TILE_PATHS
 # fold_in tag of seed-segment keys: segment s >= 1 draws under
 # fold_in(key(seed), _SEG_FOLD + s) (the JAX package's engine._SEG_FOLD)
 _SEG_FOLD = 0x5E6C0000
-# fold_in tag of the scramble key (read by the Sobol models only)
+# fold_in tag of the scramble key (the Sobol models' digital shift)
 _SCRAMBLE_FOLD = 0x50B0
+_MODEL_KINDS = ("gaussian", "historical", "sobol_gaussian",
+                "sobol_historical")
 
 # deferred-absorb queue bound: flush (one stacked fetch + f64 merges)
 # every N chunks so device memory stays O(N), not O(n_chunks)
@@ -73,7 +83,7 @@ def log_growth_moments(model) -> Tuple[float, float]:
     """(mean, std) of log((100+r)/100) under the model: 201-node
     Gauss-Hermite quadrature for Gaussian models (cached per (mean, std)),
     the exact discrete moments of the table for bootstrap models."""
-    if isinstance(model, GaussianReturns):
+    if isinstance(model, (GaussianReturns, SobolGaussianReturns)):
         mean = float(np.asarray(model.mean_pct))
         std = float(np.asarray(model.std_pct))
         hit = _GAUSS_LGM_CACHE.get((mean, std))
@@ -104,7 +114,7 @@ def analytic_moment_shift(model, strategy, n_periods: int) -> float:
     well-conditioned. ``_absorb`` restores the raw sums in float64."""
     if not _is_multiplicative(strategy):
         return 0.0
-    if isinstance(model, GaussianReturns):
+    if isinstance(model, (GaussianReturns, SobolGaussianReturns)):
         g = 1.0 + float(np.asarray(model.mean_pct)) / 100.0
     else:
         table = np.asarray(model.returns_pct, np.float64)
@@ -168,10 +178,18 @@ def _keep_factors_np(strategy, n_periods: int) -> np.ndarray:
     return (np.float32(1.0) - sched[:n_periods] / np.float32(100.0))
 
 
-def _validate_terminal_law(strategy, options) -> None:
-    """Structural preconditions of EngineOptions(terminal_law=True) (the
-    model kinds are checked by ``_check_slice``); the fit itself validates
-    smoothness and keep > 0."""
+def _validate_terminal_law(model, strategy, options) -> None:
+    """Structural preconditions of EngineOptions(terminal_law=True); the
+    fit itself validates smoothness and keep > 0."""
+    if (model.is_quasi
+            or model.kind not in ("gaussian", "historical")
+            or getattr(model, "rng", "counter") != "counter"):
+        raise ValueError(
+            "terminal_law=True needs the iid-month structure of a "
+            "counter-rng gaussian or historical model (Sobol sequences "
+            f"and reference-parity rng excluded); got {model.kind!r} "
+            f"rng={getattr(model, 'rng', 'counter')!r}"
+        )
     if not _is_multiplicative(strategy):
         raise ValueError(
             "terminal_law=True needs a multiplicative strategy (the "
@@ -192,9 +210,10 @@ def _effective_sampler(model, strategy, options: EngineOptions) -> str:
     package on its Pallas backend, which the port always is):
 
     - ``"law"``: ``terminal_law=True``;
-    - ``"icdf"``: the month loop; historical models (whatever
-      ``gaussian_sampler`` says), Gaussian models by default, and the cases
-      below that the CLT kernels do not take;
+    - ``"icdf"``: the month loop; every model but ``GaussianReturns``
+      (historical and Sobol kinds, whatever ``gaussian_sampler`` says),
+      Gaussian models by default, and the cases below that the CLT kernels
+      do not take;
     - ``"clt"``: Gaussian, ``gaussian_sampler`` "clt" or "clt-prefix",
       no withdrawals;
     - ``"clt-nw"``: the same with a percent strategy and
@@ -226,13 +245,13 @@ def _effective_sampler(model, strategy, options: EngineOptions) -> str:
     return "icdf"
 
 
-def _check_slice(model) -> None:
-    """Raise for models the port does not run yet, naming their ROADMAP
-    item (queue 1) so the next slice knows where to start."""
-    if model.kind not in ("gaussian", "historical"):
-        raise NotImplementedError(
-            f"{model.kind!r} models are not ported yet (ROADMAP queue 1 "
-            "item 11: Sobol and RQMC)"
+def _check_model(model) -> None:
+    """Raise for an object that is none of the port's models."""
+    if getattr(model, "kind", None) not in _MODEL_KINDS:
+        raise TypeError(
+            f"{type(model).__name__} is not a market model (kind "
+            f"{getattr(model, 'kind', None)!r}; expected one of "
+            f"{_MODEL_KINDS})"
         )
 
 
@@ -240,15 +259,25 @@ def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
                   draws_bootstrap: bool = True,
                   seg_paths: Optional[int] = None) -> None:
     """Hard limits of the RNG index spaces: oversized runs error instead
-    of wrapping (global path offsets are uint32). ``seg_paths``
-    (simulate_stats only) arms seed segmentation: runs larger than one
-    segment re-key each segment's stream, so only the per-segment offset
-    space must fit in uint32."""
+    of wrapping (global path offsets are uint32, Sobol positions below
+    2^62). ``seg_paths`` (simulate_stats only) arms seed segmentation: runs
+    larger than one segment re-key each segment's stream, so only the
+    per-segment offset space must fit in uint32. Sobol runs do not
+    segment; the reference-parity stream refuses to."""
     if n_paths <= 0:
         raise ValueError(f"n_paths must be positive, got {n_paths}")
     if n_periods <= 0:
         raise ValueError(f"n_periods must be positive, got {n_periods}")
-    if seg_paths is not None and n_paths > seg_paths:
+    quasi = model.is_quasi
+    if seg_paths is not None and n_paths > seg_paths and not quasi:
+        if getattr(model, "rng", "counter") == "reference":
+            raise ValueError(
+                f"n_paths={n_paths} exceeds one seed segment "
+                f"({seg_paths}), but reference-parity rng streams depend "
+                "only on the global path id (state0 = pcg_hash(id + 1)): a "
+                "fresh segment would repeat segment 0's paths exactly. Cap "
+                "n_paths or run counter rng"
+            )
         if seg_paths > (1 << 32) - per_dispatch:
             raise ValueError(
                 f"seed_segment_paths={seg_paths} leaves no uint32 offset "
@@ -261,7 +290,7 @@ def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
             f"(limit {(1 << 32) - per_dispatch} at this chunk size); split "
             "the run over multiple seeds instead"
         )
-    if model.kind == "historical" and draws_bootstrap:
+    if model.kind.endswith("historical") and draws_bootstrap:
         n_table = int(np.asarray(model.returns_pct).shape[0])
         if n_table >= (1 << 15):
             raise ValueError(
@@ -269,7 +298,29 @@ def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
                 "integer bootstrap index map supports at most "
                 f"{(1 << 15) - 1} rows — aggregate or subsample the series"
             )
-    if isinstance(model, GaussianReturns):
+    if model.kind.startswith("sobol"):
+        n_dims = int(np.asarray(model.direction).shape[0])
+        if n_periods > n_dims:
+            raise ValueError(
+                f"n_periods={n_periods} exceeds the model's {n_dims} Sobol "
+                "dimensions; create the model with "
+                f"n_periods>={n_periods} (direction numbers are "
+                "per-dimension)"
+            )
+    if quasi:
+        if n_paths > (1 << 31):
+            raise ValueError(
+                f"n_paths={n_paths} exceeds 2^31 paths per Sobol run; "
+                "split the run and position each part with index_offset "
+                "(the 2^62-deep index space)"
+            )
+        index_offset = getattr(model, "index_offset", 0)
+        if index_offset + n_paths > (1 << 62):
+            raise ValueError(
+                f"index_offset {index_offset} + n_paths {n_paths} exceeds "
+                "the 2^62 Sobol sequence"
+            )
+    if isinstance(model, (GaussianReturns, SobolGaussianReturns)):
         mean = float(np.asarray(model.mean_pct))
         std = float(np.asarray(model.std_pct))
         if std > 0 and (100.0 + mean) / std < 7.0:
@@ -352,16 +403,22 @@ class StreamUpdate:
         return red.prob_below_from_histogram(self.spec, self.hist, amount)
 
 
-def _chunk_fn(model, strategy, n_periods, v0f, options, dev):
+def _scramble_key(seed: int, dev):
+    """The Sobol models' scramble key: fold_in(key(seed), 0x50B0)."""
+    return threefry.fold_in(threefry.key(seed, dev), _SCRAMBLE_FOLD)
+
+
+def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
     """The chunk function of this run, with its run-constant operands
     uploaded once: ``fn(base, offset, valid=, n_paths=, **common)``, where
     ``base`` is the seed segment's uint32 stream base (``_segment_base``)
-    and ``offset`` the chunk's first path in the segment."""
+    and ``offset`` the chunk's first path in the segment. A Sobol model's
+    digital shift comes from ``seed`` (its runs never segment)."""
     sampler = _effective_sampler(model, strategy, options)
     if sampler == "law":
         from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
 
-        _validate_terminal_law(strategy, options)
+        _validate_terminal_law(model, strategy, options)
         fit = tlaw.fit_terminal_law(model, strategy, n_periods, v0f)
         law = torch.as_tensor(fit.operand(), device=dev)
 
@@ -396,7 +453,10 @@ def _chunk_fn(model, strategy, n_periods, v0f, options, dev):
         return fn
 
     keep = torch.as_tensor(keep_np, device=dev)
-    table, draw = cuda_engine.draw_operands(model, dev)
+    table, draw = cuda_engine.draw_operands(
+        model, dev, n_periods,
+        sobol.digital_shift(_scramble_key(seed, dev), n_periods)
+        if model.is_quasi else None)
     amount = float(getattr(strategy, "amount", 0.0))
 
     def fn(base, offset, **kw):
@@ -446,7 +506,7 @@ def simulate_stats(
         raise NotImplementedError(
             "checkpoint_path is not ported yet (ROADMAP queue 1 item 8)"
         )
-    _check_slice(model)
+    _check_model(model)
     dev = _resolve_device(options)
     _validate_run(model, n_paths, options.chunk_paths, n_periods,
                   draws_bootstrap=not options.terminal_law,
@@ -469,7 +529,7 @@ def simulate_stats(
         model, strategy, n_periods, initial_capital, options.histogram_bins
     )
     chunk_b = options.chunk_paths
-    fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev)
+    fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed)
     shift_c = analytic_moment_shift(model, strategy, n_periods)
     common = dict(
         v0=v0f, target=np.inf if target_amount is None else target_amount,
@@ -491,7 +551,7 @@ def simulate_stats(
     offset = 0
     remaining = n_paths
     seg_paths = options.seed_segment_paths
-    segmented = n_paths > seg_paths
+    segmented = n_paths > seg_paths and not model.is_quasi
     seg = 0
     base = _segment_base(seed, 0)
     defer_absorb = stream is None and progress is None and not keep_finals
@@ -642,31 +702,29 @@ def simulate_final_values(
 
 def sample_growth(model, root_key, scramble_key, path_offset, shape):
     """(B, T) float32 growth factors (100 + r)/100 for paths [path_offset,
-    path_offset + B) of the segment keyed by ``root_key`` (a threefry key
-    on the run's device). ``B`` is a multiple of KEY_TILE: each 8192-path
-    tile draws under ``fold_in(root_key, tile)``, so a path's draws depend
-    only on (seed, its position). ``scramble_key`` is read by the Sobol
-    models only."""
-    del scramble_key
+    path_offset + B) on the device of ``root_key`` (a threefry key).
+
+    Counter-stream models draw from the threefry stream of the segment
+    keyed by ``root_key``: ``B`` is a multiple of KEY_TILE, each 8192-path
+    tile drawing under ``fold_in(root_key, tile)``, so a path's draws
+    depend only on (seed, its position). Sobol models draw their points at
+    sequence positions ``index_offset + path_offset + [0, B)``, shifted by
+    ``scramble_key``; the reference stream draws from the path ids."""
     b, t = shape
-    if getattr(model, "is_quasi", False):
-        raise NotImplementedError(
-            "quasi-random models are not ported yet (ROADMAP queue 1 item "
-            "11: Sobol and RQMC)"
-        )
-    if getattr(model, "rng", "counter") == "reference":
-        raise NotImplementedError(
-            "the reference-parity stream is not ported yet (ROADMAP queue 1 "
-            "item 12)"
-        )
-    if b % KEY_TILE:
-        raise ValueError(f"{b} paths: not a multiple of {KEY_TILE}")
-    first = (int(path_offset) & cuda_engine.MASK32) // KEY_TILE
-    tiles = (first + torch.arange(b // KEY_TILE, device=root_key[0].device)
-             ) & cuda_engine.MASK32
-    r = model.sample_returns_pct(threefry.fold_in(root_key, tiles),
-                                 (KEY_TILE, t))
-    return (100.0 + r.reshape(b, t)) * cuda_engine._f32(0.01)
+    dev = root_key[0].device
+    if model.is_quasi:
+        r = model.sample_returns_pct_quasi(scramble_key, path_offset, shape)
+    elif getattr(model, "rng", "counter") == "reference":
+        r = model.sample_returns_pct_reference(path_offset, shape, dev)
+    else:
+        if b % KEY_TILE:
+            raise ValueError(f"{b} paths: not a multiple of {KEY_TILE}")
+        first = (int(path_offset) & cuda_engine.MASK32) // KEY_TILE
+        tiles = (first + torch.arange(b // KEY_TILE, device=dev)
+                 ) & cuda_engine.MASK32
+        r = model.sample_returns_pct(threefry.fold_in(root_key, tiles),
+                                     (KEY_TILE, t)).reshape(b, t)
+    return (100.0 + r) * cuda_engine._f32(0.01)
 
 
 def compound_paths(growth, v0, strategy):
@@ -725,13 +783,13 @@ def simulate_paths(
     tiles.
     """
     _check_paths(n_paths, n_periods, dtype)
-    _check_slice(model)
+    _check_model(model)
     dev = _resolve_device(options)
     lead = int(path_offset) % KEY_TILE
     base = int(path_offset) - lead
     b = _round_up(lead + n_paths, KEY_TILE)
     root_key = threefry.key(seed, dev)
-    scramble_key = threefry.fold_in(root_key, _SCRAMBLE_FOLD)
+    scramble_key = _scramble_key(seed, dev)
     out = np.empty((n_paths, n_periods + 1), np.float32)
     chunk = 2 * KEY_TILE
     for off in range(0, b, chunk):
@@ -790,10 +848,3 @@ def run(
         )
     return result
 
-
-def rqmc_estimate(*args, **kwargs):
-    """Replicated-RQMC estimates: not ported yet."""
-    raise NotImplementedError(
-        "rqmc_estimate is not ported yet (ROADMAP queue 1 item 11: Sobol "
-        "and RQMC)"
-    )

@@ -12,6 +12,8 @@ import numpy as np
 from stock_market_monte_carlo_torch.models.market import (
     GaussianReturns,
     HistoricalBootstrap,
+    SobolGaussianReturns,
+    SobolHistoricalBootstrap,
 )
 from stock_market_monte_carlo_torch.models.strategies import (
     FixedAmountWithdrawal,
@@ -41,9 +43,16 @@ def from_reference(obj):
     if kind == "variable_percent":
         return VariablePercentWithdrawal(
             percent_schedule=np.asarray(obj.percent_schedule))
-    if kind in ("sobol_gaussian", "sobol_historical"):
-        raise NotImplementedError(
-            f"{kind!r} models are not ported yet (ROADMAP queue 1 item 11)"
-        )
+    if kind == "sobol_gaussian":
+        return SobolGaussianReturns(
+            direction=np.asarray(obj.direction, np.uint32),
+            mean_pct=float(np.asarray(obj.mean_pct)),
+            std_pct=float(np.asarray(obj.std_pct)),
+            index_offset=int(obj.index_offset))
+    if kind == "sobol_historical":
+        return SobolHistoricalBootstrap(
+            returns_pct=np.asarray(obj.returns_pct, np.float32),
+            direction=np.asarray(obj.direction, np.uint32),
+            index_offset=int(obj.index_offset))
     raise TypeError(f"no port counterpart for {type(obj).__name__} "
                     f"(kind={kind!r})")

@@ -40,9 +40,9 @@ _i = ctypes.c_int
 _u = ctypes.c_uint
 _f = ctypes.c_float
 _ARGTYPES = {
-    "smmc_month_loop": (_i, _vp, _i, _i, _i, _f, _f, _vp, _i, _f, _i, _u,
-                        _u, _i, _f, _f, _f, _f, _f, _f, _i, _vp, _vp, _vp,
-                        _i, _vp),
+    "smmc_month_loop": (_i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _i, _u, _u,
+                        _vp, _i, _f, _i, _u, _u, _i, _f, _f, _f, _f, _f,
+                        _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_law": (_vp, _i, _u, _u, _i, _f, _f, _f, _f, _f, _f, _i,
                  _vp, _vp, _vp, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,

@@ -1,22 +1,24 @@
-"""The per-chunk device work: the month loop (historical bootstrap or
-Gaussian ICDF draw) and the terminal law, each as a hand-written CUDA
-kernel and its plain PyTorch version. The CLT sampler is ``ops/clt.py``.
+"""The per-chunk device work: the month loop and the terminal law, each
+as a hand-written CUDA kernel and its plain PyTorch version. The CLT
+sampler is ``ops/clt.py``.
 
 Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 
-- ``month_loop_chunk`` replaces ``_build_kernel`` (rng_mode="counter",
-  kind="historical" or "gaussian"), source ``csrc/month_loop.cu``;
+- ``month_loop_chunk`` replaces ``_build_kernel``, source
+  ``csrc/month_loop.cu``, in five draws (``DRAW_CODES``): the counter
+  stream's historical bootstrap and Gaussian ICDF, the Sobol Gaussian and
+  Sobol historical draws (32-bit or 64-bit sequence positions) and the
+  reference-parity historical stream;
 - ``law_chunk`` replaces ``_build_law_kernel`` and
   ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``.
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel (plain runs do not count):
-``month_loop`` (historical draw), ``month_loop_gaussian``, ``law``,
-``clt`` (``ops/clt.py``), ``bands_hist`` and ``bands_cdf``
-(``ops/bands.py``).
+the month loop's draws (``MONTH_LOOP_COUNTERS``), ``law``, ``clt``
+(``ops/clt.py``), ``bands_hist`` and ``bands_cdf`` (``ops/bands.py``).
 
-The random stream is the JAX package's arithmetic counter stream
+The default random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
 draw key, position in the 8192-path tile). The helpers below compute it in
 int64 tensors that hold uint32 values, masking every product to 32 bits,
@@ -71,10 +73,24 @@ _BLOCKS_PER_SM = 8
 
 STRATEGY_CODES = {"none": 0, "fixed_percent": 1, "variable_percent": 1,
                   "fixed_amount": 2}
-DRAW_CODES = {"historical": 0, "gaussian": 1}
+DRAW_CODES = {"historical": 0, "gaussian": 1, "sobol_gaussian": 2,
+              "sobol_historical": 3, "reference": 4}
+# the month loop's launch counter of each draw
+MONTH_LOOP_COUNTERS = {
+    "historical": "month_loop",
+    "gaussian": "month_loop_gaussian",
+    "sobol_gaussian": "month_loop_sobol_gaussian",
+    "sobol_historical": "month_loop_sobol_historical",
+    "reference": "month_loop_reference",
+}
+_TABLE_DRAWS = ("historical", "sobol_historical", "reference")
+_SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
+# dynamic shared memory a block may use (H100: 227 KB)
+MAX_SMEM_BYTES = 232448
 
-LAUNCHES = {"month_loop": 0, "month_loop_gaussian": 0, "law": 0, "clt": 0,
-            "bands_hist": 0, "bands_cdf": 0}
+LAUNCHES = dict.fromkeys(
+    [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
+     "bands_cdf"], 0)
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +135,20 @@ def _arith_bits(seed, key, pos):
     takes the tile shape and derives pos from it)."""
     h = _tile_seed_i32(seed, key)
     return _finalize((h + _mul32(pos, _GOLDEN)) & MASK32)
+
+
+def _pcg_hash_i32(x):
+    """The reference simulator's rand_pcg as a hash of ``x``
+    (pallas_engine._pcg_hash_i32)."""
+    word = _mul32((x >> ((x >> 28) + 4)) ^ x, 277803737)
+    return (word >> 22) ^ word
+
+
+def _xorshift_i32(y):
+    """One 11/7/12 xorshift step (pallas_engine._xorshift_i32)."""
+    y = y ^ ((y << 11) & MASK32)
+    y = y ^ (y >> 7)
+    return y ^ (y >> 12)
 
 
 def _u23_from_bits(bits):
@@ -214,16 +244,56 @@ def key_seed_base(k0: int, k1: int) -> int:
     return (k0 ^ (k1 * _SEED_MUL)) & MASK32
 
 
-def draw_operands(model, device):
+def _as_u32(x, device=None) -> torch.Tensor:
+    """uint32 values of ``x`` (numpy, a tensor of uint32 values or of
+    their int32 bits, or an int) as an int64 tensor."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.int64) & MASK32
+    return torch.as_tensor(np.asarray(x, np.uint32).astype(np.int64),
+                           device=device)
+
+
+def _as_i32(words, device):
+    """uint32 words (an int64 tensor of uint32 values or a numpy array)
+    as an int32 tensor of the same bits on ``device``."""
+    if torch.is_tensor(words):
+        words = words.cpu().numpy()
+    return torch.as_tensor(np.asarray(words, np.int64).astype(np.uint32)
+                           .view(np.int32), device=device)
+
+
+def model_draw(model) -> str:
+    """The month-loop draw of a model: its ``kind``, or ``"reference"``
+    for a historical model on the reference-parity stream."""
+    if getattr(model, "rng", "counter") == "reference":
+        return "reference"
+    return model.kind
+
+
+def draw_operands(model, device, n_periods=None, sobol_shift=None):
     """(table, draw keywords) of the month-loop and band kernels for
-    ``model``: the padded growth table on ``device`` and its length
-    (historical), or None and the growth constants a, b (Gaussian)."""
-    if model.kind == "historical":
-        table_np, n_table = _pad_table(model.returns_pct)
-        return (torch.as_tensor(table_np, device=device),
-                dict(draw="historical", n_table=n_table, a=0.0, b=0.0))
-    a, b = gaussian_ab(model.mean_pct, model.std_pct)
-    return None, dict(draw="gaussian", n_table=0, a=a, b=b)
+    ``model`` on ``device``: the padded growth table and its length
+    (historical kinds) or None and the growth constants a, b (Gaussian
+    kinds); for the Sobol kinds also ``direction``, the model's first
+    ``n_periods`` rows of direction numbers as an int32 (n_periods, 32|64)
+    tensor of uint32 bits, ``sobol_shift``, the run's (n_periods,) digital
+    shift (``sobol.digital_shift``), likewise, and ``index_offset``."""
+    draw = model_draw(model)
+    kw = dict(draw=draw, n_table=0, a=0.0, b=0.0)
+    table = None
+    if draw in _TABLE_DRAWS:
+        table_np, kw["n_table"] = _pad_table(model.returns_pct)
+        table = torch.as_tensor(table_np, device=device)
+    else:
+        kw["a"], kw["b"] = gaussian_ab(model.mean_pct, model.std_pct)
+    if draw in _SOBOL_DRAWS:
+        direction = np.asarray(model.direction, np.uint32)[:n_periods]
+        kw.update(
+            direction=torch.tensor(direction.view(np.int32),
+                                   device=device),
+            sobol_shift=_as_i32(sobol_shift, device),
+            index_offset=int(model.index_offset))
+    return table, kw
 
 
 # ---------------------------------------------------------------------------
@@ -262,14 +332,91 @@ def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
     return stats, hist
 
 
+def _xor_tables(direction):
+    """(dims, cols/8, 256) byte tables of a (dims, cols) table of uint32
+    direction numbers: entry [d, k, v] is the XOR of direction[d, 8k + j]
+    over the set bits j of v. The Sobol fold then runs a byte of the gray
+    code at a time, one gathered entry per byte; XOR makes it the
+    kernels' bit-by-bit fold exactly."""
+    d = _as_u32(direction)
+    dims, cols = d.shape
+    v = torch.arange(256, device=d.device)
+    d8 = d.reshape(dims, cols // 8, 8)
+    tab = torch.zeros((dims, cols // 8, 256), dtype=torch.int64,
+                      device=d.device)
+    for j in range(8):
+        tab = tab ^ torch.where(((v >> j) & 1).bool(), d8[:, :, j, None], 0)
+    return tab
+
+
+def _bytes(gray, n_bytes):
+    """The low ``n_bytes`` bytes of the 64-bit patterns in ``gray``."""
+    return [(gray >> (8 * k)) & 255 for k in range(n_bytes)]
+
+
+def xor_fold(direction, gray):
+    """(..., dims) unshifted Sobol words of the gray codes ``gray`` (...,):
+    the XOR of direction[d, b] over the set bits b of each code."""
+    tab = _xor_tables(direction)
+    gbytes = _bytes(gray, tab.shape[1])
+    acc = tab[:, 0][:, gbytes[0]]
+    for k in range(1, len(gbytes)):
+        acc = acc ^ tab[:, k][:, gbytes[k]]
+    return acc.movedim(0, -1)
+
+
+def _sobol_words(direction, shift, index_offset, gid):
+    """``word(t)``: the digital-shifted Sobol words of dimension t at
+    sequence positions index_offset + ``gid`` (int64 tensor of uint32),
+    from the byte tables of every month at once."""
+    tab = _xor_tables(direction)
+    idx = int(index_offset) + gid
+    gbytes = _bytes(idx ^ (idx >> 1), tab.shape[1])
+    shift = _as_u32(shift)
+
+    def word(t):
+        acc = shift[t]
+        for k, byte in enumerate(gbytes):
+            acc = acc ^ tab[t, k][byte]
+        return acc
+    return word
+
+
 def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
-                 n_paths):
+                 n_paths, direction=None, shift=None, index_offset=0):
     """``growth(t)``: the (tiles, 64, 128) float32 growth factors of month
-    t of a chunk's paths on ``dev``, from the arithmetic counter stream
-    (one word per path and month, keyed by the tile and the month).
+    t of a chunk's paths on ``dev``, the plain month loop's and band
+    kernels' draw. Counter draws take one word per path and month from the
+    arithmetic stream, keyed by the tile and the month:
     ``draw="historical"`` reads ``table`` (``n_table`` rows) by the
     sliced-rotation bootstrap; ``draw="gaussian"`` grows by a + b*z and
-    takes ``table=None``. The plain month loop's and band kernels' draw."""
+    takes ``table=None``. The Sobol draws take the word of dimension t at
+    the path's sequence position (``direction``, ``shift``,
+    ``index_offset``), to a + b*z or to table row floor(n * word / 2^32);
+    ``draw="reference"`` steps each path's xorshift state (call ``growth``
+    for t = 0, 1, ... in order) to table row floor(n * state / 2^32)."""
+    if draw in _SOBOL_DRAWS or draw == "reference":
+        gid = ((int(tile0) * TILE_PATHS
+                + torch.arange(n_paths, dtype=torch.int64, device=dev))
+               & MASK32).reshape(-1, TILE_ROWS, 128)
+        if draw == "sobol_gaussian":
+            a, b = _f32(a), _f32(b)
+            word = _sobol_words(direction, shift, index_offset, gid)
+            return lambda t: a + b * _normal_z(word(t))
+        if draw == "sobol_historical":
+            word = _sobol_words(direction, shift, index_offset, gid)
+            return lambda t: table[_bootstrap_idx_exact_i32(word(t),
+                                                            n_table)]
+        state = [_pcg_hash_i32((gid + 1) & MASK32), 0]
+
+        def growth(t):
+            if t != state[1]:
+                raise ValueError("the reference stream steps month by "
+                                 f"month: month {t} after {state[1]}")
+            state[0] = _xorshift_i32(state[0])
+            state[1] += 1
+            return table[_bootstrap_idx_exact_i32(state[0], n_table)]
+        return growth
     if draw == "historical":
         k_chunks = table.numel() // 128
         tail_n = n_table - 128 * (k_chunks - 1)
@@ -301,13 +448,17 @@ def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
 def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
                            seed_base, tile0, valid, n_paths, v0, target,
                            shift, log_lo, inv_w, hb, with_hist, keep_finals,
-                           draw="historical", n_table=0, a=0.0, b=0.0):
+                           draw="historical", n_table=0, a=0.0, b=0.0,
+                           direction=None, sobol_shift=None, index_offset=0):
     """Plain PyTorch version of ``csrc/month_loop.cu``: the same integer
     and float32 arithmetic, vectorised over the chunk's (tiles, 64, 128)
-    paths and looped over the months; the draw as ``month_growth``."""
+    paths and looped over the months; the draw as ``month_growth``
+    (``sobol_shift`` is its ``shift``; ``shift`` is the moments' centre)."""
     dev = keep.device
     growth = month_growth(dev, table, draw=draw, n_table=n_table, a=a, b=b,
-                          seed_base=seed_base, tile0=tile0, n_paths=n_paths)
+                          seed_base=seed_base, tile0=tile0, n_paths=n_paths,
+                          direction=direction, shift=sobol_shift,
+                          index_offset=index_offset)
     code = STRATEGY_CODES[strategy]
     amount = _f32(amount)
 
@@ -449,29 +600,60 @@ def _check_chunk(dev, what, valid, n_paths):
 def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
                         seed_base, tile0, valid, n_paths, v0, target, shift,
                         log_lo, inv_w, hb, with_hist, keep_finals,
-                        draw="historical", n_table=0, a=0.0, b=0.0):
+                        draw="historical", n_table=0, a=0.0, b=0.0,
+                        direction=None, sobol_shift=None, index_offset=0):
     """Checked inputs of one month-loop chunk on a CUDA device ->
     ``(launch, outputs)`` (see ``_prepare``). ``launch()`` alone is the
     kernel, uncounted: ``month_loop_chunk`` is the counted entry point."""
     dev = keep.device
     _check_chunk(dev, "month-loop", valid, n_paths)
     _check(keep, "keep", dev, n_periods)
-    if draw == "historical":
+    if draw not in DRAW_CODES:
+        raise ValueError(f"unknown draw {draw!r}")
+    smem = 0
+    if draw in _TABLE_DRAWS:
         if not 0 < n_table < (1 << 15):
             raise ValueError(f"table length {n_table} outside [1, 2^15)")
         k_chunks = -(-n_table // 128)
         _check(table, "table", dev, k_chunks * 128)
         tail_n = n_table - 128 * (k_chunks - 1)
-    elif draw == "gaussian":
-        if table is not None:
-            raise ValueError("the Gaussian draw takes no table")
-        k_chunks = tail_n = n_table = 0
+        smem += 4 * k_chunks * 128
     else:
-        raise ValueError(f"unknown draw {draw!r}")
+        if table is not None:
+            raise ValueError(f"the {draw} draw takes no table")
+        k_chunks = tail_n = n_table = 0
+    dir_cols = 0
+    if draw in _SOBOL_DRAWS:
+        if direction is None or sobol_shift is None:
+            raise ValueError(f"the {draw} draw needs direction and "
+                             "sobol_shift")
+        _check(direction, "direction", dev, dtype=torch.int32)
+        dir_cols = direction.shape[-1]
+        if direction.shape != (n_periods, dir_cols) or dir_cols not in (32,
+                                                                         64):
+            raise ValueError(
+                f"direction has shape {tuple(direction.shape)}, expected "
+                f"({n_periods}, 32) or ({n_periods}, 64)")
+        _check(sobol_shift, "sobol_shift", dev, n_periods, torch.int32)
+        if not 0 <= index_offset < (1 << 62):
+            raise ValueError(f"index_offset {index_offset} outside [0, 2^62)")
+        if index_offset and dir_cols != 64:
+            raise ValueError("a nonzero index_offset needs the (n_periods, "
+                             "64) direction table")
+        smem += 4 * n_periods * (dir_cols + 1)
+    elif direction is not None or sobol_shift is not None:
+        raise ValueError(f"the {draw} draw takes no Sobol operands")
+    smem += 4 * hb if with_hist else 0
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the {draw} draw's operands and histogram take {smem} bytes of "
+            f"shared memory, past a block's {MAX_SMEM_BYTES}; shorten the "
+            "horizon or use fewer histogram_bins")
     args = (DRAW_CODES[draw], _ptr(table), k_chunks, n_table, tail_n,
-            _f32(a), _f32(b), _ptr(keep), STRATEGY_CODES[strategy],
-            _f32(amount), n_periods, int(seed_base) & MASK32,
-            int(tile0) & MASK32, valid, _f32(v0),
+            _f32(a), _f32(b), _ptr(direction), _ptr(sobol_shift), dir_cols,
+            index_offset & MASK32, index_offset >> 32, _ptr(keep),
+            STRATEGY_CODES[strategy], _f32(amount), n_periods,
+            int(seed_base) & MASK32, int(tile0) & MASK32, valid, _f32(v0),
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
     return _prepare("smmc_month_loop", args, dev, valid, hb, with_hist,
@@ -503,20 +685,22 @@ def _launch_counted(name, launcher):
 def month_loop_chunk(table, keep, **kw):
     """One chunk of the month loop.
 
-    ``draw="historical"`` (the default): ``table`` is the float32 (C*128,)
-    padded growth table (``_pad_table``) of ``n_table`` rows.
-    ``draw="gaussian"``: ``table`` is None and the growth is a + b*z
-    (``gaussian_ab``). ``keep``: float32 (n_periods,) keep factors (read by
-    the percent strategies); keywords as ``month_loop_chunk_plain``, with
-    ``seed_base``/``tile0`` the uint32 stream base and first global
-    8192-path tile and ``valid`` of the ``n_paths`` (a multiple of 8192)
-    paths counting. Returns (stats, hist, finals-or-None) on
-    ``keep.device``; counts its launch under ``month_loop`` or
-    ``month_loop_gaussian``."""
+    ``draw="historical"`` (the default), ``"sobol_historical"`` and
+    ``"reference"``: ``table`` is the float32 (C*128,) padded growth table
+    (``_pad_table``) of ``n_table`` rows. ``draw="gaussian"`` and
+    ``"sobol_gaussian"``: ``table`` is None and the growth is a + b*z
+    (``gaussian_ab``). The Sobol draws take ``direction`` (int32
+    (n_periods, 32|64) bits), ``sobol_shift`` (int32 (n_periods,) bits)
+    and ``index_offset`` (``draw_operands``). ``keep``: float32
+    (n_periods,) keep factors (read by the percent strategies); keywords
+    as ``month_loop_chunk_plain``, with ``seed_base``/``tile0`` the uint32
+    stream base and first global 8192-path tile and ``valid`` of the
+    ``n_paths`` (a multiple of 8192) paths counting. Returns (stats, hist,
+    finals-or-None) on ``keep.device``; counts its launch under the
+    draw's ``MONTH_LOOP_COUNTERS`` entry."""
     if keep.device.type == "cpu":
         return month_loop_chunk_plain(table, keep, **kw)
-    name = ("month_loop_gaussian" if kw.get("draw") == "gaussian"
-            else "month_loop")
+    name = MONTH_LOOP_COUNTERS[kw.get("draw", "historical")]
     return _launch_counted(name, month_loop_launcher(table, keep, **kw))
 
 

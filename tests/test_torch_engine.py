@@ -290,18 +290,8 @@ def _out_of_slice_calls():
             hist, 8192, 12, options=cpu, checkpoint_path="x.npz"),
         "mesh": lambda: smt.simulate_stats(hist, 8192, 12, options=cpu,
                                            mesh=object()),
-        "reference_rng": lambda: smt.HistoricalBootstrap(
-            hist.returns_pct, rng="reference"),
-        "sobol": lambda: from_reference(smmc.SobolGaussianReturns.create(12)),
         "bands_mesh": lambda: smt.simulate_bands(hist, 8192, 12, options=cpu,
                                                  mesh=object()),
-        "quasi_growth": lambda: port_engine.sample_growth(
-            types.SimpleNamespace(kind="sobol_gaussian", is_quasi=True),
-            None, None, 0, (8192, 12)),
-        "reference_growth": lambda: port_engine.sample_growth(
-            types.SimpleNamespace(kind="historical", rng="reference"),
-            None, None, 0, (8192, 12)),
-        "rqmc": lambda: smt.rqmc_estimate(hist, 8192, 12),
     }
 
 
@@ -309,6 +299,86 @@ def _out_of_slice_calls():
 def test_out_of_slice_raises_with_roadmap_item(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         _out_of_slice_calls()[case]()
+
+
+def _jax_key(seed):
+    import jax
+
+    return jax.random.key(seed), jax.random.fold_in(jax.random.key(seed),
+                                                    0x50B0)
+
+
+def _port_key(seed):
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    return threefry.key(seed), threefry.fold_in(threefry.key(seed), 0x50B0)
+
+
+def _growth_pair(model):
+    """sample_growth of paths [8192, 3*8192) in both packages."""
+    import jax.numpy as jnp
+
+    want = jax_engine.sample_growth(model, *_jax_key(4), jnp.uint32(8192),
+                                    (2 * 8192, 12))
+    got = port_engine.sample_growth(from_reference(model), *_port_key(4),
+                                    8192, (2 * 8192, 12))
+    return got.numpy(), np.asarray(want)
+
+
+def _formerly_out_of_slice():
+    """Calls the port refused before it ran the Sobol models, the
+    reference-parity stream and RQMC: each now runs and returns what the
+    JAX package returns, as (got, want) arrays."""
+    hist = smmc.HistoricalBootstrap.from_csv()
+
+    def reference_rng():
+        ref = smmc.HistoricalBootstrap(hist.returns_pct, rng="reference")
+        got = from_reference(ref)
+        assert got.rng == "reference"
+        return (np.asarray(got.sample_returns_pct_reference(8190, (6, 12))),
+                np.asarray(ref.sample_returns_pct_reference(8190, (6, 12))))
+
+    def sobol():
+        ref = smmc.SobolGaussianReturns.create(12, index_offset=5)
+        got = from_reference(ref)
+        assert got.index_offset == 5 and got.kind == "sobol_gaussian"
+        return got.direction, np.asarray(ref.direction)
+
+    def rqmc(monkeypatch):
+        monkeypatch.setenv("SMMC_PRNG_IMPL", "arith")
+        want = smmc.rqmc_estimate(hist, 8192, 12, replicates=2,
+                                  options=JaxOptions(backend="pallas",
+                                                     chunk_paths=8192))
+        got = smt.rqmc_estimate(from_reference(hist), 8192, 12, replicates=2,
+                                options=smt.EngineOptions(**CPU))
+        return got.replicate_means, want.replicate_means
+
+    return {
+        "reference_rng": reference_rng,
+        "sobol": sobol,
+        "quasi_growth": lambda: _growth_pair(
+            smmc.SobolHistoricalBootstrap.create(hist.returns_pct, 12)),
+        "reference_growth": lambda: _growth_pair(
+            smmc.HistoricalBootstrap(hist.returns_pct, rng="reference")),
+        "rqmc": rqmc,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_formerly_out_of_slice()))
+def test_formerly_out_of_slice_calls_match_jax(case, monkeypatch):
+    call = _formerly_out_of_slice()[case]
+    got, want = call(monkeypatch) if case == "rqmc" else call()
+    if case == "rqmc":
+        # float64 merges of float32 power sums, summed in another order
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_unknown_model_rejected():
+    with pytest.raises(TypeError, match="not a market model"):
+        smt.simulate_stats(types.SimpleNamespace(kind="other"), 8192, 12,
+                           options=smt.EngineOptions(device="cpu"))
 
 
 def test_xla_backend_rejected():

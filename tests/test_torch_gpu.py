@@ -7,7 +7,11 @@ three variants over one and two 128-month blocks; the two band kernels
 under both draws and every percent strategy, odd bin and threshold
 counts, one and two months. Also the wrappers' input checks and launch
 counters, the launch counts of the engine's samplers, and bands,
-trajectories and seed segments on the card against the CPU.
+trajectories and seed segments on the card against the CPU. The month
+loop's Sobol and reference-parity draws against their plain versions under
+every strategy, at 64-bit positions (past 2^33, across a word carry, near
+2^62), at 360 months and with large tables; the engine, trajectories,
+bands and RQMC of those models on the card against the CPU.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -403,3 +407,165 @@ def test_segmented_run_on_cuda_matches_cpu(cuda):
     want = smt.simulate_final_values(*args, seed=9, options=smt.EngineOptions(
         device="cpu", **opts))
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The Sobol and reference-parity draws of the month loop
+# ---------------------------------------------------------------------------
+
+NEW_DRAWS = ("sobol_gaussian", "sobol_historical", "reference")
+
+
+def _draw_model(draw, n_periods, index_offset=0, table_name="n1127"):
+    table = _table(table_name)
+    if draw == "sobol_gaussian":
+        return smt.SobolGaussianReturns.create(n_periods,
+                                               index_offset=index_offset)
+    if draw == "sobol_historical":
+        return smt.SobolHistoricalBootstrap.create(table, n_periods,
+                                                   index_offset=index_offset)
+    return smt.HistoricalBootstrap(table, rng="reference")
+
+
+def _draw_args(cuda, draw, strategy, n_periods=24, index_offset=0,
+               table_name="n1127", hb=4096, with_hist=True, **over):
+    """(table, keep), kwargs of one month-loop chunk of a new draw, with
+    the operands the engine builds (seed 5's digital shift)."""
+    from stock_market_monte_carlo_torch.ops import sobol, threefry
+
+    model = _draw_model(draw, n_periods, index_offset, table_name)
+    shift = sobol.digital_shift(
+        threefry.fold_in(threefry.key(5), 0x50B0), n_periods)
+    table, draw_kw = ce.draw_operands(model, cuda, n_periods,
+                                      shift if model.is_quasi else None)
+    keep = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.99, 1.0, n_periods).astype(np.float32), device=cuda)
+    kw = dict(_month_kw(strategy, 0, n_periods, hb, with_hist), **draw_kw)
+    return (table, keep), dict(kw, **over)
+
+
+def _assert_draw_matches_plain(ops, kw):
+    _assert_kernel_matches_plain(ce.month_loop_chunk(*ops, **kw),
+                                 ce.month_loop_chunk_plain(*ops, **kw))
+
+
+@pytest.mark.parametrize("draw", NEW_DRAWS)
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "variable_percent", "fixed_amount"])
+@pytest.mark.parametrize("hb,with_hist", [(4096, True), (102, True),
+                                          (4096, False)])
+def test_new_draw_kernels_match_plain(cuda, draw, strategy, hb, with_hist):
+    """Bit for bit, at a ragged chunk (2*8192+1001 of 4*8192 paths) at tile
+    offset 37."""
+    _assert_draw_matches_plain(*_draw_args(cuda, draw, strategy, hb=hb,
+                                           with_hist=with_hist))
+
+
+@pytest.mark.parametrize("draw", ["sobol_gaussian", "sobol_historical"])
+@pytest.mark.parametrize("index_offset", [(1 << 33) + 777,
+                                          (1 << 32) - 40000,
+                                          (1 << 62) - (1 << 20)])
+def test_sobol_deep_kernels_match_plain(cuda, draw, index_offset):
+    """64-bit positions: past 2^33, a carry into the high word inside the
+    chunk, and near the 2^62 end."""
+    _assert_draw_matches_plain(*_draw_args(cuda, draw, "fixed_percent",
+                                           index_offset=index_offset))
+
+
+@pytest.mark.parametrize("draw,index_offset", [
+    ("sobol_gaussian", 0), ("sobol_gaussian", (1 << 33) + 777),
+    ("sobol_historical", 0), ("sobol_historical", (1 << 33) + 777),
+    ("reference", 0)])
+def test_new_draws_at_360_months_match_plain(cuda, draw, index_offset):
+    """The full horizon: 360 x 32 (or x 64) direction words in shared
+    memory beside the histogram."""
+    _assert_draw_matches_plain(*_draw_args(
+        cuda, draw, "none", n_periods=360, index_offset=index_offset,
+        valid=8192 + 3, n_paths=2 * 8192))
+
+
+@pytest.mark.parametrize("draw", ["sobol_historical", "reference"])
+@pytest.mark.parametrize("table_name", ["hostile_n97", "n20000"])
+def test_new_draw_tables_match_plain(cuda, draw, table_name):
+    _assert_draw_matches_plain(*_draw_args(cuda, draw, "fixed_amount",
+                                           table_name=table_name))
+
+
+def test_new_draw_wrappers_check_inputs_and_count_launches(cuda):
+    ops, kw = _draw_args(cuda, "sobol_gaussian", "none")
+    ce.reset_launch_counts()
+    ce.month_loop_chunk_plain(*ops, **kw)
+    assert ce.LAUNCHES["month_loop_sobol_gaussian"] == 0
+    ce.month_loop_chunk(*ops, **kw)
+    assert ce.LAUNCHES["month_loop_sobol_gaussian"] == 1
+    with pytest.raises(ValueError, match="needs direction"):
+        ce.month_loop_chunk(*ops, **dict(kw, sobol_shift=None))
+    with pytest.raises(TypeError):
+        ce.month_loop_chunk(*ops, **dict(kw, direction=kw["direction"]
+                                         .long()))
+    with pytest.raises(ValueError, match="64"):
+        ce.month_loop_chunk(*ops, **dict(kw, index_offset=5))
+    with pytest.raises(ValueError, match="shape"):
+        ce.month_loop_chunk(*ops, **dict(kw, direction=kw["direction"][:6]))
+    deep_ops, deep_kw = _draw_args(cuda, "sobol_historical", "none",
+                                   n_periods=900, index_offset=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        ce.month_loop_chunk(*deep_ops, **deep_kw)
+    ref_ops, ref_kw = _draw_args(cuda, "reference", "none")
+    with pytest.raises(ValueError, match="no Sobol operands"):
+        ce.month_loop_chunk(*ref_ops, **dict(ref_kw, sobol_shift=kw[
+            "sobol_shift"]))
+    assert sum(ce.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("draw", NEW_DRAWS)
+def test_engine_new_draw_launch_counts(cuda, draw):
+    """Each new draw launches its own kernel once per chunk, and the
+    results on the card equal the CPU run's (Sobol Gaussian within the
+    two devices' log1p ulp)."""
+    model = _draw_model(draw, 24)
+    args = (model, 3 * 8192 + 123, 24)
+    kw = dict(seed=4, strategy=smt.FixedPercentWithdrawal(0.3),
+              target_amount=1000.0, keep_final_values=True)
+    ce.reset_launch_counts()
+    got = smt.simulate_stats(*args, options=smt.EngineOptions(
+        chunk_paths=8192), **kw)
+    key = ce.MONTH_LOOP_COUNTERS[draw]
+    assert ce.LAUNCHES == dict({k: 0 for k in ce.LAUNCHES}, **{key: 4})
+    want = smt.simulate_stats(*args, options=smt.EngineOptions(
+        chunk_paths=8192, device="cpu"), **kw)
+    rel = 1e-6 if draw == "sobol_gaussian" else 0.0
+    np.testing.assert_allclose(got.final_values, want.final_values,
+                               rtol=rel, atol=0)
+    assert got.histogram_counts.sum() == want.histogram_counts.sum()
+
+
+@pytest.mark.parametrize("draw", NEW_DRAWS)
+def test_new_draw_trajectories_and_bands_on_cuda_match_cpu(cuda, draw):
+    model = _draw_model(draw, 24, index_offset=7 if draw != "reference"
+                        else 0)
+    args = (model, 300, 24, 1000.0, 3, smt.FixedPercentWithdrawal(0.2))
+    got = smt.simulate_paths(*args, path_offset=8000)
+    want = smt.simulate_paths(*args, path_offset=8000,
+                              options=smt.EngineOptions(device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    kw = dict(seed=4, sample_paths=3, n_bins=256)
+    ce.reset_launch_counts()
+    got = smt.simulate_bands(model, 8192 + 77, 24, **kw)
+    assert sum(ce.LAUNCHES.values()) == 0   # no band kernel draws these
+    want = smt.simulate_bands(model, 8192 + 77, 24, options=smt.EngineOptions(
+        device="cpu"), **kw)
+    np.testing.assert_array_equal(got.month_hist.sum(1), 8192 + 77)
+    assert np.abs(got.month_hist - want.month_hist).max() <= 2
+    np.testing.assert_allclose(got.values, want.values, rtol=1e-4)
+
+
+def test_rqmc_on_cuda_matches_cpu(cuda):
+    model = smt.SobolGaussianReturns.create(24)
+    got = smt.rqmc_estimate(model, 8192 + 5, 24, replicates=3,
+                            options=smt.EngineOptions(chunk_paths=8192))
+    want = smt.rqmc_estimate(model, 8192 + 5, 24, replicates=3,
+                             options=smt.EngineOptions(chunk_paths=8192,
+                                                       device="cpu"))
+    np.testing.assert_allclose(got.replicate_means, want.replicate_means,
+                               rtol=1e-6)
