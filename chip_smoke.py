@@ -4,8 +4,9 @@ against its plain PyTorch version on the card, drives the main paths at
 month loop, CLT sampler, the Sobol Gaussian, Sobol historical and
 reference-parity historical month loops, historical bands in hist mode,
 Gaussian bands in cdf mode), checks replicated-RQMC intervals, Sobol bands
-and trajectories on the card against the CPU, and times the kernels and
-the paths.
+and trajectories on the card against the CPU, times the kernels and the
+paths, and runs the headline benchmark (``bench/headline.py``) at 100M x
+360 with its dispatch-floor and calibration kernels.
 
     python3 chip_smoke.py
 
@@ -18,10 +19,11 @@ Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -53,6 +55,7 @@ CHECK_PATHS = 1 << 20
 DEVICE = torch.device("cuda")
 _PE = "stock_market_monte_carlo_tpu/ops/pallas_engine.py"
 _PB = "stock_market_monte_carlo_tpu/ops/pallas_bands.py"
+_EXP = "experiments"
 _CSRC = "stock_market_monte_carlo_torch/csrc"
 KERNELS = {
     "month_loop": dict(source=f"{_CSRC}/month_loop.cu",
@@ -69,6 +72,12 @@ KERNELS = {
     "clt": dict(source=f"{_CSRC}/clt.cu", replaces=f"{_PE}:1048"),
     "bands_hist": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:249"),
     "bands_cdf": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:494"),
+    "grid_overhead": dict(source=f"{_CSRC}/calibration.cu",
+                          replaces=f"{_EXP}/exp_grid_overhead.py:66"),
+    "calib": dict(source=f"{_CSRC}/calibration.cu",
+                  replaces=f"{_EXP}/exp_hist_roofline.py:102"),
+    "counts_below_tile": dict(source=f"{_CSRC}/bands.cu",
+                              replaces="tests/test_bands.py:468"),
 }
 BAND_BINS = 1024
 BAND_THRESHOLDS = 32
@@ -85,34 +94,14 @@ DEEP_OFFSET = (1 << 33) + 777
 RQMC_REPLICATES = 8
 RQMC_PATHS = 1 << 24
 SOBOL_BAND_PATHS = 1 << 22
-
-# Peak rates for the bounds: NVIDIA's H100 SXM data sheet (HBM, bf16 tensor
-# cores) and the Hopper architecture white paper (132 SMs, 4 sub-partitions
-# of 32 lanes, 1.98 GHz boost). The data sheet gives no int32 rate; the
-# scalar rate below is the issue limit of any 32-bit instruction (one warp
-# instruction per clock per sub-partition), which is also the data sheet's
-# 67 TFLOP/s float32 with an FMA counted as one operation. The kernels are
-# built with -fmad=false, so each float op is its own instruction.
-HBM_BYTES_PER_S = 3.35e12
-TENSOR_BF16_FLOP_PER_S = 989e12
-SCALAR_OPS_PER_S = 132 * 128 * 1.98e9
-
-# 32-bit scalar operations, counted from the kernels' sources; a libm call
-# (logf, expf, log1pf, sqrtf) counts as one, so the bounds err low.
-_HASH = 8                     # finalize: 3 shifts, 3 xors, 2 multiplies
-_WORD = _HASH + 2             # arith_word: + multiply, add
-_IDX = 7                      # idx_exact
-# u23 (4), 2u-1 (2), -log1p(-x*x) (4), the p polynomial (17), select and
-# two scales (3); the q polynomial (sqrtf, -3, 16) only where w >= 5, i.e.
-# |2u-1| >= sqrt(1 - e^-5)
-_NORMAL_Z = 30 + 18 * (1.0 - math.sqrt(1.0 - math.exp(-5.0)))
-_EPILOGUE = 25                # Stats.add (16) and bin_index + atomic (9)
-# a Sobol word as the function needs it: the Gray-code recurrence along
-# consecutive positions (one direction load, one XOR), then the shift XOR;
-# the kernel's per-bit fold is a cost of its design, not counted
-_SOBOL = 3
-_XORSHIFT = 6                 # three shifts, three xors
-
+# the headline's seeds of the dispatch floor and the calibration pair
+GRID_SEED = 12345
+CALIB_SEED = 123
+# a ragged tile offset for the calibration check
+CALIB_TILE0 = 37
+COUNTS_K = (8, 32, 64)
+# the headline's mean errors against 1000 * g^360
+HEADLINE_MEAN_REL = 1e-3
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -129,14 +118,6 @@ def check(cond, msg):
 
 def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-300)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -357,21 +338,6 @@ def compare_counts(label, k_out, p_out, kind, valid):
 # ---------------------------------------------------------------------------
 
 
-def device_ms(fn, reps):
-    """Milliseconds per call on the card's clock: CUDA events around
-    ``reps`` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def wall_median(fn, reps=3):
     fn()  # warm-up
     times = []
@@ -384,124 +350,6 @@ def wall_median(fn, reps=3):
     return statistics.median(times), times
 
 
-def _io_bytes(ops, kw, rows_per_block, blocks_per_sm):
-    """Bytes each input is read once and each output written once: the
-    operand tensors, the per-block partial rows, the histogram and (when
-    kept) the finals."""
-    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
-
-    n_blocks = ce._launch_geometry(DEVICE, kw["valid"], kw["hb"],
-                                   kw["with_hist"], rows_per_block,
-                                   blocks_per_sm)
-    inputs = sum(t.numel() * t.element_size() for t in ops if t is not None)
-    return (inputs + n_blocks * 8 * 8 + kw["hb"] * 4
-            + (kw["valid"] * 4 if kw["keep_finals"] else 0))
-
-
-def bound(name, ops, kw):
-    """(bound_ms, bound_by, work) for one chunk of kernel ``name`` on
-    these operands: the larger of the bytes over the HBM rate and each
-    kind of operation over its peak rate. Operations are counted from the
-    kernel source for what the function needs; words a TPU row shares
-    (the draw key of a tile-month, the source lane's word of the
-    historical draw) are counted once."""
-    from stock_market_monte_carlo_torch.ops import clt
-    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
-
-    valid = kw["valid"]
-    tensor_flop = 0.0
-    if name.startswith("bands"):
-        t = kw["n_periods"]
-        if kw["draw"] == "historical":
-            n = kw["n_table"]
-            tail_n = n - (ops[0].numel() - 128)
-            per = _WORD + _IDX + 1 + 3 * (1.0 - tail_n / n) + 13
-        else:
-            per = _WORD + _NORMAL_Z + 2
-        keep = 0 if ops[1] is None else 1
-        if name.startswith("bands_hist"):
-            # fmaxf, logf, multiply, add, floorf, two clamps, convert, +1,
-            # the shared-memory atomic
-            reduce_ops, cells = 10, kw["n_bins"] + 2
-        else:
-            # what the count needs, not the kernel's binary search: the
-            # interior thresholds lie on an affine log grid, so the
-            # histogram's cell arithmetic and atomic give the cell; then a
-            # threshold load and a compare correct it, and two compares
-            # place the guard rows
-            k = kw["n_thresholds"]
-            reduce_ops = 10 + 4
-            cells = k + 1
-        # per path-month: draw, keep, compounding, reduction; per
-        # tile-month the draw key
-        scalar = (valid * t * (per + keep + 1 + reduce_ops)
-                  + (valid / ce.TILE_PATHS) * t * _WORD)
-        nbytes = (sum(x.numel() * x.element_size() for x in ops
-                      if x is not None) + t * cells * 4)
-    elif name.startswith("month_loop"):
-        t = kw["n_periods"]
-        strat = {"none": 0, "fixed_percent": 3, "variable_percent": 3,
-                 "fixed_amount": 4}[kw["strategy"]]
-        draw = kw["draw"]
-        # per path-month: the draw, its growth; per path: the stream's
-        # setup (the reference state's pcg hash); per tile-month: the
-        # counter stream's draw key
-        setup, key_words = 0, 0
-        if draw == "historical":
-            table, n = ops[0].numel(), kw["n_table"]
-            tail_n = n - (table - 128)
-            # own word, dest index and test, the row rotation where the
-            # draw leaves the tail, the source lane's index map and the
-            # shared-memory gather
-            per = _WORD + _IDX + 1 + 3 * (1.0 - tail_n / n) + 13
-            key_words = _WORD
-        elif draw == "gaussian":
-            per = _WORD + _NORMAL_Z + 2
-            key_words = _WORD
-        elif draw == "sobol_gaussian":
-            per = _SOBOL + _NORMAL_Z + 2
-        elif draw == "sobol_historical":
-            per = _SOBOL + _IDX + 1
-        else:
-            per = _XORSHIFT + _IDX + 1
-            setup = 6
-        per_path = t * (per + 1 + strat) + setup + _EPILOGUE
-        scalar = valid * per_path + (valid / ce.TILE_PATHS) * t * key_words
-        sobol_ops = [kw.get("direction"), kw.get("sobol_shift")]
-        nbytes = _io_bytes(list(ops) + sobol_ops, kw, 256, 8)
-    elif name.startswith("law"):
-        d = ops[0].numel() - 1
-        scalar = valid * (_WORD + _NORMAL_Z + 2 + 3 * (d - 1) + 5
-                          + _EPILOGUE)
-        nbytes = _io_bytes(ops, kw, 256, 8)
-    elif name.startswith("clt"):
-        nblocks = ops[1].shape[0]
-        k = clt.CLT_K
-        # per block: k words, each shifted, converted and rounded to bf16;
-        # the affine step; then the product over blocks (plain) or the
-        # prefix step per column (gk, exp, excl*g*(1-k), add, max, log,
-        # add) and the carry (prefix)
-        per_block = k * (_WORD + 3) + 2 * k
-        if kw["variant"] == "prefix":
-            per_block += 9 * k + 6
-            finish = 1
-        else:
-            per_block += k
-            finish = 2 * k + 2
-        scalar = valid * (nblocks * per_block + finish + _EPILOGUE)
-        tensor_flop = valid * nblocks * 2.0 * k * k
-        nbytes = _io_bytes(ops, kw, 64, 2)
-    else:
-        raise ValueError(name)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(scalar / SCALAR_OPS_PER_S,
-                tensor_flop / TENSOR_BF16_FLOP_PER_S)
-    work = dict(bytes=nbytes, scalar_ops=scalar, tensor_flop=tensor_flop)
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes", work
-    return t_ops * 1e3, "operations", work
-
-
 # ---------------------------------------------------------------------------
 # The run.
 # ---------------------------------------------------------------------------
@@ -511,6 +359,12 @@ def main():
     # 1. device
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
+    from stock_market_monte_carlo_torch.bench import roofline
+    from stock_market_monte_carlo_torch.bench.headline import (
+        card_line,
+        events_ms,
+    )
+
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
@@ -658,6 +512,65 @@ def main():
                                          valid)
                     max_err[name] = max(max_err[name], err)
                     say("3b", f"{label}: kernel == plain")
+
+    # 3c. the headline's calibration kernels and the counts below a tile
+    # against their plain versions, bit for bit: the grid overhead at the
+    # 2^24-path shape, both variants, 1 and 16 tiles a block (and group 1
+    # == group 16); the calibration pair at 2^24 x 360 and at a ragged tile
+    # offset; the counts below a tile with ties, K = 8, 32, 64
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    n_tiles = CHUNK // ce.TILE_PATHS
+    for variant in cal.VARIANTS:
+        outs = {}
+        for group in (1, 16):
+            kw = dict(seed=GRID_SEED, n_tiles=n_tiles, device=DEVICE)
+            got = cal.grid_overhead_chunk(variant, group, **kw)
+            want = cal.grid_overhead_chunk_plain(variant, group, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"grid_overhead {variant} group {group}: kernel differs "
+                  f"from plain by {err}")
+            max_err["grid_overhead"] = max(max_err["grid_overhead"], err)
+            outs[group] = got
+        check(all(torch.equal(a, b) for a, b in zip(outs[1], outs[16])),
+              f"grid_overhead {variant}: group 1 and group 16 differ")
+        say("3c", f"grid_overhead {variant} {n_tiles} tiles, 1 and 16 a "
+                  "block: kernel == plain, group 1 == group 16")
+    for n_ops in cal.CALIB_OPS:
+        for n_paths, tile0 in ((CHUNK, 0),
+                               (CHECK_PATHS + 3 * ce.TILE_PATHS,
+                                CALIB_TILE0)):
+            kw = dict(n_periods=MAIN_MONTHS, n_paths=n_paths,
+                      seed=CALIB_SEED + tile0, device=DEVICE)
+            got = cal.calib_chunk(n_ops, **kw)
+            want = cal.calib_chunk_plain(n_ops, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+                  f"calib n_ops={n_ops} tile0={tile0}: kernel differs from "
+                  f"plain by {err}")
+            max_err["calib"] = max(max_err["calib"], err)
+            say("3c", f"calib n_ops={n_ops} {n_paths} x {MAIN_MONTHS} "
+                      f"tile0={tile0}: kernel == plain (checksum "
+                      f"{float(got.double().sum())!r})")
+    rng = np.random.default_rng(11)
+    tile = np.exp(rng.normal(size=(ce.TILE_ROWS, 128)).astype(np.float32))
+    for k in COUNTS_K:
+        thr = np.exp(rng.normal(size=(k, 128)).astype(np.float32))
+        thr[k // 2] = tile[3]   # ties: strictly below excludes them
+        ops = (torch.as_tensor(tile, device=DEVICE),
+               torch.as_tensor(thr, device=DEVICE))
+        got = bk.counts_below_tile(*ops)
+        want = bk.counts_below_tile_plain(*ops)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want), f"counts_below_tile K={k}: kernel "
+                                      f"differs from plain by {err}")
+        max_err["counts_below_tile"] = max(max_err["counts_below_tile"], err)
+        say("3c", f"counts_below_tile K={k}, ties in row {k // 2}: kernel "
+                  "== plain")
 
     # 4. goldens on the card
     f = smt.simulate_final_values(
@@ -931,27 +844,101 @@ def main():
                                             MAIN_MONTHS, CHUNK, CHUNK,
                                             seed=0),
                             launcher, wrapper, plain, 5, 1)
-    timings = {}
+    grid_kw = dict(seed=GRID_SEED, n_tiles=n_tiles, device=DEVICE)
+    grid_fns = (cal.grid_overhead_launcher, cal.grid_overhead_chunk,
+                cal.grid_overhead_chunk_plain)
+    chunk_cases["grid_overhead"] = ((("const", 16), grid_kw), *grid_fns,
+                                    20, 20)
+    chunk_cases["grid_overhead_counter"] = ((("counter", 16), grid_kw),
+                                            *grid_fns, 20, 5)
+    calib_kw = dict(n_periods=MAIN_MONTHS, n_paths=CHUNK, seed=CALIB_SEED,
+                    device=DEVICE)
+    calib_fns = (cal.calib_launcher, cal.calib_chunk, cal.calib_chunk_plain)
+    chunk_cases["calib"] = (((48,), calib_kw), *calib_fns, 5, 1)
+    chunk_cases["calib_16"] = (((16,), calib_kw), *calib_fns, 5, 1)
+    chunk_cases["counts_below_tile"] = (
+        ((torch.as_tensor(tile, device=DEVICE),
+          torch.as_tensor(np.exp(rng.normal(size=(32, 128))
+                                 .astype(np.float32)), device=DEVICE)), {}),
+        bk.counts_below_tile_launcher, bk.counts_below_tile,
+        bk.counts_below_tile_plain, 20, 20)
+    timings, timed_args = {}, {}
     for key, ((ops, kw), launcher, wrapper, plain, reps,
               plain_reps) in chunk_cases.items():
         if "keep_finals" in kw and not key.startswith("law_"):
             kw = dict(kw, keep_finals=False)
+        timed_args[key] = ops, kw
         launch, _ = launcher(*ops, **kw)
-        ms = device_ms(launch, reps)
-        wrapper_ms = device_ms(lambda: wrapper(*ops, **kw), reps)
-        plain_ms = device_ms(lambda: plain(*ops, **kw), plain_reps)
-        bound_ms, bound_by, work = bound(key, ops, kw)
+        ms = events_ms(lambda _: launch(), reps, 1)
+        wrapper_ms = events_ms(lambda _: wrapper(*ops, **kw), reps, 1)
+        plain_ms = events_ms(lambda _: plain(*ops, **kw), plain_reps, 1)
+        bound_ms, bound_by, work = roofline.bound(key, ops, kw)
         timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            bound_by=bound_by, library_ms=None)
+        shape = ("per call, K=32" if key == "counts_below_tile" else
+                 f"per 2^24-path chunk x {MAIN_MONTHS} months")
         say(6, f"[{card}] {key}: kernel {ms!r} ms, wrapper {wrapper_ms!r} "
                f"ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
-               f"({bound_by}: {work}) per 2^24-path chunk x {MAIN_MONTHS} "
-               "months")
+               f"({bound_by}: {work}) {shape}")
+    # one PyTorch call per output computes the const grid overhead
+    finals, partials = cal.grid_overhead_chunk_plain("const", 16, **grid_kw)
+    timings["grid_overhead"]["library_ms"] = events_ms(
+        lambda _: (finals.fill_(1.0), partials.fill_(2.0)), 20, 1)
+    say(6, f"[{card}] grid_overhead: library (two fill_) "
+           f"{timings['grid_overhead']['library_ms']!r} ms")
+    from stock_market_monte_carlo_torch.bench import headline
+
+    report = headline.grid_overhead_report()
+    check(report["counter_bits_identical_across_grouping"],
+          f"grid overhead report: {report}")
+    say(6, f"[{card}] grid overhead report: {json.dumps(report)}")
+
+    # 7. the headline benchmark at 100M x 360, in process, counted on its
+    # own: it runs the law, historical and Gaussian month loops and the
+    # CLT, then the dispatch floor and the calibration pair
+    ce.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        full, compact = headline.main([str(MAIN_PATHS), str(MAIN_MONTHS)])
+    torch.cuda.synchronize()
+    counts = dict(ce.LAUNCHES)
+    last = out.getvalue().strip().splitlines()[-1]
+    check(len(last) < headline.LAST_LINE_MAX and json.loads(last) == compact,
+          f"headline: last line {last!r}")
+    on_path = ("law", "month_loop", "month_loop_gaussian", "clt",
+               "grid_overhead", "calib")
+    check(all(counts[k] > 0 for k in on_path)
+          and all(v == 0 for k, v in counts.items() if k not in on_path),
+          f"headline: launches {counts}")
+    for key in ("grid_overhead", "calib", "counts_below_tile"):
+        launches[key] = counts[key]
+    extra = full["extra"]
+    errs = {k: extra[f"mean_rel_err_vs_analytic_{k}"]
+            for k in ("icdf", "clt", "terminal_law")}
+    check(extra["means_ok"] and max(errs.values()) < HEADLINE_MEAN_REL,
+          f"headline: mean errors {errs}, rows {extra['rows']}")
+    rate = extra["device_time"]["int_op_rate_per_s"]
+    check(math.isfinite(rate) and 0.0 < rate
+          < 1.05 * roofline.SCALAR_OPS_PER_S,
+          f"headline: int32 rate {rate}")
+    say(7, f"[{card}] headline record: {json.dumps(full)}")
+    say(7, f"headline 100M x 360: launches {counts}; mean errors {errs}; "
+           f"int32 rate {rate!r}/s, {rate / roofline.SCALAR_OPS_PER_S!r} of "
+           f"the assumed {roofline.SCALAR_OPS_PER_S!r}/s; last line "
+           f"({len(last)} characters): {last}")
+    # each timed kernel's share of its bound, at the assumed scalar rate and
+    # at the int32 rate the headline measured
+    shares = {key: [timings[key]["bound_ms"] / timings[key]["ms"],
+                    roofline.bound(key, *args, scalar_rate=rate)[0]
+                    / timings[key]["ms"]]
+              for key, args in timed_args.items()}
+    say(7, f"[{card}] share of the bound [at {roofline.SCALAR_OPS_PER_S!r}"
+           f"/s, at the measured {rate!r}/s]: {json.dumps(shares)}")
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=launches[name], max_abs_err=max_err[name],
-             **timings[name], library_ms=None)
+             **timings[name])
         for name in KERNELS
     ]}
     print(card)

@@ -1,4 +1,5 @@
-// Band kernels: the month loop with a reduction of every month's values.
+// Band kernels: the month loop with a reduction of every month's values;
+// at the end of the file, the counts below one tile's thresholds.
 //
 // Replaces: stock_market_monte_carlo_tpu/ops/pallas_bands.py
 // - _build_bands_kernel (built by _build_bands_call, pl.pallas_call at
@@ -231,4 +232,52 @@ extern "C" int smmc_bands(int mode, int draw, const float* table,
     case kGaussian: return launch_keep<kGaussian>(g, mode, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Counts below a tile's thresholds: out[k, c] = #{r < 64 : tl[r, c] <
+// thr[k, c]}, strict <.
+//
+// Replaces: the test-local kernel of tests/test_bands.py:464 (pl.pallas_call
+// at :468) around stock_market_monte_carlo_tpu/ops/pallas_bands.py:309
+// _counts_below_tile (the roll, rows and bcast3d layouts, which count
+// alike). Plain version: ops/bands.py counts_below_tile_plain.
+//
+// A different function from cdf_cell above: the thresholds here are neither
+// sorted along k nor equal across lanes, so there is no binary search.
+//
+// What bounds it on an H100: nothing of the card. A launch reads 32 KB of
+// values and K x 512 B of thresholds and writes K x 512 B of counts, under
+// 0.1 us at 3.35 TB/s; a launch costs its latency.
+//
+// What the design does about it: one thread per (k, c) output, looping over
+// the 64 rows of its lane; neighbouring threads read neighbouring lanes.
+namespace {
+
+constexpr int kTileRows = 64;
+
+__global__ void __launch_bounds__(smmc::kBlock)
+counts_below_tile_kernel(const float* __restrict__ tl,
+                         const float* __restrict__ thr, int n_out,
+                         int* __restrict__ out) {
+  const int i = blockIdx.x * smmc::kBlock + threadIdx.x;
+  if (i >= n_out) return;
+  const int c = i & 127;
+  const float t = thr[i];
+  int n = 0;
+  for (int r = 0; r < kTileRows; ++r) n += tl[r * 128 + c] < t ? 1 : 0;
+  out[i] = n;
+}
+
+}  // namespace
+
+// tl (64, 128), thr (k_rows, 128) float32; out (k_rows, 128) int32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int smmc_counts_below_tile(const float* tl, const float* thr,
+                                      int k_rows, int* out, void* stream) {
+  const int n_out = k_rows * 128;
+  counts_below_tile_kernel<<<(n_out + smmc::kBlock - 1) / smmc::kBlock,
+                             smmc::kBlock, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      tl, thr, n_out, out);
+  return cudaGetLastError();
 }

@@ -11,7 +11,10 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_bands.py``:
 - ``month_cdf_chunk`` replaces ``_build_cdf_kernel`` (``_build_cdf_call``),
   run by ``pallas_chunk_month_cdf``: each month, the count of values below
   each of K thresholds ``exp(A_t + kk_k * B_t)``, where kk_k is k except
-  the guard rows 0 and K-1 at ``kappa_lo`` and ``kappa_hi``.
+  the guard rows 0 and K-1 at ``kappa_lo`` and ``kappa_hi``;
+- ``counts_below_tile`` replaces the test-local kernel around
+  ``_counts_below_tile`` (``tests/test_bands.py``): one tile's counts below
+  K unsorted threshold rows, launched by no run of the engine.
 
 Source ``csrc/bands.cu``. Both run the month step of ``csrc/month_loop.cu``
 (historical bootstrap or Gaussian ICDF draw on the arithmetic counter
@@ -23,7 +26,8 @@ most 2^24 per cell per chunk).
 
 Each wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Launches
-count under ``cuda_engine.LAUNCHES["bands_hist"]`` and ``["bands_cdf"]``.
+count under ``cuda_engine.LAUNCHES["bands_hist"]``, ``["bands_cdf"]`` and
+``["counts_below_tile"]``.
 """
 
 from __future__ import annotations
@@ -244,3 +248,59 @@ def month_cdf_chunk(table, keep, coef_a, coef_b, **kw):
     return ce._launch_counted("bands_cdf",
                               month_cdf_launcher(table, keep, coef_a,
                                                  coef_b, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Counts below one tile's thresholds.
+# ---------------------------------------------------------------------------
+
+
+def _check_tile(tl, thr):
+    dev = tl.device
+    ce._check(tl, "tl", dev)
+    ce._check(thr, "thr", dev)
+    if tl.shape != (ce.TILE_ROWS, 128) or thr.dim() != 2 \
+            or thr.shape[1] != 128 or thr.shape[0] < 1:
+        raise ValueError(f"tl {tuple(tl.shape)} must be ({ce.TILE_ROWS}, "
+                         f"128) and thr {tuple(thr.shape)} (K, 128)")
+
+
+def counts_below_tile_plain(tl, thr):
+    """Plain PyTorch version of the counts-below-tile kernel: (K, 128)
+    int32, out[k, c] = #{r : tl[r, c] < thr[k, c]} (strict <)."""
+    _check_tile(tl, thr)
+    return (tl[:, None, :] < thr[None, :, :]).sum(0).to(torch.int32)
+
+
+def counts_below_tile_launcher(tl, thr):
+    """Checked inputs on a CUDA device -> ``(launch, counts)``:
+    ``launch()`` runs the kernel on the current stream into the (K, 128)
+    int32 tensor that ``counts()`` returns; uncounted."""
+    from stock_market_monte_carlo_torch.ops._build import load_library
+
+    _check_tile(tl, thr)
+    dev = tl.device
+    if dev.type != "cuda":
+        raise ValueError(f"no counts-below-tile kernel for device {dev}")
+    out = torch.empty(thr.shape, dtype=torch.int32, device=dev)
+    args = (ce._ptr(tl), ce._ptr(thr), thr.shape[0], ce._ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    fn = load_library().smmc_counts_below_tile
+
+    def launch():
+        ce._raise_on(fn(*args), "smmc_counts_below_tile")
+
+    return launch, lambda: out
+
+
+def counts_below_tile(tl, thr):
+    """(K, 128) int32 counts of a tile's rows below each threshold row:
+    out[k, c] = #{r : tl[r, c] < thr[k, c]}, ``tl`` float32 (64, 128),
+    ``thr`` float32 (K, 128), neither sorted. The counterpart of
+    ``pallas_bands._counts_below_tile`` under the test-local kernel of
+    ``tests/test_bands.py``. Counts its launch under
+    ``counts_below_tile``."""
+    if tl.device.type == "cpu":
+        return counts_below_tile_plain(tl, thr)
+    return ce._launch_counted("counts_below_tile",
+                              counts_below_tile_launcher(tl, thr))

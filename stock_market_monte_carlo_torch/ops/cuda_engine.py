@@ -16,7 +16,9 @@ Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel (plain runs do not count):
 the month loop's draws (``MONTH_LOOP_COUNTERS``), ``law``, ``clt``
-(``ops/clt.py``), ``bands_hist`` and ``bands_cdf`` (``ops/bands.py``).
+(``ops/clt.py``), ``bands_hist``, ``bands_cdf`` and ``counts_below_tile``
+(``ops/bands.py``), ``grid_overhead`` and ``calib``
+(``ops/calibration.py``).
 
 The default random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
@@ -90,7 +92,7 @@ MAX_SMEM_BYTES = 232448
 
 LAUNCHES = dict.fromkeys(
     [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
-     "bands_cdf"], 0)
+     "bands_cdf", "counts_below_tile", "grid_overhead", "calib"], 0)
 
 
 def reset_launch_counts() -> None:

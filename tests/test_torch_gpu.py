@@ -11,7 +11,11 @@ trajectories and seed segments on the card against the CPU. The month
 loop's Sobol and reference-parity draws against their plain versions under
 every strategy, at 64-bit positions (past 2^33, across a word carry, near
 2^62), at 360 months and with large tables; the engine, trajectories,
-bands and RQMC of those models on the card against the CPU.
+bands and RQMC of those models on the card against the CPU. The
+headline's calibration kernels (grid overhead, the calibration pair) and
+the counts below a tile against their plain versions, their launch
+counters, the calibration kernels' SASS count and the headline's
+device-time block.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -569,3 +573,120 @@ def test_rqmc_on_cuda_matches_cpu(cuda):
                                                        device="cpu"))
     np.testing.assert_allclose(got.replicate_means, want.replicate_means,
                                rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The headline's calibration kernels and the counts below a tile
+# ---------------------------------------------------------------------------
+
+HEADLINE_TILES = (1 << 24) // 8192
+
+
+@pytest.mark.parametrize("variant", ["const", "counter"])
+@pytest.mark.parametrize("group", [1, 16])
+def test_grid_overhead_kernel_matches_plain(cuda, variant, group):
+    """The 2^24-path shape, bit for bit (the column sums run in row order
+    in both)."""
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    kw = dict(seed=12345, n_tiles=HEADLINE_TILES, tile0=3, device=cuda)
+    got = cal.grid_overhead_chunk(variant, group, **kw)
+    want = cal.grid_overhead_chunk_plain(variant, group, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("variant", ["const", "counter"])
+def test_grid_overhead_groups_agree(cuda, variant):
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    one, sixteen = (cal.grid_overhead_chunk(variant, g, seed=7,
+                                            n_tiles=HEADLINE_TILES,
+                                            device=cuda) for g in (1, 16))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, sixteen))
+
+
+@pytest.mark.parametrize("n_ops", [16, 48])
+@pytest.mark.parametrize("n_paths,tile0", [(1 << 20, 0),
+                                           (3 * 8192, 37)])
+def test_calib_kernel_matches_plain(cuda, n_ops, n_paths, tile0):
+    """360 months, bit for bit (-fmad=false: 1 + y * 1e-12 rounds twice
+    in both); a ragged chunk of three tiles at tile offset 37 (which adds
+    to the seed)."""
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    kw = dict(n_periods=360, n_paths=n_paths, seed=123 + tile0,
+              device=cuda)
+    got = cal.calib_chunk(n_ops, **kw)
+    want = cal.calib_chunk_plain(n_ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("n_thr", [8, 32, 64])
+def test_counts_below_tile_kernel_matches_plain(cuda, n_thr):
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    rng = np.random.default_rng(11)
+    tl = np.exp(rng.normal(size=(64, 128)).astype(np.float32))
+    thr = np.exp(rng.normal(size=(n_thr, 128)).astype(np.float32))
+    thr[n_thr // 2] = tl[3]     # ties: strictly below excludes them
+    ops = (torch.as_tensor(tl, device=cuda), torch.as_tensor(thr,
+                                                             device=cuda))
+    got = kb.counts_below_tile(*ops)
+    want = kb.counts_below_tile_plain(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_calibration_wrappers_check_inputs_and_count_launches(cuda):
+    from stock_market_monte_carlo_torch.ops import bands as kb
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    ce.reset_launch_counts()
+    cal.calib_chunk_plain(16, n_periods=8, n_paths=8192, seed=1,
+                          device=cuda)
+    cal.grid_overhead_chunk_plain("const", 1, seed=1, n_tiles=2,
+                                  device=cuda)
+    assert sum(ce.LAUNCHES.values()) == 0
+    cal.calib_chunk(16, n_periods=8, n_paths=8192, seed=1, device=cuda)
+    cal.grid_overhead_chunk("counter", 2, seed=1, n_tiles=2, device=cuda)
+    kb.counts_below_tile(torch.ones((64, 128), device=cuda),
+                         torch.ones((8, 128), device=cuda))
+    assert (ce.LAUNCHES["calib"], ce.LAUNCHES["grid_overhead"],
+            ce.LAUNCHES["counts_below_tile"]) == (1, 1, 1)
+    with pytest.raises(ValueError, match="built for"):
+        cal.calib_chunk(20, n_periods=8, n_paths=8192, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="groups"):
+        cal.grid_overhead_chunk("const", 16, seed=1, n_tiles=8, device=cuda)
+    with pytest.raises(TypeError):
+        kb.counts_below_tile(torch.ones((64, 128), device=cuda).double(),
+                             torch.ones((8, 128), device=cuda))
+    assert sum(ce.LAUNCHES.values()) == 3
+
+
+def test_calib_sass_instructions(cuda):
+    """The month loop of each calibration kernel is found in the built
+    library's SASS; 32 more operators a month cost more instructions, and
+    fewer than 32 each for the IMAD that folds the multiply and the add."""
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    instr = cal.calib_sass_instructions()
+    assert 16 < instr[16] < instr[48]
+    assert 24 <= instr[48] - instr[16] <= 48
+
+
+def test_headline_device_times_on_the_card(cuda):
+    """The device-time block on 2^20-path chunks: every kernel timed and
+    predicted, the 100M law run timed, a positive int32 rate."""
+    from stock_market_monte_carlo_torch.bench import headline
+
+    dt = headline.device_times(360, chunk=1 << 20, k=2, reps=1)
+    for name in ("law_hist", "law_statsonly", "historical", "clt",
+                 "clt_statsonly"):
+        assert dt[f"{name}_ms_per_chunk"] > 0
+        assert dt[f"{name}_predicted_ms_per_chunk"] > 0
+    assert dt["law_hist_100m_device_ms"] > 0
+    assert 0 < dt["int_op_rate_per_s"] < 1e15
