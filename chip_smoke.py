@@ -3,10 +3,16 @@ against its plain PyTorch version on the card, drives the main paths at
 100M paths x 360 months (historical month loop, terminal law, Gaussian ICDF
 month loop, CLT sampler, the Sobol Gaussian, Sobol historical and
 reference-parity historical month loops, historical bands in hist mode,
-Gaussian bands in cdf mode), checks replicated-RQMC intervals, Sobol bands
-and trajectories on the card against the CPU, times the kernels and the
-paths, and runs the headline benchmark (``bench/headline.py``) at 100M x
-360 with its dispatch-floor and calibration kernels.
+Gaussian bands in cdf mode, and the historical month loop with a
+20000-bin histogram counted by the histogram kernel), checks
+replicated-RQMC intervals, Sobol bands and trajectories on the card
+against the CPU, holds the histogram kernel's three modes and the tile
+flatten against their plain versions and np.bincount, the CLT and law
+chunks of an odd histogram and the Sobol draws at 1866 months against
+their plain versions, times the kernels and the paths, runs the histogram
+probes' reports (``bench/probes.py``) and the headline benchmark
+(``bench/headline.py``) at 100M x 360 with its dispatch-floor and
+calibration kernels.
 
     python3 chip_smoke.py
 
@@ -78,7 +84,32 @@ KERNELS = {
                   replaces=f"{_EXP}/exp_hist_roofline.py:102"),
     "counts_below_tile": dict(source=f"{_CSRC}/bands.cu",
                               replaces="tests/test_bands.py:468"),
+    # the engine's histogram of finals the chunk kernels cannot bin in
+    # place: the JAX package's XLA epilogue (bin_index, histogram_counts)
+    "histogram": dict(source=f"{_CSRC}/histogram.cu",
+                      replaces=f"{_PE}:1758"),
+    # both TPU layouts of the int32-index histogram are this one kernel
+    "histogram_index": dict(source=f"{_CSRC}/histogram.cu",
+                            replaces=f"{_EXP}/exp_pallas_hist.py:40"),
+    "histogram_index_rows": dict(source=f"{_CSRC}/histogram.cu",
+                                 replaces=f"{_EXP}/exp_rowhist.py:40"),
+    "histogram_clip_cast": dict(source=f"{_CSRC}/histogram.cu",
+                                replaces=f"{_EXP}/exp_flatten_cost.py:65"),
+    "flatten_tile": dict(source=f"{_CSRC}/histogram.cu",
+                         replaces=f"{_EXP}/exp_flatten_cost.py:29"),
 }
+# the record's entry of a kernel -> the launch counter it reads
+COUNTER_OF = {"histogram_index_rows": "histogram_index"}
+# the histogram kernel's cell counts: in 48 KB of shared memory, past the
+# default 48 KB inside a block's opt-in 227 KB, past a block's shared
+# memory (the global-atomic cells)
+HIST_CELLS = (4096, 20000, 70000)
+# the engine's histogram off the in-place 4096 cells, and a count of cells
+# that is not a multiple of 64
+BIG_BINS = 20000
+ODD_BINS = 4000
+# the Sobol table's dimensions: the longest Sobol horizon
+SOBOL_MONTHS = 1866
 BAND_BINS = 1024
 BAND_THRESHOLDS = 32
 # the median band of a 100M-path run against the exact marginal law
@@ -125,14 +156,15 @@ def rel(a, b):
 # ---------------------------------------------------------------------------
 
 
-def _common(model, strategy, n_periods, valid, n_paths, target, tile0):
+def _common(model, strategy, n_periods, valid, n_paths, target, tile0,
+            bins=4094):
     from stock_market_monte_carlo_torch.engine import engine as eng
 
-    spec = eng.make_histogram_spec(model, strategy, n_periods, 1000.0, 4094)
+    spec = eng.make_histogram_spec(model, strategy, n_periods, 1000.0, bins)
     return dict(tile0=tile0, valid=valid, n_paths=n_paths, v0=1000.0,
                 target=target,
                 shift=eng.analytic_moment_shift(model, strategy, n_periods),
-                log_lo=spec.log_lo, inv_w=1.0 / spec.width,
+                lo=spec.lo, log_lo=spec.log_lo, inv_w=1.0 / spec.width,
                 hb=spec.n_bins + 2, with_hist=True, keep_finals=True)
 
 
@@ -172,14 +204,15 @@ def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
 
 
 def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
-                   keep_finals, tile0=0):
+                   keep_finals, tile0=0, bins=4094):
     from stock_market_monte_carlo_torch.models.strategies import NoWithdrawal
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
     from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
 
     none = NoWithdrawal()
     fit = tlaw.fit_terminal_law(model, none, n_periods, 1000.0)
-    kw = dict(_common(model, none, n_periods, valid, n_paths, target, tile0),
+    kw = dict(_common(model, none, n_periods, valid, n_paths, target, tile0,
+                      bins),
               seed_base=_base(seed) ^ ce.LAW_STREAM_XOR,
               inv_zmax=1.0 / tlaw.LAW_ZMAX, keep_finals=keep_finals)
     return (torch.as_tensor(fit.operand(), device=DEVICE),), kw
@@ -212,7 +245,7 @@ def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
 
 
 def clt_chunk_args(variant, strategy, n_periods, valid, n_paths, target,
-                   seed, tile0=0):
+                   seed, tile0=0, bins=4094):
     """(q, arow, cs, keep_rows), kwargs of one CLT chunk of the default
     GaussianReturns model."""
     from stock_market_monte_carlo_torch.models.market import GaussianReturns
@@ -229,7 +262,7 @@ def clt_chunk_args(variant, strategy, n_periods, valid, n_paths, target,
            torch.as_tensor(clt.keep_rows(keep, n_periods), device=DEVICE)
            if variant == "prefix" else None)
     kw = dict(_common(model, strategy, n_periods, valid, n_paths, target,
-                      tile0),
+                      tile0, bins),
               variant=variant, seed_base=_base(seed) ^ clt.CLT_STREAM_XOR)
     return ops, kw
 
@@ -331,6 +364,42 @@ def compare_counts(label, k_out, p_out, kind, valid):
               and int(k_out.max()) <= valid,
               f"{label}: counts below not monotone or above {valid}")
     return err
+
+
+def eng_spec(model, n_periods, bins):
+    from stock_market_monte_carlo_torch.engine import engine as eng
+    from stock_market_monte_carlo_torch.models.strategies import NoWithdrawal
+
+    return eng.make_histogram_spec(model, NoWithdrawal(), n_periods, 1000.0,
+                                   bins)
+
+
+def hist_inputs(rng, hb, spec):
+    """{mode: (input on the card, spec keywords)} of 2^24 inputs each:
+    int32 indices over [-2, hb + 2] (hb is a masked lane's index), floats
+    over [-50, hb + 50), and log-normal finals around the spec's range with
+    lo, 0, +inf and NaN among them."""
+    idx = rng.integers(-2, hb + 3, CHUNK).astype(np.int32)
+    x = rng.uniform(-50.0, hb + 50.0, CHUNK).astype(np.float32)
+    finals = np.exp(rng.uniform(spec.log_lo - 0.5, np.log(spec.hi) + 0.5,
+                                CHUNK)).astype(np.float32)
+    finals[:4] = (spec.lo, 0.0, np.inf, np.nan)
+    spec_kw = dict(lo=spec.lo, log_lo=spec.log_lo, inv_w=1.0 / spec.width)
+    return {"index": (torch.as_tensor(idx, device=DEVICE), {}),
+            "clip_cast": (torch.as_tensor(x, device=DEVICE), {}),
+            "spec": (torch.as_tensor(finals, device=DEVICE), spec_kw)}
+
+
+def hist_bins(histogram, mode, x, hb, kw):
+    """Host bins of a mode's input, those outside [0, hb) dropped."""
+    if mode == "index":
+        bins = x.cpu().numpy()
+    elif mode == "clip_cast":
+        bins = histogram.clip_cast_indices(x, hb).cpu().numpy()
+    else:
+        bins = histogram.spec_bin_indices(x, n_bins=hb - 2,
+                                          **kw).cpu().numpy()
+    return bins[(bins >= 0) & (bins < hb)]
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +641,73 @@ def main():
         say("3c", f"counts_below_tile K={k}, ties in row {k // 2}: kernel "
                   "== plain")
 
+    # 3d. the histogram kernel's three modes against their plain versions
+    # and np.bincount, bit for bit, at 2^24 inputs and each cell count; the
+    # tile flatten against arange; the CLT and law chunks of an odd
+    # histogram (cells not a multiple of 64: the finals through the
+    # histogram kernel) against their plain versions; the Sobol draws at
+    # the table's 1866 months with 64-bit positions (direction rows read
+    # from global memory) against their plain versions
+    from stock_market_monte_carlo_torch.ops import histogram
+
+    rng_h = np.random.default_rng(21)
+    for hb in HIST_CELLS:
+        spec = eng_spec(hist_model, MAIN_MONTHS, hb - 2)
+        inputs = hist_inputs(rng_h, hb, spec)
+        for mode, (x, kw) in inputs.items():
+            got = histogram.histogram_counts(x, hb, mode=mode, **kw)
+            want = histogram.histogram_plain(x, hb, mode=mode, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"histogram {mode} {hb} cells: kernel differs from plain "
+                  f"by {err}")
+            bins = hist_bins(histogram, mode, x, hb, kw)
+            check(np.array_equal(got.cpu().numpy(),
+                                 np.bincount(bins, minlength=hb)),
+                  f"histogram {mode} {hb} cells: differs from np.bincount")
+            name = {"spec": "histogram"}.get(mode, f"histogram_{mode}")
+            max_err[name] = max(max_err[name], err)
+            say("3d", f"histogram {mode} {CHUNK} inputs, {hb} cells: kernel "
+                      f"== plain == np.bincount (mass {int(got.sum())})")
+    tiles = torch.arange(CHUNK, dtype=torch.float32, device=DEVICE).reshape(
+        -1, 128)
+    got = histogram.flatten_tile(tiles)
+    torch.cuda.synchronize()
+    check(got.shape == (CHUNK, 1)
+          and torch.equal(got, histogram.flatten_tile_plain(tiles))
+          and torch.equal(got[:, 0], torch.arange(CHUNK, dtype=torch.float32,
+                                                  device=DEVICE)),
+          "flatten_tile: row-major order not kept")
+    say("3d", f"flatten_tile {CHUNK // ce.TILE_PATHS} tiles: kernel == plain "
+              "== arange (row-major order kept)")
+    ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, CHECK_PATHS,
+                             CHECK_PATHS, 5000.0, seed=9, keep_finals=True,
+                             bins=ODD_BINS)
+    run_pair("law", f"law {ODD_BINS + 2} cells {CHECK_PATHS}x{MAIN_MONTHS}",
+             ce.law_chunk, ce.law_chunk_plain, ops, kw, 0.0)
+    ops, kw = clt_chunk_args("plain", strategies["none"], MAIN_MONTHS,
+                             CHECK_PATHS, CHECK_PATHS, 5000.0, seed=5,
+                             bins=ODD_BINS)
+    run_pair("clt", f"clt plain {ODD_BINS + 2} cells "
+                    f"{CHECK_PATHS}x{MAIN_MONTHS}",
+             clt.clt_chunk, clt.clt_chunk_plain, ops, kw, CLT_REL)
+    long_models = {
+        "month_loop_sobol_gaussian": smt.SobolGaussianReturns.create(
+            SOBOL_MONTHS, index_offset=DEEP_OFFSET),
+        "month_loop_sobol_historical": smt.SobolHistoricalBootstrap.create(
+            hist_model.returns_pct, SOBOL_MONTHS, index_offset=DEEP_OFFSET)}
+    for name, model in long_models.items():
+        for sname in ("none", "fixed_percent"):
+            ops, kw = month_chunk_args(model, strategies[sname],
+                                       SOBOL_MONTHS, 3 * ce.TILE_PATHS + 5,
+                                       4 * ce.TILE_PATHS, 5000.0, seed=5,
+                                       tile0=11)
+            run_pair(name, f"{name} {SOBOL_MONTHS} months index_offset="
+                           f"{DEEP_OFFSET} {sname}",
+                     ce.month_loop_chunk, ce.month_loop_chunk_plain, ops, kw,
+                     0.0)
+
     # 4. goldens on the card
     f = smt.simulate_final_values(
         hist_model, GOLDEN_N, GOLDEN["t"], seed=12,
@@ -621,9 +757,10 @@ def main():
                                   options=smt.EngineOptions(**opts))
 
     launches = {}
+    main_results = {}
     for key, (label, _, _, g_bar) in main_paths.items():
         ce.reset_launch_counts()
-        res = main_run(key)
+        res = main_results[key] = main_run(key)
         torch.cuda.synchronize()
         counts = dict(ce.LAUNCHES)
         launches[key] = counts[key]
@@ -640,6 +777,37 @@ def main():
                f"{MAIN_PATHS}, mean {res.mean!r} (analytic {analytic!r}, "
                f"rel dev {dev:.2e}), std {res.std!r}, count_below "
                f"{res.count_below}")
+
+    # 5d. the historical month loop at 100M x 360 with a 20000-bin
+    # histogram, counted on its own: the kernel writes each chunk's finals
+    # and the histogram kernel counts them; the statistics come from the
+    # same kernel as the default run's, so they are the default run's
+    def big_hist_run():
+        return smt.simulate_stats(
+            hist_model, MAIN_PATHS, MAIN_MONTHS, target_amount=2000.0,
+            options=smt.EngineOptions(histogram_bins=BIG_BINS))
+
+    ce.reset_launch_counts()
+    res = big_hist_run()
+    torch.cuda.synchronize()
+    counts = dict(ce.LAUNCHES)
+    launches["histogram"] = counts["histogram"]
+    want = dict({k: 0 for k in counts}, month_loop=n_chunks,
+                histogram=n_chunks)
+    check(counts == want, f"{BIG_BINS}-bin run: launches {counts}")
+    h = res.histogram_counts
+    check(h.shape == (BIG_BINS + 2,) and float(h.sum()) == MAIN_PATHS,
+          f"{BIG_BINS}-bin run: histogram {h.shape}, mass {float(h.sum())}")
+    base = main_results["month_loop"]
+    check(res.mean == base.mean and res.std == base.std
+          and res.count_below == base.count_below,
+          f"{BIG_BINS}-bin run: mean {res.mean} std {res.std} vs the "
+          f"default run's {base.mean} {base.std}")
+    say("5d", f"historical month loop 100M x 360, {BIG_BINS} bins: "
+              f"{counts['month_loop']} launches of month_loop, "
+              f"{counts['histogram']} of histogram, mass {MAIN_PATHS} in "
+              f"{BIG_BINS + 2} cells ({int((h > 0).sum())} non-empty), mean "
+              f"{res.mean!r} == the 4094-bin run's")
 
     # 5a. replicated RQMC: 8 digital shifts of 2^24 Sobol Gaussian points,
     # beside 8 seeds of the pseudo-random Gaussian model; the 99 % interval
@@ -786,10 +954,15 @@ def main():
     # 6. timings: walls of the main paths, then per 2^24-path chunk at 360
     # months the kernel alone (the launcher's bare C call, uncounted), the
     # counted wrapper (kernel plus its torch epilogue) and the plain version
+    walls = {}
     for key, (label, _, _, _) in main_paths.items():
-        wall, reps = wall_median(lambda: main_run(key))
+        wall, reps = walls[key] = wall_median(lambda: main_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
                f"{reps}")
+    wall, reps = wall_median(big_hist_run)
+    say(6, f"[{card}] wall 100M x 360 historical month loop, {BIG_BINS} "
+           f"bins: median {wall!r} s of {reps} (4094 bins: "
+           f"{walls['month_loop'][0]!r} s)")
     for key, (label, _, _) in band_paths.items():
         wall, reps = wall_median(lambda: band_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
@@ -862,6 +1035,36 @@ def main():
                                  .astype(np.float32)), device=DEVICE)), {}),
         bk.counts_below_tile_launcher, bk.counts_below_tile,
         bk.counts_below_tile_plain, 20, 20)
+    # the histogram kernel on the probes' inputs (2^24 indices and floats
+    # over 4096 cells) and, in mode "spec", on the finals of the historical
+    # month loop's first main chunk over BIG_BINS bins; the flatten of 2048
+    # tiles; the Sobol draws at 1866 months with 64-bit positions
+    from stock_market_monte_carlo_torch.bench import probes
+
+    idx_t, x_t, _ = probes.inputs(CHUNK, DEVICE)
+    ops, kw = month_chunk_args(hist_model, none, MAIN_MONTHS, CHUNK, CHUNK,
+                               2000.0, seed=0)
+    main_finals = ce.month_loop_chunk(*ops, **kw)[2]
+    big = eng_spec(hist_model, MAIN_MONTHS, BIG_BINS)
+    hist_fns = (histogram.histogram_launcher, histogram.histogram_counts,
+                histogram.histogram_plain)
+    chunk_cases["histogram_index"] = (((idx_t,), dict(
+        hb=probes.CELLS, mode="index")), *hist_fns, 20, 3)
+    chunk_cases["histogram_clip_cast"] = (((x_t,), dict(
+        hb=probes.CELLS, mode="clip_cast")), *hist_fns, 20, 3)
+    chunk_cases["histogram"] = (((main_finals,), dict(
+        hb=BIG_BINS + 2, mode="spec", lo=big.lo, log_lo=big.log_lo,
+        inv_w=1.0 / big.width)), *hist_fns, 20, 3)
+    chunk_cases["flatten_tile"] = (((tiles,), {}),
+                                   histogram.flatten_tile_launcher,
+                                   histogram.flatten_tile,
+                                   histogram.flatten_tile_plain, 20, 20)
+    for name, model in long_models.items():
+        chunk_cases[f"{name}_{SOBOL_MONTHS}"] = (
+            month_chunk_args(model, none, SOBOL_MONTHS, CHUNK, CHUNK, 2000.0,
+                             seed=0),
+            ce.month_loop_launcher, ce.month_loop_chunk,
+            ce.month_loop_chunk_plain, 3, 1)
     timings, timed_args = {}, {}
     for key, ((ops, kw), launcher, wrapper, plain, reps,
               plain_reps) in chunk_cases.items():
@@ -876,7 +1079,10 @@ def main():
         timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None)
         shape = ("per call, K=32" if key == "counts_below_tile" else
-                 f"per 2^24-path chunk x {MAIN_MONTHS} months")
+                 f"per {CHUNK} inputs" if key.startswith(("histogram",
+                                                          "flatten"))
+                 else f"per 2^24-path chunk x {kw['n_periods']} months"
+                 if "n_periods" in kw else "per 2^24-path chunk")
         say(6, f"[{card}] {key}: kernel {ms!r} ms, wrapper {wrapper_ms!r} "
                f"ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
                f"({bound_by}: {work}) {shape}")
@@ -886,12 +1092,46 @@ def main():
         lambda _: (finals.fill_(1.0), partials.fill_(2.0)), 20, 1)
     say(6, f"[{card}] grid_overhead: library (two fill_) "
            f"{timings['grid_overhead']['library_ms']!r} ms")
+    # torch.bincount computes the index mode's counts in one call, copy_
+    # the flatten; the clip-cast and spec modes take several calls
+    timings["histogram_index"]["library_ms"] = events_ms(
+        lambda _: histogram.library_counts(idx_t, probes.CELLS), 20, 1)
+    flat_out = torch.empty((CHUNK, 1), dtype=torch.float32, device=DEVICE)
+    timings["flatten_tile"]["library_ms"] = events_ms(
+        lambda _: flat_out.copy_(tiles.view(-1, 1)), 20, 1)
+    say(6, f"[{card}] library: torch.bincount "
+           f"{timings['histogram_index']['library_ms']!r} ms, copy_ "
+           f"{timings['flatten_tile']['library_ms']!r} ms per {CHUNK} "
+           "inputs")
     from stock_market_monte_carlo_torch.bench import headline
 
     report = headline.grid_overhead_report()
     check(report["counter_bits_identical_across_grouping"],
           f"grid overhead report: {report}")
     say(6, f"[{card}] grid overhead report: {json.dumps(report)}")
+
+    # 6b. the histogram probes' reports on the card, each counted on its
+    # own: the index and clip-cast histograms of 2^24 inputs, exact against
+    # np.bincount, with their times and torch.bincount's; the flatten of
+    # 2048 tiles of arange
+    for label, report_fn, on_path in (
+            ("hist_report", probes.hist_report,
+             ("histogram_index", "histogram_clip_cast")),
+            ("flatten_report", probes.flatten_report, ("flatten_tile",))):
+        ce.reset_launch_counts()
+        report = report_fn()
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        check(all(counts[k] > 0 for k in on_path)
+              and all(v == 0 for k, v in counts.items() if k not in on_path),
+              f"{label}: launches {counts}")
+        for k in on_path:
+            launches[k] = counts[k]
+        check(all(v for k, v in report.items()
+                  if k.endswith(("_exact_vs_bincount", "order_kept"))),
+              f"{label}: {report}")
+        say("6b", f"[{card}] {label}: launches "
+                  f"{ {k: counts[k] for k in on_path} }; {json.dumps(report)}")
 
     # 7. the headline benchmark at 100M x 360, in process, counted on its
     # own: it runs the law, historical and Gaussian month loops and the
@@ -937,8 +1177,9 @@ def main():
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
-             launches=launches[name], max_abs_err=max_err[name],
-             **timings[name])
+             launches=launches[COUNTER_OF.get(name, name)],
+             max_abs_err=max_err[COUNTER_OF.get(name, name)],
+             **timings[COUNTER_OF.get(name, name)])
         for name in KERNELS
     ]}
     print(card)

@@ -230,7 +230,7 @@ def chunk_cases(n_periods, chunk=CHUNK, device="cuda"):
         spec = eng.make_histogram_spec(model, none, n_periods, V0, bins)
         return dict(valid=chunk, n_paths=chunk, v0=V0, target=TARGET,
                     shift=eng.analytic_moment_shift(model, none, n_periods),
-                    log_lo=spec.log_lo, inv_w=1.0 / spec.width,
+                    lo=spec.lo, log_lo=spec.log_lo, inv_w=1.0 / spec.width,
                     hb=spec.n_bins + 2, with_hist=with_hist,
                     keep_finals=False)
 

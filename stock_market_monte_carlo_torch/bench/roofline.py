@@ -42,6 +42,12 @@ _EPILOGUE = 25                # Stats.add (16) and bin_index + atomic (9)
 _SOBOL = 3
 _XORSHIFT = 6                 # three shifts, three xors
 _U23 = 4                      # shift, convert, add, scale
+# binning and counting one input of the histogram kernel: the range test
+# and the atomic; the cast and two clamps; HistogramSpec.bin_index (NaN
+# test, max, log, subtract, scale, floor, cast, +1, two clamps, the lo
+# test and its select)
+_HIST_OPS = {"histogram_index": 2, "histogram_clip_cast": 5,
+             "histogram": 14}
 
 
 def _io_bytes(ops, kw, rows_per_block, blocks_per_sm):
@@ -49,9 +55,8 @@ def _io_bytes(ops, kw, rows_per_block, blocks_per_sm):
     operand tensors, the per-block partial rows, the histogram and (when
     kept) the finals."""
     device = next(t.device for t in ops if t is not None)
-    n_blocks = ce._launch_geometry(device, kw["valid"], kw["hb"],
-                                   kw["with_hist"], rows_per_block,
-                                   blocks_per_sm)
+    n_blocks = ce._launch_geometry(ce._sm_count(device), kw["valid"],
+                                   rows_per_block, blocks_per_sm)
     inputs = sum(t.numel() * t.element_size() for t in ops if t is not None)
     return (inputs + n_blocks * 8 * 8 + kw["hb"] * 4
             + (kw["valid"] * 4 if kw["keep_finals"] else 0))
@@ -67,6 +72,16 @@ def work(name, ops, kw):
     from stock_market_monte_carlo_torch.ops import clt
 
     tensor_flop = 0.0
+    if name.startswith("histogram"):
+        # each input read once, the counts written once
+        x = ops[0]
+        return dict(bytes=x.numel() * x.element_size() + kw["hb"] * 4,
+                    scalar_ops=float(x.numel() * _HIST_OPS[name]),
+                    tensor_flop=0.0)
+    if name == "flatten_tile":
+        x = ops[0]
+        return dict(bytes=2 * x.numel() * x.element_size(), scalar_ops=0.0,
+                    tensor_flop=0.0)
     if name.startswith("grid_overhead"):
         n_tiles = kw["n_tiles"]
         nbytes = n_tiles * (ce.TILE_PATHS + cal.PARTIAL_ROWS * 128) * 4

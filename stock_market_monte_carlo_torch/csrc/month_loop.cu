@@ -53,11 +53,15 @@
 //   historical draw itself from the hash, so threads never communicate.
 // - The growth table (historical kinds), then the Sobol direction numbers
 //   (n_periods x 32 or x 64 words) and shifts, then the histogram live in
-//   dynamic shared memory: lanes of a warp read different direction words
-//   in the same step, which constant memory would serialize. The gray code
-//   is computed once per path; the fold is the TPU kernel's branch-free
-//   32-step select, unrolled (measured faster on the H100 than a loop
-//   over the set bits with __ffsll, PERF.md).
+//   dynamic shared memory. Where the direction rows and shifts do not fit
+//   beside the table and the histogram (past ~800 months at 64-bit
+//   positions, ~1600 at 32-bit), the launcher takes the instance that
+//   reads them from global memory instead (SMEM_DIR = false): at most
+//   1866 x 65 words (485 KB), they stay in L2, and every lane of a warp
+//   reads the same word in the same step. The gray code is computed once
+//   per path; the fold is the TPU kernel's branch-free 32-step select,
+//   unrolled (measured faster on the H100 than a loop over the set bits
+//   with __ffsll, PERF.md).
 // - Partial statistics are float64 per thread, reduced per block into one
 //   row; the wrapper sums the rows. The 4096-cell histogram is an int32
 //   shared-memory histogram built with atomicAdd and added once per block
@@ -109,17 +113,22 @@ struct Args {
   int* hist;              // (hb,) or null
 };
 
-// Dynamic shared memory of one block: table, directions and shifts, then
-// the histogram.
-template <int DRAW>
+// Dynamic shared memory of one block: table, directions and shifts (where
+// SMEM_DIR stages them), then the histogram.
+template <int DRAW, bool SMEM_DIR>
 __host__ __device__ size_t operand_bytes(const Args& g) {
   size_t n = has_table(DRAW) ? (size_t)g.k_chunks * 128 * sizeof(float) : 0;
-  if (is_sobol(DRAW))
+  if (is_sobol(DRAW) && SMEM_DIR)
     n += (size_t)g.n_periods * (g.dir_cols + 1) * sizeof(uint32_t);
   return n;
 }
 
-template <int DRAW, int STRATEGY>
+template <int DRAW, bool SMEM_DIR>
+size_t smem_bytes(const Args& g) {
+  return operand_bytes<DRAW, SMEM_DIR>(g) + (g.hist ? g.hb * sizeof(int) : 0);
+}
+
+template <int DRAW, int STRATEGY, bool SMEM_DIR>
 __global__ void __launch_bounds__(kBlock) month_loop_kernel(const Args g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const bool with_hist = g.hist != nullptr;
@@ -128,12 +137,15 @@ __global__ void __launch_bounds__(kBlock) month_loop_kernel(const Args g) {
   uint32_t* s_dir = reinterpret_cast<uint32_t*>(
       smem + (has_table(DRAW) ? g.k_chunks * 128 * sizeof(float) : 0));
   uint32_t* s_shift = s_dir + g.n_periods * g.dir_cols;
-  int* s_hist = reinterpret_cast<int*>(smem + operand_bytes<DRAW>(g));
+  int* s_hist = reinterpret_cast<int*>(smem +
+                                       operand_bytes<DRAW, SMEM_DIR>(g));
+  const uint32_t* dir = SMEM_DIR ? s_dir : g.dir;
+  const uint32_t* dshift = SMEM_DIR ? s_shift : g.shift;
 
   if (has_table(DRAW))
     for (int i = threadIdx.x; i < g.k_chunks * 128; i += blockDim.x)
       s_table[i] = g.table[i];
-  if (is_sobol(DRAW)) {
+  if (is_sobol(DRAW) && SMEM_DIR) {
     for (int i = threadIdx.x; i < g.n_periods * g.dir_cols; i += blockDim.x)
       s_dir[i] = g.dir[i];
     for (int i = threadIdx.x; i < g.n_periods; i += blockDim.x)
@@ -172,8 +184,8 @@ __global__ void __launch_bounds__(kBlock) month_loop_kernel(const Args g) {
         else
           gfac = g.a + g.b * normal_z(w);
       } else if constexpr (is_sobol(DRAW)) {
-        const uint32_t* row = s_dir + t * g.dir_cols;
-        uint32_t w = sobol_fold32(row, glo, s_shift[t]);
+        const uint32_t* row = dir + t * g.dir_cols;
+        uint32_t w = sobol_fold32(row, glo, dshift[t]);
         if (g.dir_cols == 64) w = sobol_fold32(row + 32, ghi, w);
         if constexpr (DRAW == kSobolGaussian)
           gfac = g.a + g.b * normal_z(w);
@@ -205,16 +217,33 @@ __global__ void __launch_bounds__(kBlock) month_loop_kernel(const Args g) {
   }
 }
 
-template <int DRAW, int STRATEGY>
-cudaError_t launch(const Args& g, int n_blocks, cudaStream_t stream) {
-  const size_t smem =
-      (g.hist ? g.hb * sizeof(int) : 0) + operand_bytes<DRAW>(g);
+template <int DRAW, int STRATEGY, bool SMEM_DIR>
+cudaError_t launch_route(const Args& g, int n_blocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DRAW, SMEM_DIR>(g);
   cudaError_t err = cudaFuncSetAttribute(
-      month_loop_kernel<DRAW, STRATEGY>,
+      month_loop_kernel<DRAW, STRATEGY, SMEM_DIR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  month_loop_kernel<DRAW, STRATEGY><<<n_blocks, kBlock, smem, stream>>>(g);
+  month_loop_kernel<DRAW, STRATEGY, SMEM_DIR>
+      <<<n_blocks, kBlock, smem, stream>>>(g);
   return cudaGetLastError();
+}
+
+// Sobol draws stage their direction rows in shared memory where they fit
+// beside the table and the histogram, else read them from global memory.
+template <int DRAW, int STRATEGY>
+cudaError_t launch(const Args& g, int n_blocks, cudaStream_t stream) {
+  if constexpr (is_sobol(DRAW)) {
+    int dev = 0, max_smem = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (smem_bytes<DRAW, true>(g) > (size_t)max_smem)
+      return launch_route<DRAW, STRATEGY, false>(g, n_blocks, stream);
+  }
+  return launch_route<DRAW, STRATEGY, true>(g, n_blocks, stream);
 }
 
 template <int DRAW>

@@ -533,7 +533,8 @@ def simulate_stats(
     shift_c = analytic_moment_shift(model, strategy, n_periods)
     common = dict(
         v0=v0f, target=np.inf if target_amount is None else target_amount,
-        shift=shift_c, log_lo=spec.log_lo, inv_w=1.0 / spec.width,
+        shift=shift_c, lo=spec.lo, log_lo=spec.log_lo,
+        inv_w=1.0 / spec.width,
         hb=spec.n_bins + 2, with_hist=options.histogram,
         keep_finals=keep_finals,
     )

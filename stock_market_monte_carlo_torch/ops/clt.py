@@ -150,7 +150,7 @@ def _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile):
 
 
 def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
-                    n_paths, v0, target, shift, log_lo, inv_w, hb,
+                    n_paths, v0, target, shift, lo, log_lo, inv_w, hb,
                     with_hist, keep_finals):
     """Plain PyTorch version of ``csrc/clt.cu``, in slabs of paths. The
     product is ``torch.matmul`` of the bf16-rounded counts and Q in
@@ -198,14 +198,14 @@ def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
             carry = carry * (excl * gk[:, CLT_K - 1])
         wsum[s0:s1] = w
         finals[s0:s1] = v0f * carry
-    stats, hist = ce._epilogue(finals, wsum, valid, v0, target, shift,
+    stats, hist = ce._epilogue(finals, wsum, valid, v0, target, shift, lo,
                                log_lo, inv_w, hb, with_hist)
     return stats, hist, (finals[:valid] if keep_finals else None)
 
 
 def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
-                 n_paths, v0, target, shift, log_lo, inv_w, hb, with_hist,
-                 keep_finals):
+                 n_paths, v0, target, shift, lo, log_lo, inv_w, hb,
+                 with_hist, keep_finals):
     """Checked inputs of one CLT chunk on a CUDA device -> ``(launch,
     outputs)`` (``cuda_engine._prepare``); ``launch()`` is the bare kernel,
     uncounted."""
@@ -225,8 +225,9 @@ def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
             ce._f32(v0), ce._f32(np.float32(1.0) / np.float32(v0)),
             ce._f32(target), ce._f32(shift), ce._f32(log_lo),
             ce._f32(inv_w), hb)
-    return ce._prepare("smmc_clt", args, dev, valid, hb, with_hist,
-                       keep_finals, rows_per_block=_ROWS,
+    return ce._prepare("smmc_clt", args, dev, valid, lo=lo, log_lo=log_lo,
+                       inv_w=inv_w, hb=hb, with_hist=with_hist,
+                       keep_finals=keep_finals, rows_per_block=_ROWS,
                        blocks_per_sm=_BLOCKS_PER_SM)
 
 

@@ -18,7 +18,8 @@ For CUDA tensors it launches the kernel or raises; there is no fallback.
 the month loop's draws (``MONTH_LOOP_COUNTERS``), ``law``, ``clt``
 (``ops/clt.py``), ``bands_hist``, ``bands_cdf`` and ``counts_below_tile``
 (``ops/bands.py``), ``grid_overhead`` and ``calib``
-(``ops/calibration.py``).
+(``ops/calibration.py``), ``histogram``, ``histogram_index``,
+``histogram_clip_cast`` and ``flatten_tile`` (``ops/histogram.py``).
 
 The default random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
@@ -34,10 +35,14 @@ withdrawn] with s_k the power sums of V/v0 - shift and min/max of V/v0;
 ``hist`` float32[hb] with hb = n_bins + 2; ``finals`` float32[valid] when
 asked for. The power sums accumulate per-path float32 terms in float64.
 
-The histogram uses the kernel binning of ``_kernel_bin_indices`` for every
-bin count (the JAX package switches to ``HistogramSpec.bin_index`` when hb
-is not a multiple of 64 or exceeds 4096; the two differ only by the
-underflow test at the exact lower edge).
+The histogram follows the JAX package's rule (``in_kernel_hist``): when
+hb is a multiple of 64 and at most 4096, the chunk kernel bins each final
+in place (``_kernel_bin_indices``); otherwise the kernel writes the finals
+and the histogram kernel counts them as ``HistogramSpec.bin_index`` bins
+them (``ops/histogram.py``, mode ``"spec"``), as the JAX package's XLA
+epilogue does. The two binnings differ only at the exact lower edge (the
+underflow test is ``logv < log_lo`` in the kernel, ``v < lo`` in the
+spec) and for +inf (cell hb-1 against cell 1).
 """
 
 from __future__ import annotations
@@ -68,8 +73,9 @@ _ERFINV_Q = (0.000100950558, 0.00134934322, -0.00367342844,
              0.00573950773, -0.0076224613, 0.00943887047,
              1.00167406, 2.83297682)
 
-# Largest histogram a block holds in shared memory (48 KB of int32).
-MAX_HIST_CELLS = 12288
+# Largest histogram the chunk kernels bin in place (the JAX package's
+# 64x64 MXU histogram); larger or odd ones go to the histogram kernel.
+KERNEL_HIST_CELLS = 4096
 _BLOCK = 256
 _BLOCKS_PER_SM = 8
 
@@ -87,17 +93,25 @@ MONTH_LOOP_COUNTERS = {
 }
 _TABLE_DRAWS = ("historical", "sobol_historical", "reference")
 _SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
-# dynamic shared memory a block may use (H100: 227 KB)
-MAX_SMEM_BYTES = 232448
 
 LAUNCHES = dict.fromkeys(
     [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
-     "bands_cdf", "counts_below_tile", "grid_overhead", "calib"], 0)
+     "bands_cdf", "counts_below_tile", "grid_overhead", "calib",
+     "histogram", "histogram_index", "histogram_clip_cast", "flatten_tile"],
+    0)
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def in_kernel_hist(hb: int, with_hist: bool) -> bool:
+    """Whether a chunk kernel bins its finals in place: the JAX package's
+    ``mxu_hist = with_hist and hb % 64 == 0 and hb <= 4096``
+    (``pallas_engine.py``). Otherwise, with a histogram, the finals go
+    through the histogram kernel in mode ``"spec"``."""
+    return with_hist and hb % 64 == 0 and hb <= KERNEL_HIST_CELLS
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +317,13 @@ def draw_operands(model, device, n_periods=None, sobol_shift=None):
 # ---------------------------------------------------------------------------
 
 
-def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
+def _epilogue(finals, wsum, valid, v0, target, shift, lo, log_lo, inv_w, hb,
               with_hist):
     """Stats row and histogram of one chunk's finals (first ``valid``
-    paths count)."""
+    paths count), the histogram binned as the chunk's route bins it
+    (``in_kernel_hist``)."""
+    from stock_market_monte_carlo_torch.ops import histogram
+
     inv0 = _f32(np.float32(1.0) / np.float32(v0))
     mask = torch.arange(finals.numel(), device=finals.device) < valid
     tot_s = finals * inv0
@@ -317,7 +334,8 @@ def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
           if wsum is None else torch.where(mask, wsum * inv0, 0.0).double()
           .sum())
     stats = torch.stack([
-        torch.tensor(float(valid), dtype=torch.float64, device=finals.device),
+        torch.full((), float(valid), dtype=torch.float64,
+                   device=finals.device),
         f.double().sum(), f2.double().sum(), (f2 * f).double().sum(),
         (f2 * f2).double().sum(),
         torch.where(mask, tot_s, inf).min().double(),
@@ -325,10 +343,14 @@ def _epilogue(finals, wsum, valid, v0, target, shift, log_lo, inv_w, hb,
         (mask & (finals < _f32(target))).sum().double(),
         wd,
     ]).to(torch.float32)
-    if with_hist:
+    if in_kernel_hist(hb, with_hist):
         bins = _kernel_bin_indices(finals, mask, _f32(log_lo), _f32(inv_w),
                                    hb)
         hist = torch.bincount(bins, minlength=hb + 1)[:hb].to(torch.float32)
+    elif with_hist:
+        hist = histogram.histogram_plain(
+            finals[:valid], hb, mode="spec", lo=lo, log_lo=log_lo,
+            inv_w=inv_w).to(torch.float32)
     else:
         hist = torch.zeros((hb,), dtype=torch.float32, device=finals.device)
     return stats, hist
@@ -449,9 +471,10 @@ def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
 
 def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
                            seed_base, tile0, valid, n_paths, v0, target,
-                           shift, log_lo, inv_w, hb, with_hist, keep_finals,
-                           draw="historical", n_table=0, a=0.0, b=0.0,
-                           direction=None, sobol_shift=None, index_offset=0):
+                           shift, lo, log_lo, inv_w, hb, with_hist,
+                           keep_finals, draw="historical", n_table=0, a=0.0,
+                           b=0.0, direction=None, sobol_shift=None,
+                           index_offset=0):
     """Plain PyTorch version of ``csrc/month_loop.cu``: the same integer
     and float32 arithmetic, vectorised over the chunk's (tiles, 64, 128)
     paths and looped over the months; the draw as ``month_growth``
@@ -480,12 +503,12 @@ def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
         total = new
     finals = total.reshape(-1)
     stats, hist = _epilogue(finals, wsum.reshape(-1), valid, v0, target,
-                            shift, log_lo, inv_w, hb, with_hist)
+                            shift, lo, log_lo, inv_w, hb, with_hist)
     return stats, hist, (finals[:valid] if keep_finals else None)
 
 
 def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
-                    shift, inv_zmax, log_lo, inv_w, hb, with_hist,
+                    shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
                     keep_finals):
     """Plain PyTorch version of ``csrc/terminal_law.cu``: one word per
     path, u23 -> sqrt(2)*erfinv(2u-1) -> Clenshaw over the law operand
@@ -505,8 +528,8 @@ def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
         b2 = b1
         b1 = b0
     finals = (law[0] * torch.exp(s * b1 - b2 + law[1])).reshape(-1)
-    stats, hist = _epilogue(finals, None, valid, v0, target, shift, log_lo,
-                            inv_w, hb, with_hist)
+    stats, hist = _epilogue(finals, None, valid, v0, target, shift, lo,
+                            log_lo, inv_w, hb, with_hist)
     return stats, hist, (finals[:valid] if keep_finals else None)
 
 
@@ -530,22 +553,24 @@ def _check(t, name, device, numel=None, dtype=torch.float32):
         raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
 
 
-def _launch_geometry(device, valid, hb, with_hist, rows_per_block,
-                     blocks_per_sm):
-    if with_hist and hb > MAX_HIST_CELLS:
-        raise ValueError(
-            f"histogram of {hb} cells exceeds the kernels' shared-memory "
-            f"histogram ({MAX_HIST_CELLS} cells); use fewer histogram_bins"
-        )
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_geometry(sms, valid, rows_per_block, blocks_per_sm):
+    """Blocks of a chunk's grid on a card of ``sms`` SMs: enough to cover
+    ``valid`` paths at ``rows_per_block`` a block, at most
+    ``blocks_per_sm`` a SM (the blocks stride)."""
     return max(1, min(-(-valid // rows_per_block), sms * blocks_per_sm))
 
 
 def _reduce_partials(partials, valid):
-    """Per-block float64 partial rows -> the float32[9] stats row."""
+    """Per-block float64 partial rows -> the float32[9] stats row. The
+    path count is filled on the device: a tensor made from a host value
+    would be a copy that waits for the stream."""
     return torch.cat([
-        torch.tensor([float(valid)], dtype=torch.float64,
-                     device=partials.device),
+        torch.full((1,), float(valid), dtype=torch.float64,
+                   device=partials.device),
         partials[:, 0:4].sum(0),
         partials[:, 4].min()[None],
         partials[:, 5].max()[None],
@@ -558,25 +583,32 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _prepare(entry, args, dev, valid, hb, with_hist, keep_finals,
-             rows_per_block=_BLOCK, blocks_per_sm=_BLOCKS_PER_SM):
+def _prepare(entry, args, dev, valid, *, lo, log_lo, inv_w, hb, with_hist,
+             keep_finals, rows_per_block=_BLOCK,
+             blocks_per_sm=_BLOCKS_PER_SM):
     """Allocate one chunk's outputs on ``dev`` and return ``(launch,
     outputs)``: ``launch()`` runs the C entry point ``entry`` of the kernel
     library into them on the current stream (``args`` are its leading
     arguments, before the output pointers); ``outputs()`` reduces the
     per-block partials to the (stats, hist, finals-or-None) contract. The
     grid covers ``valid`` paths at ``rows_per_block`` paths per block, at
-    most ``blocks_per_sm`` blocks per SM (the blocks stride)."""
+    most ``blocks_per_sm`` blocks per SM (the blocks stride). Where the
+    kernel cannot bin in place (``in_kernel_hist``), it writes the finals
+    and ``outputs()`` counts them with the histogram kernel (counted under
+    ``histogram``)."""
+    from stock_market_monte_carlo_torch.ops import histogram
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     fn = getattr(load_library(), entry)
-    n_blocks = _launch_geometry(dev, valid, hb, with_hist, rows_per_block,
+    n_blocks = _launch_geometry(_sm_count(dev), valid, rows_per_block,
                                 blocks_per_sm)
+    binned = in_kernel_hist(hb, with_hist)
+    spec_route = with_hist and not binned
     partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
     hist = (torch.zeros((hb,), dtype=torch.int32, device=dev)
-            if with_hist else None)
+            if binned else None)
     finals = (torch.empty((valid,), dtype=torch.float32, device=dev)
-              if keep_finals else None)
+              if keep_finals or spec_route else None)
     tail = (_ptr(finals), _ptr(partials), _ptr(hist), n_blocks,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
 
@@ -585,9 +617,15 @@ def _prepare(entry, args, dev, valid, hb, with_hist, keep_finals,
 
     def outputs():
         stats = _reduce_partials(partials, valid)
-        h = (hist.to(torch.float32) if with_hist
-             else torch.zeros((hb,), dtype=torch.float32, device=dev))
-        return stats, h, finals
+        if binned:
+            h = hist.to(torch.float32)
+        elif spec_route:
+            h = histogram.histogram_counts(
+                finals, hb, mode="spec", lo=lo, log_lo=log_lo,
+                inv_w=inv_w).to(torch.float32)
+        else:
+            h = torch.zeros((hb,), dtype=torch.float32, device=dev)
+        return stats, h, (finals if keep_finals else None)
 
     return launch, outputs
 
@@ -601,7 +639,7 @@ def _check_chunk(dev, what, valid, n_paths):
 
 def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
                         seed_base, tile0, valid, n_paths, v0, target, shift,
-                        log_lo, inv_w, hb, with_hist, keep_finals,
+                        lo, log_lo, inv_w, hb, with_hist, keep_finals,
                         draw="historical", n_table=0, a=0.0, b=0.0,
                         direction=None, sobol_shift=None, index_offset=0):
     """Checked inputs of one month-loop chunk on a CUDA device ->
@@ -612,14 +650,16 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
     _check(keep, "keep", dev, n_periods)
     if draw not in DRAW_CODES:
         raise ValueError(f"unknown draw {draw!r}")
-    smem = 0
+    # what the kernel keeps in shared memory always fits a block: the table
+    # (at most 2^15 rows, 128 KB) and an in-place histogram (at most 4096
+    # cells); the Sobol direction rows sit there only where they fit too
+    # (csrc/month_loop.cu reads them from global memory otherwise)
     if draw in _TABLE_DRAWS:
         if not 0 < n_table < (1 << 15):
             raise ValueError(f"table length {n_table} outside [1, 2^15)")
         k_chunks = -(-n_table // 128)
         _check(table, "table", dev, k_chunks * 128)
         tail_n = n_table - 128 * (k_chunks - 1)
-        smem += 4 * k_chunks * 128
     else:
         if table is not None:
             raise ValueError(f"the {draw} draw takes no table")
@@ -642,15 +682,8 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
         if index_offset and dir_cols != 64:
             raise ValueError("a nonzero index_offset needs the (n_periods, "
                              "64) direction table")
-        smem += 4 * n_periods * (dir_cols + 1)
     elif direction is not None or sobol_shift is not None:
         raise ValueError(f"the {draw} draw takes no Sobol operands")
-    smem += 4 * hb if with_hist else 0
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the {draw} draw's operands and histogram take {smem} bytes of "
-            f"shared memory, past a block's {MAX_SMEM_BYTES}; shorten the "
-            "horizon or use fewer histogram_bins")
     args = (DRAW_CODES[draw], _ptr(table), k_chunks, n_table, tail_n,
             _f32(a), _f32(b), _ptr(direction), _ptr(sobol_shift), dir_cols,
             index_offset & MASK32, index_offset >> 32, _ptr(keep),
@@ -658,12 +691,14 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
             int(seed_base) & MASK32, int(tile0) & MASK32, valid, _f32(v0),
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
-    return _prepare("smmc_month_loop", args, dev, valid, hb, with_hist,
-                    keep_finals)
+    return _prepare("smmc_month_loop", args, dev, valid, lo=lo,
+                    log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
+                    keep_finals=keep_finals)
 
 
 def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
-                 shift, inv_zmax, log_lo, inv_w, hb, with_hist, keep_finals):
+                 shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
+                 keep_finals):
     """Checked inputs of one terminal-law chunk on a CUDA device ->
     ``(launch, outputs)``, as ``month_loop_launcher``."""
     dev = law.device
@@ -673,8 +708,9 @@ def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
             int(tile0) & MASK32, valid,
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(inv_zmax), _f32(log_lo), _f32(inv_w), hb)
-    return _prepare("smmc_law", args, dev, valid, hb, with_hist,
-                    keep_finals)
+    return _prepare("smmc_law", args, dev, valid, lo=lo, log_lo=log_lo,
+                    inv_w=inv_w, hb=hb, with_hist=with_hist,
+                    keep_finals=keep_finals)
 
 
 def _launch_counted(name, launcher):

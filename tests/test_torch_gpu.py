@@ -15,7 +15,11 @@ bands and RQMC of those models on the card against the CPU. The
 headline's calibration kernels (grid overhead, the calibration pair) and
 the counts below a tile against their plain versions, their launch
 counters, the calibration kernels' SASS count and the headline's
-device-time block.
+device-time block. The histogram kernel's three modes and the tile
+flatten against their plain versions (past shared memory too), the
+engine's large and odd histograms on all three samplers against the CPU,
+the Sobol draws at 1866 months with 64-bit positions, and the counted
+wrappers queueing chunks without a host synchronisation.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -59,7 +63,8 @@ def _month_kw(strategy, n_table, n_periods, hb, with_hist):
     return dict(n_table=n_table, strategy=strategy, amount=4.0,
                 n_periods=n_periods, seed_base=0x9E3779B9, tile0=37,
                 valid=2 * 8192 + 1001, n_paths=4 * 8192, v0=1000.0,
-                target=990.0, shift=1.01, log_lo=float(np.log(300.0)),
+                target=990.0, shift=1.01, lo=300.0,
+                log_lo=float(np.log(300.0)),
                 inv_w=float(np.float32((hb - 2) / np.log(10.0))), hb=hb,
                 with_hist=with_hist, keep_finals=True)
 
@@ -106,7 +111,8 @@ def test_law_kernel_matches_plain(cuda, keep_finals, hb):
     law = torch.as_tensor(fit.operand(), device=cuda)
     kw = dict(seed_base=0x80000001, tile0=5, valid=3 * 8192 + 17,
               n_paths=4 * 8192, v0=1000.0, target=1500.0, shift=1.8,
-              inv_zmax=1.0 / LAW_ZMAX, log_lo=float(np.log(200.0)),
+              inv_zmax=1.0 / LAW_ZMAX, lo=200.0,
+              log_lo=float(np.log(200.0)),
               inv_w=float(np.float32((hb - 2) / np.log(80.0))), hb=hb,
               with_hist=True, keep_finals=True)
     p_out = ce.law_chunk_plain(law, **kw)
@@ -156,7 +162,8 @@ def test_clt_kernel_matches_plain(cuda, variant, n_periods, hb):
     ops = _clt_operands(cuda, variant, n_periods)
     kw = dict(variant=variant, seed_base=0x9E3779B9 ^ clt.CLT_STREAM_XOR,
               tile0=37, valid=2 * 8192 + 1001, n_paths=4 * 8192, v0=1000.0,
-              target=1000.0, shift=1.01, log_lo=float(np.log(300.0)),
+              target=1000.0, shift=1.01, lo=300.0,
+              log_lo=float(np.log(300.0)),
               inv_w=float(np.float32((hb - 2) / np.log(10.0))), hb=hb,
               with_hist=True, keep_finals=True)
     sk, hk, fk = clt.clt_chunk(*ops, **kw)
@@ -181,7 +188,7 @@ def test_clt_kernel_without_finals_or_histogram(cuda):
     ops = _clt_operands(cuda, "plain", 360)
     kw = dict(variant="plain", seed_base=0x11C7, tile0=0, valid=8192 + 5,
               n_paths=2 * 8192, v0=1000.0, target=5000.0, shift=6.0,
-              log_lo=float(np.log(100.0)),
+              lo=100.0, log_lo=float(np.log(100.0)),
               inv_w=float(np.float32(4094 / np.log(1e3))), hb=4096,
               with_hist=True, keep_finals=True)
     sk, hk, _ = clt.clt_chunk(*ops, **dict(kw, keep_finals=False,
@@ -247,9 +254,11 @@ def test_wrappers_check_inputs_and_count_launches(cuda):
         ce.month_loop_chunk(table.double(), keep, **kw)
     with pytest.raises(ValueError):
         ce.month_loop_chunk(table, keep[:6], **kw)
-    with pytest.raises(ValueError):
-        ce.month_loop_chunk(table, keep, **dict(kw, hb=ce.MAX_HIST_CELLS + 2))
     assert ce.LAUNCHES["month_loop"] == 1
+    # past the in-place histogram's 4096 cells: the finals go through the
+    # histogram kernel
+    ce.month_loop_chunk(table, keep, **dict(kw, hb=20002))
+    assert ce.LAUNCHES["month_loop"] == 2 and ce.LAUNCHES["histogram"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -511,15 +520,17 @@ def test_new_draw_wrappers_check_inputs_and_count_launches(cuda):
         ce.month_loop_chunk(*ops, **dict(kw, index_offset=5))
     with pytest.raises(ValueError, match="shape"):
         ce.month_loop_chunk(*ops, **dict(kw, direction=kw["direction"][:6]))
+    # 900 x 65 direction words do not fit in shared memory: read from
+    # global memory
     deep_ops, deep_kw = _draw_args(cuda, "sobol_historical", "none",
                                    n_periods=900, index_offset=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        ce.month_loop_chunk(*deep_ops, **deep_kw)
+    ce.month_loop_chunk(*deep_ops, **deep_kw)
+    assert ce.LAUNCHES["month_loop_sobol_historical"] == 1
     ref_ops, ref_kw = _draw_args(cuda, "reference", "none")
     with pytest.raises(ValueError, match="no Sobol operands"):
         ce.month_loop_chunk(*ref_ops, **dict(ref_kw, sobol_shift=kw[
             "sobol_shift"]))
-    assert sum(ce.LAUNCHES.values()) == 1
+    assert sum(ce.LAUNCHES.values()) == 2
 
 
 @pytest.mark.parametrize("draw", NEW_DRAWS)
@@ -690,3 +701,188 @@ def test_headline_device_times_on_the_card(cuda):
         assert dt[f"{name}_predicted_ms_per_chunk"] > 0
     assert dt["law_hist_100m_device_ms"] > 0
     assert 0 < dt["int_op_rate_per_s"] < 1e15
+
+
+# ---------------------------------------------------------------------------
+# The histogram kernel, large and odd histograms, long Sobol horizons, and
+# wrappers that do not synchronise
+# ---------------------------------------------------------------------------
+
+
+def _hist_inputs(cuda, mode, hb, n=(1 << 20) + 3):
+    rng = np.random.default_rng(hb)
+    if mode == "index":
+        # masked lanes carry hb; a few indices fall outside [0, hb]
+        x = rng.integers(-2, hb + 3, n).astype(np.int32)
+        return torch.as_tensor(x, device=cuda), {}
+    if mode == "clip_cast":
+        x = rng.uniform(-50.0, hb + 50.0, n).astype(np.float32)
+        return torch.as_tensor(x, device=cuda), {}
+    lo, hi = 300.0, 3000.0
+    x = np.exp(rng.uniform(np.log(lo) - 0.1, np.log(hi) + 0.1, n))
+    x = x.astype(np.float32)
+    x[:4] = (lo, 0.0, np.inf, np.nan)
+    width = (np.log(hi) - np.log(lo)) / (hb - 2)
+    return torch.as_tensor(x, device=cuda), dict(
+        lo=lo, log_lo=float(np.log(lo)), inv_w=1.0 / width)
+
+
+@pytest.mark.parametrize("mode", ["index", "clip_cast", "spec"])
+@pytest.mark.parametrize("hb", [4096, 20000, 70000])
+def test_histogram_kernel_matches_plain(cuda, mode, hb):
+    """Bit for bit, and against np.bincount of the same bins: 4096 cells
+    (16 KB of shared memory), 20000 (past the default 48 KB) and 70000
+    (past a block's shared memory: the global-atomic cells)."""
+    from stock_market_monte_carlo_torch.ops import histogram
+
+    x, spec = _hist_inputs(cuda, mode, hb)
+    got = histogram.histogram_counts(x, hb, mode=mode, **spec)
+    want = histogram.histogram_plain(x, hb, mode=mode, **spec)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if mode == "index":
+        bins = x.cpu().numpy()
+    elif mode == "clip_cast":
+        bins = histogram.clip_cast_indices(x, hb).cpu().numpy()
+    else:
+        bins = histogram.spec_bin_indices(
+            x, n_bins=hb - 2, **spec).cpu().numpy()
+    bins = bins[(bins >= 0) & (bins < hb)]
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.bincount(bins, minlength=hb))
+
+
+def test_flatten_tile_kernel_matches_plain(cuda):
+    from stock_market_monte_carlo_torch.ops import histogram
+
+    x = torch.arange(5 * 8192, dtype=torch.float32, device=cuda).reshape(
+        5 * 64, 128)
+    got = histogram.flatten_tile(x)
+    torch.cuda.synchronize()
+    assert got.shape == (5 * 8192, 1)
+    assert torch.equal(got, histogram.flatten_tile_plain(x))
+    assert torch.equal(got[:, 0], torch.arange(5 * 8192, dtype=torch.float32,
+                                               device=cuda))
+
+
+def test_histogram_wrappers_check_inputs_and_count_launches(cuda):
+    from stock_market_monte_carlo_torch.ops import histogram
+
+    x = torch.zeros((8192,), dtype=torch.int32, device=cuda)
+    ce.reset_launch_counts()
+    histogram.histogram_plain(x, 64)
+    assert sum(ce.LAUNCHES.values()) == 0
+    histogram.histogram_counts(x, 64)
+    histogram.histogram_counts(x.float(), 64, mode="clip_cast")
+    histogram.histogram_counts(x.float(), 64, mode="spec", lo=1.0,
+                               log_lo=0.0, inv_w=1.0)
+    histogram.flatten_tile(x.float().reshape(64, 128))
+    assert {k: v for k, v in ce.LAUNCHES.items() if v} == dict(
+        histogram_index=1, histogram_clip_cast=1, histogram=1,
+        flatten_tile=1)
+    with pytest.raises(TypeError):
+        histogram.histogram_counts(x.float(), 64)
+    with pytest.raises(ValueError, match="lo"):
+        histogram.histogram_counts(x.float(), 64, mode="spec")
+    with pytest.raises(ValueError, match="contiguous"):
+        histogram.histogram_counts(x.reshape(64, 128)[:, ::2], 64)
+    with pytest.raises(ValueError, match="tiles"):
+        histogram.flatten_tile(x.float()[:4096].reshape(32, 128))
+    assert sum(ce.LAUNCHES.values()) == 4
+
+
+def _hist_density_edges(finals, spec):
+    """Finals whose log lies within 1e-6 of a cell edge of ``spec``, where
+    the two devices' logs may bin them a cell apart."""
+    x = (np.log(finals.astype(np.float64)) - spec.log_lo) / spec.width
+    return int(np.sum(np.abs(x - np.round(x)) <= 1e-6 / spec.width))
+
+
+@pytest.mark.parametrize("bins", [20000, 3998])
+@pytest.mark.parametrize("sampler", ["month_loop", "law", "clt"])
+def test_engine_odd_histograms_on_cuda_match_cpu(cuda, sampler, bins):
+    """histogram_bins past the in-place 4096 cells, and one whose cells are
+    not a multiple of 64: the chunk kernels write their finals, the
+    histogram kernel counts them (one launch a chunk), and the histogram
+    equals the CPU run's but for finals at a cell edge."""
+    model, opts, key = {
+        "month_loop": (smt.HistoricalBootstrap.from_csv(), {}, "month_loop"),
+        "law": (smt.HistoricalBootstrap.from_csv(),
+                dict(terminal_law=True), "law"),
+        "clt": (smt.GaussianReturns(), dict(gaussian_sampler="clt"), "clt"),
+    }[sampler]
+    args = (model, 3 * 8192 + 123, 24)
+    kw = dict(seed=4, target_amount=1000.0, keep_final_values=True)
+    ce.reset_launch_counts()
+    got = smt.simulate_stats(*args, options=smt.EngineOptions(
+        chunk_paths=8192, histogram_bins=bins, **opts), **kw)
+    assert {k: v for k, v in ce.LAUNCHES.items() if v} == {key: 4,
+                                                          "histogram": 4}
+    want = smt.simulate_stats(*args, options=smt.EngineOptions(
+        chunk_paths=8192, histogram_bins=bins, device="cpu", **opts), **kw)
+    hk, hp = got.histogram_counts, want.histogram_counts
+    assert hk.shape == (bins + 2,) and hk.sum() == hp.sum() == args[1]
+    # the month loop's finals are bit-equal across the devices; the law's
+    # and the CLT's go through exp and log, which may differ by an ulp
+    differ = int(np.sum(got.final_values != want.final_values))
+    assert sampler != "month_loop" or differ == 0
+    near = 2 * (differ + _hist_density_edges(want.final_values,
+                                             got.histogram_spec))
+    assert np.abs(hk - hp).sum() <= near
+
+
+@pytest.mark.parametrize("draw", ["sobol_gaussian", "sobol_historical"])
+@pytest.mark.parametrize("index_offset", [0, (1 << 33) + 777])
+def test_sobol_1866_months_match_plain(cuda, draw, index_offset):
+    """The Sobol table's full 1866 dimensions: the direction rows no longer
+    fit in shared memory (1866 x 33 or x 65 words) and are read from
+    global memory; kernel == plain bit for bit, with an in-place and a
+    kernel-counted histogram."""
+    for hb in (4096, 1002):
+        _assert_draw_matches_plain(*_draw_args(
+            cuda, draw, "fixed_percent", n_periods=1866,
+            index_offset=index_offset, hb=hb, valid=8192 + 3,
+            n_paths=2 * 8192))
+
+
+def test_counted_wrappers_do_not_synchronise(cuda):
+    """Every counted chunk wrapper queues its work without waiting for the
+    card: under torch's sync debug mode "error", a synchronising call
+    (a host-to-device copy of a host value, .item(), .cpu()) raises."""
+    from stock_market_monte_carlo_torch.ops import histogram
+    from stock_market_monte_carlo_torch.ops.terminal_law import (
+        LAW_ZMAX,
+        fit_terminal_law,
+    )
+
+    flat, n = ce._pad_table(_table("n1127"))
+    table = torch.as_tensor(flat, device=cuda)
+    keep = torch.ones((24,), dtype=torch.float32, device=cuda)
+    month_kw = dict(_month_kw("none", n, 24, 4096, True), keep_finals=False)
+    law = torch.as_tensor(fit_terminal_law(
+        smt.GaussianReturns(), smt.NoWithdrawal(), 120, 1000.0).operand(),
+        device=cuda)
+    law_kw = dict(seed_base=0x80000001, tile0=5, valid=3 * 8192 + 17,
+                  n_paths=4 * 8192, v0=1000.0, target=1500.0, shift=1.8,
+                  inv_zmax=1.0 / LAW_ZMAX, lo=200.0,
+                  log_lo=float(np.log(200.0)), inv_w=1000.0, hb=4096,
+                  with_hist=True, keep_finals=False)
+    clt_ops = _clt_operands(cuda, "plain", 24)
+    clt_kw = dict(variant="plain", seed_base=5, tile0=0, valid=8192 + 5,
+                  n_paths=2 * 8192, v0=1000.0, target=1000.0, shift=1.0,
+                  lo=300.0, log_lo=float(np.log(300.0)), inv_w=2000.0,
+                  hb=4096, with_hist=True, keep_finals=False)
+    idx = torch.zeros((8192,), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            ce.month_loop_chunk(table, keep, **dict(month_kw, tile0=i))
+            ce.month_loop_chunk(table, keep, **dict(month_kw, hb=20002))
+            ce.law_chunk(law, **dict(law_kw, tile0=i))
+            ce.law_chunk(law, **dict(law_kw, hb=4002))
+            clt.clt_chunk(*clt_ops, **dict(clt_kw, tile0=i))
+            histogram.histogram_counts(idx, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
