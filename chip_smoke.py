@@ -12,7 +12,11 @@ chunks of an odd histogram and the Sobol draws at 1866 months against
 their plain versions, times the kernels and the paths, runs the histogram
 probes' reports (``bench/probes.py``) and the headline benchmark
 (``bench/headline.py``) at 100M x 360 with its dispatch-floor and
-calibration kernels.
+calibration kernels; then the experiment probes of the CLT and the
+counter stream: the op-class toys, the CLT's ablation and tile-grouping
+instances and the byte planes against their plain versions, the
+production CLT's SASS against the parent build's and its time against the
+same run's, and the probes' five reports.
 
     python3 chip_smoke.py
 
@@ -97,6 +101,22 @@ KERNELS = {
                                 replaces=f"{_EXP}/exp_flatten_cost.py:65"),
     "flatten_tile": dict(source=f"{_CSRC}/histogram.cu",
                          replaces=f"{_EXP}/exp_flatten_cost.py:29"),
+    # the op-class toys: one template, an instance a class; hash is the
+    # port's own class (the counter word the CLT hashes per count)
+    **{f"op_toy_{op}": dict(source=f"{_CSRC}/calibration.cu",
+                            replaces=f"{_EXP}/exp_clt_roofline.py:104")
+       for op in ("mul", "fma", "iadd", "shf", "cvt", "mm", "hash")},
+    # the CLT's probe instances: ablations, and base at 1, 2, 4 tiles a block
+    **{f"clt_probe_{a}": dict(source=f"{_CSRC}/clt.cu",
+                              replaces=f"{_EXP}/exp_clt_ablate.py:146")
+       for a in ("base", "nohist", "nologexp", "nodraw", "nomm")},
+    **{f"clt_probe_ts{t}": dict(source=f"{_CSRC}/clt.cu",
+                                replaces=f"{_EXP}/exp_clt_ts2.py:112")
+       for t in (1, 2, 4)},
+    "byte_planes": dict(source=f"{_CSRC}/byte_planes.cu",
+                        replaces=f"{_EXP}/exp_prng_bytes.py:34"),
+    "byte_planes_crossword": dict(source=f"{_CSRC}/byte_planes.cu",
+                                  replaces=f"{_EXP}/exp_prng_crossword.py:41"),
 }
 # the record's entry of a kernel -> the launch counter it reads
 COUNTER_OF = {"histogram_index_rows": "histogram_index"}
@@ -133,6 +153,22 @@ CALIB_TILE0 = 37
 COUNTS_K = (8, 32, 64)
 # the headline's mean errors against 1000 * g^360
 HEADLINE_MEAN_REL = 1e-3
+# the mm toy against its plain version, relative to a row's largest
+# magnitude: an accumulation-order ulp on a bf16 rounding edge moves an
+# element by 2^-8 of itself, which Q spreads over the row
+MM_ROW_REL = 1e-3
+# SASS instructions (NOPs left out) of the production CLT kernels, variant
+# -> count, in the parent's build (572bb64, before the probe instances):
+# calibration.clt_production_sass on a library built from `git archive
+# 572bb64`, nvcc of CUDA 12.8 on the H100 machine; the probe instances must
+# leave them as they were
+CLT_SASS_PARENT = {0: 2030, 1: 2030, 2: 1866}
+# the production CLT's time in the probes' phase against phase 6's
+CLT_TIME_REL = 0.02
+# the byte planes: means within 127.5 +- 0.5, off-diagonal |corr| < 0.01
+# at ~1e6 words (sd ~1e-3)
+BYTE_MEAN_TOL = 0.5
+BYTE_CORR_MAX = 0.01
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -400,6 +436,44 @@ def hist_bins(histogram, mode, x, hb, kw):
         bins = histogram.spec_bin_indices(x, n_bins=hb - 2,
                                           **kw).cpu().numpy()
     return bins[(bins >= 0) & (bins < hb)]
+
+
+def compare_probe(label, k_out, p_out, kw):
+    """A CLT probe chunk against its plain version. Finals, min and max
+    within CLT_REL, path count exact; the count below the target and the
+    histogram exact but for plain finals within CLT_REL of the target or
+    of a cell edge (each moving one count); the float64 power sums within
+    1e-5. Returns (max abs and rel finals differences, whether the count
+    below and the histogram were exact)."""
+    torch.cuda.synchronize()
+    sk, hk, fk = k_out
+    sp, hp, fp = p_out
+    fk64, fp64 = fk.double(), fp.double()
+    err = float((fk64 - fp64).abs().max())
+    r = float(((fk64 - fp64).abs() / fp64.abs()).max())
+    check(r <= CLT_REL, f"{label}: finals rel diff {r}")
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    check(sk[0] == sp[0], f"{label}: path counts {sk[0]} vs {sp[0]}")
+    near_target = int(((fp64 / kw["target"] - 1.0).abs() <= CLT_REL).sum())
+    check(abs(sk[7] - sp[7]) <= near_target,
+          f"{label}: count below {sk[7]} vs {sp[7]} ({near_target} near)")
+    for i in (5, 6):
+        check(rel(sk[i], sp[i]) <= CLT_REL,
+              f"{label}: min/max {sk[5:7]} vs {sp[5:7]}")
+    for i in (1, 2, 3, 4):
+        check(rel(sk[i], sp[i]) <= 1e-5,
+              f"{label}: power sums {sk[1:5]} vs {sp[1:5]}")
+    mass = 0 if kw.get("ablate") == "nohist" else sk[0]
+    check(hk.sum() == hp.sum() == mass,
+          f"{label}: histogram mass {hk.sum()} vs {hp.sum()}")
+    x = (torch.log(fp64) - kw["log_lo"]) * kw["inv_w"]
+    near_edge = int(((x - torch.round(x)).abs()
+                     <= CLT_REL * kw["inv_w"] + 1e-9).sum())
+    l1 = float(np.abs(hk - hp).sum())
+    check(l1 <= 2 * near_edge, f"{label}: histograms differ by {l1} "
+                               f"({near_edge} finals near a bin edge)")
+    return err, r, bool(sk[7] == sp[7] and l1 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +781,99 @@ def main():
                            f"{DEEP_OFFSET} {sname}",
                      ce.month_loop_chunk, ce.month_loop_chunk_plain, ops, kw,
                      0.0)
+
+    # 3e. the experiment probes against their plain versions: the toys at
+    # the 4096 tiles the timings and the report run (bit for bit, mm within MM_ROW_REL of a row's scale); each
+    # CLT ablation at 2^24 x 360 with exp_clt_ablate.py's inputs, and the
+    # tile groupings with exp_clt_ts2.py's (at the CLT's bar, counts exact
+    # but for finals on an edge; every grouping bit-identical to the
+    # stride in finals, histogram, count, min and max); the byte planes of
+    # both experiments' seeds against the plain version and the counter
+    # words; the production CLT's SASS against the parent build's
+    from stock_market_monte_carlo_torch.bench import probes
+    from stock_market_monte_carlo_torch.ops import byte_planes as bp
+
+    for op in cal.TOY_OPS:
+        got = cal.op_toy_chunk(op, cal.TOY_TILES, device=DEVICE)
+        want = cal.op_toy_chunk_plain(op, cal.TOY_TILES,
+                                     device=DEVICE)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if op == "mm":
+            scale = want.abs().amax(dim=1, keepdim=True)
+            spread = float(((got - want).abs() / scale).max())
+            check(spread <= MM_ROW_REL and bool(torch.isfinite(got).all()),
+                  f"op_toy mm: kernel differs from plain by {spread} of a "
+                  "row's scale")
+            equal = float((got == want).double().mean())
+            how = (f"matches plain within {MM_ROW_REL} of a row's scale "
+                   f"(largest {spread!r}, {equal!r} of the elements equal)")
+        else:
+            check(torch.equal(got, want),
+                  f"op_toy {op}: kernel differs from plain by {err}")
+            how = "== plain"
+        max_err[f"op_toy_{op}"] = err
+        say("3e", f"op_toy {op} {cal.TOY_TILES} tiles: kernel {how}")
+    for ablate in clt.ABLATIONS:
+        ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.ABLATE_SEED)
+        kw = dict(kw, ablate=ablate, keep_finals=True)
+        err, r, exact = compare_probe(
+            f"clt_probe {ablate}", clt.clt_probe_chunk(*ops, **kw),
+            clt.clt_probe_chunk_plain(*ops, **kw), kw)
+        max_err[f"clt_probe_{ablate}"] = err
+        counts = "exact" if exact else "within the edge allowance"
+        say("3e", f"clt_probe {ablate} {CHUNK} x {probes.CLT_MONTHS}: "
+                  f"kernel matches plain (bar: finals rel {CLT_REL}), "
+                  f"finals max abs diff {err}, max rel diff {r}; count "
+                  f"below and histogram {counts}")
+    ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.GROUPING_SEED)
+    kw = dict(kw, ablate="base", keep_finals=True)
+    plain = clt.clt_probe_chunk_plain(*ops, **kw)
+    stride = clt.clt_probe_chunk(*ops, tiles_per_block=0, **kw)
+    compare_probe("clt_probe base ts=0", stride, plain, kw)
+    for ts in clt.GROUPINGS[1:]:
+        out = clt.clt_probe_chunk(*ops, tiles_per_block=ts, **kw)
+        err, r, _ = compare_probe(f"clt_probe base ts={ts}", out, plain, kw)
+        (s1, h1, f1), (s0, h0, f0) = out, stride
+        check(torch.equal(f1, f0) and torch.equal(h1, h0)
+              and torch.equal(s1[[0, 5, 6, 7]], s0[[0, 5, 6, 7]]),
+              f"clt_probe ts={ts}: differs from the stride")
+        sums = float(((s1[1:5] - s0[1:5]).abs() / s0[1:5].abs()).max())
+        check(sums <= 1e-12, f"clt_probe ts={ts}: power sums rel {sums}")
+        max_err[f"clt_probe_ts{ts}"] = err
+        say("3e", f"clt_probe base {ts} tiles a block, {CHUNK} x "
+                  f"{probes.CLT_MONTHS}: finals, histogram, count, min and "
+                  f"max == the stride's; power sums within {sums!r}; vs "
+                  f"plain max rel {r}")
+    for name, seeds in (("byte_planes", bp.BYTES_SEEDS),
+                        ("byte_planes_crossword", bp.CROSSWORD_SEEDS)):
+        got = bp.byte_planes(seeds, device=DEVICE)
+        want = bp.byte_planes_plain(seeds, device=DEVICE)
+        torch.cuda.synchronize()
+        b = got.reshape(len(seeds), 4, -1).long()
+        words = b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
+        s_t = torch.as_tensor(np.asarray(seeds, np.int64), device=DEVICE)
+        counter = ce._arith_bits(s_t[:, None], 0,
+                                 torch.arange(bp.WORDS, device=DEVICE))
+        check(torch.equal(got, want) and torch.equal(words, counter),
+              f"{name}: kernel differs from plain or the counter words")
+        say("3e", f"{name} {len(seeds)} seeds: kernel == plain, bytes == "
+                  "the counter words (_arith_bits, key 0)")
+    stats = probes.byte_stats(bp.byte_planes(bp.BYTES_SEEDS,
+                                             device=DEVICE).cpu().numpy())
+    off = np.abs(np.asarray(stats["byte_corr"]) - np.eye(4)).max()
+    check(all(abs(m - 127.5) <= BYTE_MEAN_TOL for m in stats["byte_means"])
+          and off < BYTE_CORR_MAX
+          and abs(stats["corr_lo16_hi16"]) < BYTE_CORR_MAX,
+          f"byte planes: {stats}")
+    say("3e", f"byte planes, {stats['n_words']} words: means "
+              f"{stats['byte_means']}, largest off-diagonal |corr| {off!r}, "
+              f"corr(lo16, hi16) {stats['corr_lo16_hi16']!r}")
+    sass = cal.clt_production_sass()
+    check(sass == CLT_SASS_PARENT,
+          f"production CLT SASS {sass} vs the parent's {CLT_SASS_PARENT}")
+    say("3e", f"production CLT SASS instructions {sass} == the parent "
+              "build's (clt_kernel<V> before the probe instances)")
 
     # 4. goldens on the card
     f = smt.simulate_final_values(
@@ -1065,6 +1232,29 @@ def main():
                              seed=0),
             ce.month_loop_launcher, ce.month_loop_chunk,
             ce.month_loop_chunk_plain, 3, 1)
+    # the probes: the toys over a 2^24-path chunk equivalent, the CLT's
+    # probe instances at 2^24 x 360, the byte planes of both experiments
+    for op in cal.TOY_OPS:
+        chunk_cases[f"op_toy_{op}"] = (
+            ((op,), dict(n_tiles=cal.TOY_TILES, device=DEVICE)),
+            cal.op_toy_launcher, cal.op_toy_chunk, cal.op_toy_chunk_plain, 5,
+            3)
+    probe_fns = (clt.clt_probe_launcher, clt.clt_probe_chunk,
+                 clt.clt_probe_chunk_plain, 5, 1)
+    for ablate in clt.ABLATIONS:
+        ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.ABLATE_SEED)
+        chunk_cases[f"clt_probe_{ablate}"] = ((ops, dict(kw, ablate=ablate)),
+                                              *probe_fns)
+    for ts in clt.GROUPINGS[1:]:
+        ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.GROUPING_SEED)
+        chunk_cases[f"clt_probe_ts{ts}"] = (
+            (ops, dict(kw, ablate="base", tiles_per_block=ts)), *probe_fns)
+    planes_fns = (bp.byte_planes_launcher, bp.byte_planes,
+                  bp.byte_planes_plain, 20, 20)
+    chunk_cases["byte_planes"] = (((bp.BYTES_SEEDS,), dict(device=DEVICE)),
+                                  *planes_fns)
+    chunk_cases["byte_planes_crossword"] = (
+        ((bp.CROSSWORD_SEEDS,), dict(device=DEVICE)), *planes_fns)
     timings, timed_args = {}, {}
     for key, ((ops, kw), launcher, wrapper, plain, reps,
               plain_reps) in chunk_cases.items():
@@ -1081,6 +1271,10 @@ def main():
         shape = ("per call, K=32" if key == "counts_below_tile" else
                  f"per {CHUNK} inputs" if key.startswith(("histogram",
                                                           "flatten"))
+                 else f"per {cal.TOY_TILES} tiles x 12 passes"
+                 if key.startswith("op_toy")
+                 else f"per call, {len(ops[0])} seeds"
+                 if key.startswith("byte_planes")
                  else f"per 2^24-path chunk x {kw['n_periods']} months"
                  if "n_periods" in kw else "per 2^24-path chunk")
         say(6, f"[{card}] {key}: kernel {ms!r} ms, wrapper {wrapper_ms!r} "
@@ -1103,6 +1297,15 @@ def main():
            f"{timings['histogram_index']['library_ms']!r} ms, copy_ "
            f"{timings['flatten_tile']['library_ms']!r} ms per {CHUNK} "
            "inputs")
+    # 6c. the production CLT again, after the probe instances ran: within
+    # CLT_TIME_REL of its phase-6 time
+    launch, _ = clt.clt_launcher(*timed_args["clt"][0], **timed_args["clt"][1])
+    again = events_ms(lambda _: launch(), 5, 3)
+    drift = again / timings["clt"]["ms"] - 1.0
+    check(abs(drift) <= CLT_TIME_REL,
+          f"production CLT {again} ms vs {timings['clt']['ms']} ms earlier")
+    say("6c", f"[{card}] production CLT again: {again!r} ms a chunk vs "
+              f"{timings['clt']['ms']!r} ms in phase 6 ({drift:+.4f})")
     from stock_market_monte_carlo_torch.bench import headline
 
     report = headline.grid_overhead_report()
@@ -1132,6 +1335,51 @@ def main():
               f"{label}: {report}")
         say("6b", f"[{card}] {label}: launches "
                   f"{ {k: counts[k] for k in on_path} }; {json.dumps(report)}")
+
+    # 6d. the probes' five reports on the card, each counted on its own:
+    # the toys at 4096 tiles (with the calibration pair's int32 rate), the
+    # ablation and the groupings at 2^24 x 360, the byte planes of both
+    # experiments' seeds; each entry's launches are its report's
+    toy_keys = tuple(f"op_toy_{op}" for op in cal.TOY_OPS)
+    ablate_keys = tuple(f"clt_probe_{a}" for a in clt.ABLATIONS)
+    ts_keys = tuple(f"clt_probe_ts{t}" for t in clt.GROUPINGS[1:])
+    for label, report_fn, on_path, entries in (
+            ("clt_toys_report", probes.clt_toys_report, toy_keys + ("calib",),
+             {k: k for k in toy_keys}),
+            ("clt_ablation_report", probes.clt_ablation_report, ablate_keys,
+             {k: k for k in ablate_keys}),
+            ("clt_grouping_report", probes.clt_grouping_report,
+             ("clt_probe_base",) + ts_keys, {k: k for k in ts_keys}),
+            ("byte_planes_report", probes.byte_planes_report,
+             ("byte_planes",), {"byte_planes": "byte_planes"}),
+            ("crossword_report", probes.crossword_report, ("byte_planes",),
+             {"byte_planes_crossword": "byte_planes"})):
+        ce.reset_launch_counts()
+        report = report_fn()
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        check(all(counts[k] > 0 for k in on_path)
+              and all(v == 0 for k, v in counts.items() if k not in on_path),
+              f"{label}: launches {counts}")
+        for entry, counter in entries.items():
+            launches[entry] = counts[counter]
+        say("6d", f"[{card}] {label}: launches "
+                  f"{ {k: counts[k] for k in on_path} }; {json.dumps(report)}")
+        if label == "clt_toys_report":
+            check(all(math.isfinite(v) and v > 0 for v in (
+                report["chain_floor_ms"], report["clt_ms_per_chunk"],
+                report["hash_ms_per_chunk"])), f"{label}: {report}")
+        elif label == "clt_ablation_report":
+            check(report["variants"]["nohist"]["hist_mass"] == 0
+                  and report["variants"]["base"]["hist_mass"] == CHUNK,
+                  f"{label}: {report}")
+        elif label == "clt_grouping_report":
+            check(all(report["identical_to_ts0"].values())
+                  and report["power_sums_max_rel_diff"] <= 1e-12,
+                  f"{label}: {report}")
+        elif label == "byte_planes_report":
+            check(all(abs(m - 127.5) <= BYTE_MEAN_TOL
+                      for m in report["byte_means"]), f"{label}: {report}")
 
     # 7. the headline benchmark at 100M x 360, in process, counted on its
     # own: it runs the law, historical and Gaussian month loops and the

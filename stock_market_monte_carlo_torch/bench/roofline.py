@@ -48,6 +48,17 @@ _U23 = 4                      # shift, convert, add, scale
 # test and its select)
 _HIST_OPS = {"histogram_index": 2, "histogram_clip_cast": 5,
              "histogram": 14}
+# an element-pass of each op-class toy: the instructions its chain needs
+# on the card (csrc/calibration.cu's SASS record). mul an FMUL; fma an
+# FMUL and an FADD (-fmad=false); iadd one add (an IADD3 takes two
+# passes' adds, at 64 lanes a SM-clock: 128 adds, the assumed scalar
+# rate); shf one (a shift-add); cvt the
+# conversion, half a bf16x2 add and half an add; mm half a bf16x2 pack,
+# the affine FMUL and FADD, beside 256 flop on the tensor cores; hash the
+# finalizer's three shifts, three xors and three multiply-adds
+_TOY_OPS = {"mul": 1, "fma": 2, "iadd": 1, "shf": 1, "cvt": 2, "mm": 2.5,
+            "hash": 9}
+_TOY_ELEMS = 4096 * 128        # a toy tile
 
 
 def _io_bytes(ops, kw, rows_per_block, blocks_per_sm):
@@ -96,6 +107,21 @@ def work(name, ops, kw):
         scalar = (kw["n_paths"] * months
                   * cal.calib_sass_instructions()[ops[0]])
         return dict(bytes=kw["n_paths"] * 4, scalar_ops=scalar,
+                    tensor_flop=0.0)
+    if name.startswith("op_toy"):
+        op = ops[0]
+        elem_passes = kw["n_tiles"] * _TOY_ELEMS * cal.TOY_PASSES
+        return dict(bytes=kw["n_tiles"] * cal.TOY_OUT_ROWS * 128 * 4
+                    + (128 * 128 * 2 if op == "mm" else 0),
+                    scalar_ops=float(elem_passes * _TOY_OPS[op]),
+                    tensor_flop=elem_passes * 256.0 if op == "mm" else 0.0)
+    if name.startswith("byte_planes"):
+        # per word: the word, four shifts, masks and converts; per seed its
+        # key; the planes written once
+        n = len(ops[0])
+        words = n * 1024 * 128
+        return dict(bytes=words * 16 + n * 4,
+                    scalar_ops=float(words * (_WORD + 12) + n * (_HASH + 2)),
                     tensor_flop=0.0)
     if name.startswith("counts_below_tile"):
         tl, thr = ops
@@ -171,20 +197,31 @@ def work(name, ops, kw):
     elif name.startswith("clt"):
         nblocks = ops[1].shape[0]
         k = clt.CLT_K
-        # per block: k words, each shifted, converted and rounded to bf16;
-        # the affine step; then the product over blocks (plain) or the
-        # prefix step per column (gk, exp, excl*g*(1-k), add, max, log,
-        # add) and the carry (prefix)
-        per_block = k * (_WORD + 3) + 2 * k
-        if kw["variant"] == "prefix":
+        # per block: k words, each shifted, converted and rounded to bf16
+        # (nomm: scaled by 2^-9); the affine step; then the product over
+        # blocks (plain) or the prefix step per column (gk, exp,
+        # excl*g*(1-k), add, max, log, add) and the carry (prefix). The
+        # probes (kw["ablate"]) take out what they remove: nodraw draws the
+        # words of one block, nohist the binning, nologexp the logs and the
+        # exp (a sum and two scales left), nomm the product
+        ablate = kw.get("ablate", "base")
+        draw = k * (_WORD + 3)
+        per_block = 2 * k
+        if kw.get("variant", "plain") == "prefix":
             per_block += 9 * k + 6
             finish = 1
         else:
             per_block += k
-            finish = 2 * k + 2
-        scalar = valid * (nblocks * per_block + finish + _EPILOGUE)
-        tensor_flop = valid * nblocks * 2.0 * k * k
+            finish = k + 2 if ablate == "nologexp" else 2 * k + 2
+        epilogue = _EPILOGUE - 9 if ablate == "nohist" else _EPILOGUE
+        draws = 1 if ablate == "nodraw" else nblocks
+        scalar = valid * (draws * draw + nblocks * per_block + finish
+                          + epilogue)
+        tensor_flop = (0.0 if ablate == "nomm"
+                       else valid * nblocks * 2.0 * k * k)
         nbytes = _io_bytes(ops, kw, 64, 2)
+        if ablate == "nohist":
+            nbytes -= kw["hb"] * 4
     else:
         raise ValueError(name)
     return dict(bytes=nbytes, scalar_ops=scalar, tensor_flop=tensor_flop)

@@ -45,6 +45,25 @@
 // - Built with -fmad=false: the affine step, the prefix and the moments
 //   round as the plain version does; only the product's accumulation order
 //   differs from it (tensor-core vs. torch.matmul), hence the relative bars.
+//
+// Probe instances (smmc_clt_probe, the plain variant only; smmc_clt never
+// instantiates them, so its kernels do not move) port two experiments:
+// - experiments/exp_clt_ablate.py:45 make_kernel (pl.pallas_call at :146):
+//   ABLATE removes one part of the kernel. kNoHist: no histogram (the
+//   caller's zeros stay); kNoLogExp: V = (v0 * sum_c prod_c) * 2^-7 in
+//   place of v0 * exp(sum_c log prod_c); kNoDraw: one draw, key 0, feeds
+//   all three blocks (packed to A fragments once before the block loop and
+//   kept in 32 registers, so no block hashes, shifts or rounds, and every
+//   block keeps the product, with no test in the k-steps); kNoMM: no product, zraw = float(count) * 2^-9, hashed at the
+//   accumulator positions of a thread (rows gid and gid+8, columns
+//   nt*8 + 2*tig + (e&1)) instead of its A-fragment positions. kBase
+//   removes nothing: the production arithmetic in a probe instance.
+// - experiments/exp_clt_ts2.py:41 kernel_ts2 (:112): tiles_per_block TS.
+//   TS = 0 strides the blocks over 64-path groups as smmc_clt does; TS >= 1
+//   gives block b the groups of stream tiles [b*TS, b*TS + TS) in order,
+//   with one histogram flush and one partial row a block. Streams are per
+//   tile, so finals, histogram, counts, min and max do not depend on TS;
+//   the float64 power sums group the paths by block.
 #include <cuda_bf16.h>
 
 #include "smmc_common.cuh"
@@ -63,6 +82,9 @@ constexpr int kStride = kK + 1;         // padded row of the shared tile
 constexpr int kQFrags = kKSteps * kNTiles * 32;  // B fragments (uint2)
 
 enum Variant { kPlain = 0, kKeepFold = 1, kPrefix = 2 };
+// kNone: the production kernel (smmc_clt); the rest: probe instances
+enum Ablate { kNone = 0, kBase = 1, kNoHist = 2, kNoLogExp = 3, kNoDraw = 4,
+              kNoMM = 5 };
 
 struct Args {
   const unsigned short* q;  // (128, 128) bf16 bits, [month in][column out]
@@ -77,6 +99,7 @@ struct Args {
   float* finals;            // (valid,) or null
   double* partials;         // (gridDim.x, 8)
   int* hist;                // (hb,) or null
+  int tiles_per_block;      // probe instances only: 0 strides, >= 1 groups
 };
 
 // bf16 bits of the 16-bit count of the word at `pos` of the draw keyed h
@@ -86,43 +109,16 @@ __device__ __forceinline__ uint32_t count_bf16(uint32_t h, uint32_t pos) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(c));
 }
 
-__device__ __forceinline__ uint32_t pack2(uint32_t lo, uint32_t hi) {
-  return lo | (hi << 16);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_16x8x16(float (&d)[4],
-                                            const uint32_t (&a)[4],
-                                            uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// Fragment layouts of m16n8k16 (PTX ISA), lane = 4*gid + tig:
-//   A: reg0 (row gid,   cols 2tig, 2tig+1)   reg1 (row gid+8, same cols)
-//      reg2 (row gid,   cols 2tig+8, +9)     reg3 (row gid+8, same cols)
-//   B: reg0 (k 2tig, 2tig+1; n gid)          reg1 (k 2tig+8, +9; n gid)
-//   C: c0,c1 (row gid, cols 2tig, 2tig+1)    c2,c3 (row gid+8, same cols)
-template <int VARIANT>
+// Fragment layouts: smmc_common.cuh (mma_16x8x16).
+template <int VARIANT, int ABLATE>
 __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* s_q = reinterpret_cast<uint2*>(smem);
   float* s_tile = reinterpret_cast<float*>(s_q + kQFrags);
   int* s_hist = reinterpret_cast<int*>(s_tile + kRows * kStride);
-  const bool with_hist = g.hist != nullptr;
+  const bool with_hist = g.hist != nullptr && ABLATE != kNoHist;
 
-  for (int i = threadIdx.x; i < kQFrags; i += blockDim.x) {
-    const int ln = i & 31;
-    const int nt = (i >> 5) % kNTiles;
-    const int ks = (i >> 5) / kNTiles;
-    const int n = nt * 8 + (ln >> 2);
-    const int k = ks * 16 + (ln & 3) * 2;
-    s_q[i] = make_uint2(pack2(g.q[k * kK + n], g.q[(k + 1) * kK + n]),
-                        pack2(g.q[(k + 8) * kK + n], g.q[(k + 9) * kK + n]));
-  }
+  if (ABLATE != kNoMM) stage_mix_frags(g.q, s_q);
   if (with_hist)
     for (int i = threadIdx.x; i < g.hb; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
@@ -134,7 +130,15 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   const bool row_thread = threadIdx.x < kRows;     // finishes row threadIdx.x
   Stats st;
   const int n_groups = (g.valid + kRows - 1) / kRows;
-  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+  int grp_begin = blockIdx.x, grp_end = n_groups, grp_step = gridDim.x;
+  if (ABLATE != kNone && g.tiles_per_block > 0) {
+    const int span = g.tiles_per_block * (int)(g.p_tile / kRows);
+    grp_begin = blockIdx.x * span;
+    grp_end = min(n_groups, grp_begin + span);
+    grp_step = 1;
+  }
+  uint32_t a_keep[kKSteps][4];  // kNoDraw: the one draw's A fragments
+  for (int grp = grp_begin; grp < grp_end; grp += grp_step) {
     // kRows divides p_tile: the group lies inside one stream tile
     const uint32_t row0 = (uint32_t)grp * kRows;
     const uint32_t seed = tile_seed(g.seed_base, g.tile0 + row0 / g.p_tile);
@@ -146,6 +150,22 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) prod[nt][e] = 1.0f;
     float carry = 1.0f, wsum = 0.0f;
+    if (ABLATE == kNoDraw) {
+      // the one draw (key 0), packed once for all blocks
+      const uint32_t h0 = tile_seed(seed, 0u);
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint32_t m = ks * 16 + tig * 2;
+        a_keep[ks][0] = pack2(count_bf16(h0, pos_lo + m),
+                              count_bf16(h0, pos_lo + m + 1));
+        a_keep[ks][1] = pack2(count_bf16(h0, pos_hi + m),
+                              count_bf16(h0, pos_hi + m + 1));
+        a_keep[ks][2] = pack2(count_bf16(h0, pos_lo + m + 8),
+                              count_bf16(h0, pos_lo + m + 9));
+        a_keep[ks][3] = pack2(count_bf16(h0, pos_hi + m + 8),
+                              count_bf16(h0, pos_hi + m + 9));
+      }
+    }
 
     for (int j = 0; j < g.nblocks; ++j) {
       const uint32_t h = tile_seed(seed, (uint32_t)j);
@@ -154,19 +174,38 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
       for (int nt = 0; nt < kNTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint32_t m = ks * 16 + tig * 2;
-        uint32_t a[4];
-        a[0] = pack2(count_bf16(h, pos_lo + m), count_bf16(h, pos_lo + m + 1));
-        a[1] = pack2(count_bf16(h, pos_hi + m), count_bf16(h, pos_hi + m + 1));
-        a[2] = pack2(count_bf16(h, pos_lo + m + 8),
-                     count_bf16(h, pos_lo + m + 9));
-        a[3] = pack2(count_bf16(h, pos_hi + m + 8),
-                     count_bf16(h, pos_hi + m + 9));
+      if (ABLATE == kNoMM) {
+        // the counts at the accumulator positions, unmixed
 #pragma unroll
         for (int nt = 0; nt < kNTiles; ++nt)
-          mma_16x8x16(acc[nt], a, s_q[(ks * kNTiles + nt) * 32 + lane]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t pos = (e >> 1 ? pos_hi : pos_lo) + nt * 8 +
+                                 tig * 2 + (e & 1);
+            acc[nt][e] = (float)(arith_word(h, pos) >> 16) * F(0.001953125);
+          }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kKSteps; ++ks) {
+          const uint32_t m = ks * 16 + tig * 2;
+          uint32_t a[4];
+          if (ABLATE == kNoDraw) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a[r] = a_keep[ks][r];
+          } else {
+            a[0] = pack2(count_bf16(h, pos_lo + m),
+                         count_bf16(h, pos_lo + m + 1));
+            a[1] = pack2(count_bf16(h, pos_hi + m),
+                         count_bf16(h, pos_hi + m + 1));
+            a[2] = pack2(count_bf16(h, pos_lo + m + 8),
+                         count_bf16(h, pos_lo + m + 9));
+            a[3] = pack2(count_bf16(h, pos_hi + m + 8),
+                         count_bf16(h, pos_hi + m + 9));
+          }
+#pragma unroll
+          for (int nt = 0; nt < kNTiles; ++nt)
+            mma_16x8x16(acc[nt], a, s_q[(ks * kNTiles + nt) * 32 + lane]);
+        }
       }
       const float* ar = g.arow + j * kK;
       const float* cr = g.cs + j * kK;
@@ -217,8 +256,13 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
       if (row_thread) {
         const float* row = s_tile + threadIdx.x * kStride;
         float s = 0.0f;
-        for (int c = 0; c < kK; ++c) s = s + logf(row[c]);
-        total = g.v0 * expf(s);
+        if (ABLATE == kNoLogExp) {
+          for (int c = 0; c < kK; ++c) s = s + row[c];
+          total = (g.v0 * s) * F(0.0078125);
+        } else {
+          for (int c = 0; c < kK; ++c) s = s + logf(row[c]);
+          total = g.v0 * expf(s);
+        }
       }
     }
     const int p = (int)row0 + threadIdx.x;
@@ -237,16 +281,16 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   }
 }
 
-template <int VARIANT>
+template <int VARIANT, int ABLATE = kNone>
 cudaError_t launch(const Args& g, int n_blocks, cudaStream_t stream) {
   const size_t smem = kQFrags * sizeof(uint2) +
                       kRows * kStride * sizeof(float) +
                       (g.hist ? g.hb * sizeof(int) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      clt_kernel<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      clt_kernel<VARIANT, ABLATE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  clt_kernel<VARIANT><<<n_blocks, kThreads, smem, stream>>>(g);
+  clt_kernel<VARIANT, ABLATE><<<n_blocks, kThreads, smem, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -268,12 +312,47 @@ extern "C" int smmc_clt(int variant, const unsigned short* q,
   if (variant == kPrefix && keep == nullptr) return cudaErrorInvalidValue;
   const Args g{q, arow, cs, keep, nblocks, (uint32_t)p_tile, seed_base,
                tile0, valid, v0, inv0, target, shift, log_lo, inv_w, hb,
-               finals, partials, hist};
+               finals, partials, hist, 0};
   auto s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kPlain: return launch<kPlain>(g, n_blocks, s);
     case kKeepFold: return launch<kKeepFold>(g, n_blocks, s);
     case kPrefix: return launch<kPrefix>(g, n_blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One chunk of a probe instance of the plain variant: ablate 1 base, 2
+// nohist, 3 nologexp, 4 nodraw, 5 nomm; tiles_per_block 0 strides the
+// n_blocks blocks over the 64-path groups, >= 1 gives each block that many
+// stream tiles (n_blocks must cover ceil(valid / p_tile) / tiles_per_block
+// blocks). Arguments otherwise as smmc_clt's.
+extern "C" int smmc_clt_probe(int ablate, int tiles_per_block,
+                              const unsigned short* q, const float* arow,
+                              const float* cs, int nblocks, int p_tile,
+                              unsigned int seed_base, unsigned int tile0,
+                              int valid, float v0, float inv0, float target,
+                              float shift, float log_lo, float inv_w, int hb,
+                              float* finals, double* partials, int* hist,
+                              int n_blocks, void* stream) {
+  if (nblocks < 1 || p_tile < kRows || p_tile % kRows != 0 ||
+      tiles_per_block < 0)
+    return cudaErrorInvalidValue;
+  if (tiles_per_block > 0) {
+    const long long tiles = ((long long)valid + p_tile - 1) / p_tile;
+    if ((long long)n_blocks * tiles_per_block < tiles)
+      return cudaErrorInvalidValue;
+  }
+  const Args g{q, arow, cs, nullptr, nblocks, (uint32_t)p_tile, seed_base,
+               tile0, valid, v0, inv0, target, shift, log_lo, inv_w, hb,
+               finals, partials, hist, tiles_per_block};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (ablate) {
+    case kBase: return launch<kPlain, kBase>(g, n_blocks, s);
+    case kNoHist: return launch<kPlain, kNoHist>(g, n_blocks, s);
+    case kNoLogExp: return launch<kPlain, kNoLogExp>(g, n_blocks, s);
+    case kNoDraw: return launch<kPlain, kNoDraw>(g, n_blocks, s);
+    case kNoMM: return launch<kPlain, kNoMM>(g, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

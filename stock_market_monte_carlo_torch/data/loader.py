@@ -2,9 +2,9 @@
 
 Same contract as ``stock_market_monte_carlo_tpu.data.loader``: read the
 ``returns`` column (percent) of a ``Date,returns`` CSV, skipping empty and
-non-numeric rows. The vendored synthetic table is read in place, from the
-JAX package's data directory, by path (importing that package would import
-jax).
+non-numeric rows. The vendored tables (the synthetic S&P 500 stand-in and
+the adversarial fixture) are the port's own copies, in this directory,
+byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,9 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_DATA_DIR = os.path.join(_REPO_DIR, "stock_market_monte_carlo_tpu", "data")
+_DATA_DIR = os.path.dirname(os.path.abspath(__file__))
 SYNTHETIC_CSV = os.path.join(_DATA_DIR, "sp500_monthly_returns_synthetic.csv")
 # Adversarial fixture: heavy tails, n=97 (below one 128-lane row)
 HOSTILE_CSV = os.path.join(_DATA_DIR, "hostile_monthly_returns.csv")

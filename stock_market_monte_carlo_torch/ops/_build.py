@@ -31,7 +31,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("month_loop.cu", "terminal_law.cu", "clt.cu", "bands.cu",
-           "calibration.cu", "histogram.cu")
+           "calibration.cu", "histogram.cu", "byte_planes.cu")
 HEADERS = ("smmc_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -48,11 +48,15 @@ _ARGTYPES = {
                  _vp, _vp, _vp, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,
                  _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
+    "smmc_clt_probe": (_i, _i, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f,
+                       _f, _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_bands": (_i, _i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _vp, _i, _u,
                    _u, _i, _f, _i, _f, _f, _vp, _i, _vp),
     "smmc_counts_below_tile": (_vp, _vp, _i, _vp, _vp),
     "smmc_grid_overhead": (_i, _u, _u, _i, _i, _vp, _vp, _vp),
     "smmc_calib": (_i, _u, _i, _i, _vp, _vp),
+    "smmc_op_toy": (_i, _f, _f, _vp, _i, _vp, _vp),
+    "smmc_byte_planes": (_vp, _i, _vp, _vp),
     "smmc_histogram": (_i, _vp, _i, _i, _f, _f, _f, _vp, _vp),
     "smmc_flatten_tile": (_vp, _vp, _i, _vp),
 }

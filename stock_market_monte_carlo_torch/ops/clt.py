@@ -34,6 +34,19 @@ Three variants (``VARIANTS``), as the engine routes them:
 ``clt_chunk`` takes its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. Launches count under
 ``cuda_engine.LAUNCHES["clt"]``.
+
+``clt_probe_chunk`` runs the plain variant through the kernel's probe
+instances (``smmc_clt_probe``), the counterparts of two experiments:
+``experiments/exp_clt_ablate.py`` (``ABLATIONS``: ``base`` removes
+nothing; ``nohist`` the histogram; ``nologexp`` finals = (v0 * sum_c
+prod_c) / 128 in place of v0 * exp(sum_c log prod_c); ``nodraw`` draws key 0
+once for all blocks; ``nomm`` takes zraw = float(count) * 2^-9 with no
+product) and ``experiments/exp_clt_ts2.py`` (``tiles_per_block``: 0 strides
+the blocks as ``clt_chunk`` does, TS of ``GROUPINGS`` >= 1 gives a block
+TS stream tiles). Its stats are the experiments' raw partial sums: powers
+of the finals themselves (no /v0, no shift), min and max of the finals, in
+float64. Launches count under ``LAUNCHES["clt_probe_<ablate>"]`` at TS = 0
+and under ``LAUNCHES["clt_probe_ts<TS>"]`` otherwise.
 """
 
 from __future__ import annotations
@@ -53,6 +66,10 @@ CLT_P_STRATEGY = 2048   # paths per tile with the prefix strategy
 CLT_K = 128             # months per block = mixing dimension
 CLT_STREAM_XOR = 0x11C7  # the CLT stream family
 VARIANTS = {"plain": 0, "keep_fold": 1, "prefix": 2}
+ABLATIONS = {"base": 1, "nohist": 2, "nologexp": 3, "nodraw": 4, "nomm": 5}
+# exp_clt_ts2.py's TS = 2 and its neighbours; 0 is clt_chunk's geometry
+GROUPINGS = (0, 1, 2, 4)
+_NOMM_SCALE = 2.0 ** -9    # zraw of the nomm ablation: count * 2^-9
 
 # sha256 of the vendored _clt_q128.npy bytes: the matrix defines the stream
 _CLT_Q128_SHA256 = (
@@ -133,20 +150,26 @@ def keep_rows(keep, n_periods):
     return rows.reshape(nblocks, CLT_K)
 
 
-def _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile):
+def _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile,
+                   ablate="base"):
     """Growth factors (len(rows), 128) of each block j, in order, for the
-    chunk-local paths ``rows``."""
+    chunk-local paths ``rows`` (``ablate`` "nodraw": key 0 for every
+    block; "nomm": zraw = count * 2^-9, no product)."""
     dev = qf.device
     seeds = ce._tile_seed_i32(int(seed_base) & ce.MASK32,
                               (int(tile0) + rows // p_tile) & ce.MASK32)
     pos = (rows % p_tile)[:, None] * CLT_K + torch.arange(CLT_K, device=dev)
     pos_term = ce._mul32(pos, ce._GOLDEN)
     for j in range(arow.shape[0]):
-        h = ce._tile_seed_i32(seeds, j)[:, None]
+        h = ce._tile_seed_i32(seeds, 0 if ablate == "nodraw" else j)[:, None]
         w = ce._finalize((h + pos_term) & ce.MASK32)
-        cnt = (w >> 16).to(torch.float32).to(torch.bfloat16).to(
-            torch.float32)
-        yield arow[j] + (cnt @ qf) * cs[j]
+        if ablate == "nomm":
+            zraw = (w >> 16).to(torch.float32) * _NOMM_SCALE
+        else:
+            cnt = (w >> 16).to(torch.float32).to(torch.bfloat16).to(
+                torch.float32)
+            zraw = cnt @ qf
+        yield arow[j] + zraw * cs[j]
 
 
 def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
@@ -157,6 +180,18 @@ def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
     float32; TF32 is switched off (``torch.backends.cuda.matmul.
     allow_tf32 = False``) so that on the card too it runs in full float32.
     Row sums and the prefix run column by column, in the kernel's order."""
+    finals, wsum = _finals_plain(q, arow, cs, keep, variant=variant,
+                                 seed_base=seed_base, tile0=tile0,
+                                 n_paths=n_paths, v0=v0)
+    stats, hist = ce._epilogue(finals, wsum, valid, v0, target, shift, lo,
+                               log_lo, inv_w, hb, with_hist)
+    return stats, hist, (finals[:valid] if keep_finals else None)
+
+
+def _finals_plain(q, arow, cs, keep, *, variant, seed_base, tile0, n_paths,
+                  v0, ablate="base"):
+    """(finals, withdrawn-or-None) of ``n_paths`` paths, as
+    ``clt_chunk_plain`` and ``clt_probe_chunk_plain`` compute them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = q.device
     p_tile = tile_paths(variant)
@@ -171,17 +206,19 @@ def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
     for s0 in range(0, n_paths, _SLAB):
         s1 = min(s0 + _SLAB, n_paths)
         rows = torch.arange(s0, s1, device=dev)
-        blocks = _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile)
+        blocks = _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile,
+                                ablate)
         if variant != "prefix":
             prod = torch.ones((rows.numel(), CLT_K), dtype=torch.float32,
                               device=dev)
             for g in blocks:
                 prod = prod * g
-            logs = torch.log(prod)
-            acc = torch.zeros_like(logs[:, 0])
+            terms = prod if ablate == "nologexp" else torch.log(prod)
+            acc = torch.zeros_like(terms[:, 0])
             for c in range(CLT_K):
-                acc = acc + logs[:, c]
-            finals[s0:s1] = v0f * torch.exp(acc)
+                acc = acc + terms[:, c]
+            finals[s0:s1] = ((v0f * acc) * (1.0 / CLT_K)
+                             if ablate == "nologexp" else v0f * torch.exp(acc))
             continue
         carry = torch.ones_like(rows, dtype=torch.float32)
         w = torch.zeros_like(carry)
@@ -198,9 +235,7 @@ def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
             carry = carry * (excl * gk[:, CLT_K - 1])
         wsum[s0:s1] = w
         finals[s0:s1] = v0f * carry
-    stats, hist = ce._epilogue(finals, wsum, valid, v0, target, shift, lo,
-                               log_lo, inv_w, hb, with_hist)
-    return stats, hist, (finals[:valid] if keep_finals else None)
+    return finals, wsum
 
 
 def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
@@ -245,3 +280,79 @@ def clt_chunk(q, arow, cs, keep, **kw):
     if q.device.type == "cpu":
         return clt_chunk_plain(q, arow, cs, keep, **kw)
     return ce._launch_counted("clt", clt_launcher(q, arow, cs, keep, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Probe instances: the ablation and the tile grouping.
+# ---------------------------------------------------------------------------
+
+
+def _check_probe(ablate, tiles_per_block):
+    if ablate not in ABLATIONS:
+        raise ValueError(f"unknown ablation {ablate!r}")
+    if tiles_per_block not in GROUPINGS:
+        raise ValueError(f"tiles_per_block must be one of {GROUPINGS}, got "
+                         f"{tiles_per_block}")
+
+
+def clt_probe_chunk_plain(q, arow, cs, *, ablate, tiles_per_block=0,
+                          seed_base, tile0, valid, n_paths, v0, target, lo,
+                          log_lo, inv_w, hb, with_hist, keep_finals):
+    """Plain PyTorch version of the probe instances: the plain variant
+    with ``ablate`` applied (``nohist`` leaves the histogram at zeros) and
+    the raw stats, float64. ``tiles_per_block`` changes no value here; on
+    the card it regroups the float64 power sums."""
+    _check_probe(ablate, tiles_per_block)
+    finals, _ = _finals_plain(q, arow, cs, None, variant="plain",
+                              seed_base=seed_base, tile0=tile0,
+                              n_paths=n_paths, v0=v0, ablate=ablate)
+    stats, hist = ce._epilogue(finals, None, valid, 1.0, target, 0.0, lo,
+                               log_lo, inv_w, hb,
+                               with_hist and ablate != "nohist",
+                               stats_dtype=torch.float64)
+    return stats, hist, (finals[:valid] if keep_finals else None)
+
+
+def clt_probe_launcher(q, arow, cs, *, ablate, tiles_per_block=0, seed_base,
+                       tile0, valid, n_paths, v0, target, lo, log_lo, inv_w,
+                       hb, with_hist, keep_finals):
+    """Checked inputs of one probe chunk on a CUDA device -> ``(launch,
+    outputs)``, as ``clt_launcher``; inv0 = 1 and shift = 0 give the raw
+    sums. The histogram must bin in place (``in_kernel_hist``)."""
+    _check_probe(ablate, tiles_per_block)
+    dev = q.device
+    ce._check_chunk(dev, "CLT probe", valid, n_paths)
+    ce._check(q, "q", dev, CLT_K * CLT_K, torch.bfloat16)
+    nblocks = arow.shape[0] if arow.dim() == 2 else -1
+    ce._check(arow, "arow", dev, nblocks * CLT_K)
+    ce._check(cs, "cs", dev, nblocks * CLT_K)
+    if with_hist and not ce.in_kernel_hist(hb, with_hist):
+        raise ValueError(f"the probe bins in place: {hb} cells is not a "
+                         f"multiple of 64 up to {ce.KERNEL_HIST_CELLS}")
+    n_blocks = None
+    if tiles_per_block:
+        n_blocks = -(-(-(-valid // CLT_P)) // tiles_per_block)
+    args = (ABLATIONS[ablate], tiles_per_block, ce._ptr(q), ce._ptr(arow),
+            ce._ptr(cs), nblocks, CLT_P, int(seed_base) & ce.MASK32,
+            int(tile0) & ce.MASK32, valid, ce._f32(v0), 1.0,
+            ce._f32(target), 0.0, ce._f32(log_lo), ce._f32(inv_w), hb)
+    return ce._prepare("smmc_clt_probe", args, dev, valid, lo=lo,
+                       log_lo=log_lo, inv_w=inv_w, hb=hb,
+                       with_hist=with_hist, keep_finals=keep_finals,
+                       rows_per_block=_ROWS, blocks_per_sm=_BLOCKS_PER_SM,
+                       n_blocks=n_blocks, stats_dtype=torch.float64)
+
+
+def clt_probe_chunk(q, arow, cs, **kw):
+    """One chunk of a probe instance of the plain variant (``ablate``, one
+    of ``ABLATIONS``; ``tiles_per_block``, one of ``GROUPINGS``): (stats
+    float64, hist, finals-or-None) on ``q.device``, keywords as
+    ``clt_chunk``'s without ``variant`` and ``shift``. Counts its launch
+    under ``clt_probe_<ablate>`` at 0 tiles a block, else under
+    ``clt_probe_ts<tiles_per_block>``."""
+    if q.device.type == "cpu":
+        return clt_probe_chunk_plain(q, arow, cs, **kw)
+    ts = kw.get("tiles_per_block", 0)
+    return ce._launch_counted(
+        f"clt_probe_ts{ts}" if ts else f"clt_probe_{kw['ablate']}",
+        clt_probe_launcher(q, arow, cs, **kw))

@@ -19,7 +19,10 @@ the month loop's draws (``MONTH_LOOP_COUNTERS``), ``law``, ``clt``
 (``ops/clt.py``), ``bands_hist``, ``bands_cdf`` and ``counts_below_tile``
 (``ops/bands.py``), ``grid_overhead`` and ``calib``
 (``ops/calibration.py``), ``histogram``, ``histogram_index``,
-``histogram_clip_cast`` and ``flatten_tile`` (``ops/histogram.py``).
+``histogram_clip_cast`` and ``flatten_tile`` (``ops/histogram.py``),
+``op_toy_<op>`` (``ops/calibration.py``), ``clt_probe_<ablate>`` and
+``clt_probe_ts<TS>`` (``ops/clt.py``) and ``byte_planes``
+(``ops/byte_planes.py``).
 
 The default random stream is the JAX package's arithmetic counter stream
 (``SMMC_PRNG_IMPL=arith``): 32-bit integer hashing keyed by (tile seed,
@@ -97,7 +100,13 @@ _SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
 LAUNCHES = dict.fromkeys(
     [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
      "bands_cdf", "counts_below_tile", "grid_overhead", "calib",
-     "histogram", "histogram_index", "histogram_clip_cast", "flatten_tile"],
+     "histogram", "histogram_index", "histogram_clip_cast", "flatten_tile",
+     *(f"op_toy_{op}" for op in ("mul", "fma", "iadd", "shf", "cvt", "mm",
+                                 "hash")),
+     *(f"clt_probe_{a}" for a in ("base", "nohist", "nologexp", "nodraw",
+                                  "nomm")),
+     *(f"clt_probe_ts{t}" for t in (1, 2, 4)),
+     "byte_planes"],
     0)
 
 
@@ -318,10 +327,11 @@ def draw_operands(model, device, n_periods=None, sobol_shift=None):
 
 
 def _epilogue(finals, wsum, valid, v0, target, shift, lo, log_lo, inv_w, hb,
-              with_hist):
+              with_hist, stats_dtype=torch.float32):
     """Stats row and histogram of one chunk's finals (first ``valid``
     paths count), the histogram binned as the chunk's route bins it
-    (``in_kernel_hist``)."""
+    (``in_kernel_hist``). The stats row is float32 unless ``stats_dtype``
+    keeps the float64 sums."""
     from stock_market_monte_carlo_torch.ops import histogram
 
     inv0 = _f32(np.float32(1.0) / np.float32(v0))
@@ -342,7 +352,7 @@ def _epilogue(finals, wsum, valid, v0, target, shift, lo, log_lo, inv_w, hb,
         torch.where(mask, tot_s, -inf).max().double(),
         (mask & (finals < _f32(target))).sum().double(),
         wd,
-    ]).to(torch.float32)
+    ]).to(stats_dtype)
     if in_kernel_hist(hb, with_hist):
         bins = _kernel_bin_indices(finals, mask, _f32(log_lo), _f32(inv_w),
                                    hb)
@@ -564,10 +574,11 @@ def _launch_geometry(sms, valid, rows_per_block, blocks_per_sm):
     return max(1, min(-(-valid // rows_per_block), sms * blocks_per_sm))
 
 
-def _reduce_partials(partials, valid):
-    """Per-block float64 partial rows -> the float32[9] stats row. The
-    path count is filled on the device: a tensor made from a host value
-    would be a copy that waits for the stream."""
+def _reduce_partials(partials, valid, stats_dtype=torch.float32):
+    """Per-block float64 partial rows -> the float32[9] stats row (or
+    float64, with ``stats_dtype``). The path count is filled on the device:
+    a tensor made from a host value would be a copy that waits for the
+    stream."""
     return torch.cat([
         torch.full((1,), float(valid), dtype=torch.float64,
                    device=partials.device),
@@ -575,7 +586,7 @@ def _reduce_partials(partials, valid):
         partials[:, 4].min()[None],
         partials[:, 5].max()[None],
         partials[:, 6:8].sum(0),
-    ]).to(torch.float32)
+    ]).to(stats_dtype)
 
 
 def _raise_on(err, what):
@@ -585,23 +596,26 @@ def _raise_on(err, what):
 
 def _prepare(entry, args, dev, valid, *, lo, log_lo, inv_w, hb, with_hist,
              keep_finals, rows_per_block=_BLOCK,
-             blocks_per_sm=_BLOCKS_PER_SM):
+             blocks_per_sm=_BLOCKS_PER_SM, n_blocks=None,
+             stats_dtype=torch.float32):
     """Allocate one chunk's outputs on ``dev`` and return ``(launch,
     outputs)``: ``launch()`` runs the C entry point ``entry`` of the kernel
     library into them on the current stream (``args`` are its leading
     arguments, before the output pointers); ``outputs()`` reduces the
     per-block partials to the (stats, hist, finals-or-None) contract. The
     grid covers ``valid`` paths at ``rows_per_block`` paths per block, at
-    most ``blocks_per_sm`` blocks per SM (the blocks stride). Where the
-    kernel cannot bin in place (``in_kernel_hist``), it writes the finals
-    and ``outputs()`` counts them with the histogram kernel (counted under
-    ``histogram``)."""
+    most ``blocks_per_sm`` blocks per SM (the blocks stride), unless the
+    caller fixes ``n_blocks``; ``stats_dtype`` as ``_reduce_partials``.
+    Where the kernel cannot bin in place (``in_kernel_hist``), it writes the
+    finals and ``outputs()`` counts them with the histogram kernel (counted
+    under ``histogram``)."""
     from stock_market_monte_carlo_torch.ops import histogram
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     fn = getattr(load_library(), entry)
-    n_blocks = _launch_geometry(_sm_count(dev), valid, rows_per_block,
-                                blocks_per_sm)
+    if n_blocks is None:
+        n_blocks = _launch_geometry(_sm_count(dev), valid, rows_per_block,
+                                    blocks_per_sm)
     binned = in_kernel_hist(hb, with_hist)
     spec_route = with_hist and not binned
     partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
@@ -616,7 +630,7 @@ def _prepare(entry, args, dev, valid, *, lo, log_lo, inv_w, hb, with_hist,
         _raise_on(fn(*args, *tail), entry)
 
     def outputs():
-        stats = _reduce_partials(partials, valid)
+        stats = _reduce_partials(partials, valid, stats_dtype)
         if binned:
             h = hist.to(torch.float32)
         elif spec_route:

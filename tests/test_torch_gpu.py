@@ -19,7 +19,10 @@ device-time block. The histogram kernel's three modes and the tile
 flatten against their plain versions (past shared memory too), the
 engine's large and odd histograms on all three samplers against the CPU,
 the Sobol draws at 1866 months with 64-bit positions, and the counted
-wrappers queueing chunks without a host synchronisation.
+wrappers queueing chunks without a host synchronisation. The experiment
+probes: the op-class toys, the CLT's ablation and tile-grouping instances
+and the counter stream's byte planes against their plain versions, their
+launch counters and the toys' SASS.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -886,3 +889,165 @@ def test_counted_wrappers_do_not_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The experiment probes: op-class toys, CLT ablation and grouping, byte
+# planes
+# ---------------------------------------------------------------------------
+
+# the mm toy against its plain version: relative to a row's largest
+# magnitude (tests/test_torch_clt_probes.py MM_ROW_REL: an accumulation-
+# order ulp on a bf16 rounding edge moves an element by 2^-8)
+MM_ROW_REL = 1e-3
+
+
+@pytest.mark.parametrize("op", ["mul", "fma", "iadd", "shf", "cvt", "mm",
+                                "hash"])
+def test_op_toy_kernel_matches_plain(cuda, op):
+    """The reports' 4096 tiles; bit for bit (fma too: -fmad=false rounds
+    the product and the sum, as torch does), mm within MM_ROW_REL of its
+    row's scale."""
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    n = cal.TOY_TILES
+    got = cal.op_toy_chunk(op, n, device=cuda)
+    want = cal.op_toy_chunk_plain(op, n, device=cuda)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n * 8, 128)
+    if op == "mm":
+        scale = want.abs().amax(dim=1, keepdim=True)
+        assert bool(((got - want).abs() <= MM_ROW_REL * scale).all())
+        assert bool(torch.isfinite(got).all())
+    else:
+        assert torch.equal(got, want)
+
+
+def _probe_operands(cuda):
+    arow, cs = clt.block_consts(np.float32(1.005), np.float32(1.0 / 120.0),
+                                360)
+    return (clt.q_tensor(cuda), torch.as_tensor(arow, device=cuda),
+            torch.as_tensor(cs, device=cuda))
+
+
+_PROBE_KW = dict(seed_base=99, tile0=5, valid=3 * 4096 + 1001,
+                 n_paths=2 * 8192, v0=1000.0, target=6000.0, lo=300.0,
+                 log_lo=float(np.log(300.0)),
+                 inv_w=float(np.float32(4094 / np.log(1e3))), hb=4096,
+                 with_hist=True, keep_finals=True)
+
+
+@pytest.mark.parametrize("ablate", ["base", "nohist", "nologexp", "nodraw",
+                                    "nomm"])
+@pytest.mark.parametrize("tiles_per_block", [0, 2])
+def test_clt_probe_kernel_matches_plain(cuda, ablate, tiles_per_block):
+    """A ragged chunk at tile offset 5: finals within the CLT's kernel bar,
+    counts and histogram but for finals near the target or a cell edge,
+    min and max within the bar, power sums relative."""
+    ops = _probe_operands(cuda)
+    kw = dict(_PROBE_KW, ablate=ablate, tiles_per_block=tiles_per_block)
+    sk, hk, fk = clt.clt_probe_chunk(*ops, **kw)
+    sp, hp, fp = clt.clt_probe_chunk_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    fk, fp = fk.cpu().numpy(), fp.cpu().numpy()
+    np.testing.assert_allclose(fk, fp, rtol=CLT_KERNEL_REL, atol=0)
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    assert sk.dtype == np.float64 and sk[0] == sp[0]
+    near = np.sum(np.abs(fp / 6000.0 - 1.0) <= CLT_KERNEL_REL)
+    assert abs(sk[7] - sp[7]) <= near
+    np.testing.assert_allclose(sk[[5, 6]], sp[[5, 6]], rtol=CLT_KERNEL_REL)
+    np.testing.assert_allclose(sk[1:5], sp[1:5], rtol=1e-5)
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    assert hk.sum() == hp.sum() == (0 if ablate == "nohist" else sk[0])
+    assert np.abs(hk - hp).sum() <= 2 * np.sum(fk != fp)
+
+
+@pytest.mark.parametrize("tiles_per_block", [1, 2, 4])
+def test_clt_probe_groupings_are_bit_identical(cuda, tiles_per_block):
+    """Streams are per tile: finals, histogram, count below, min and max
+    equal at every grouping; the float64 power sums group the paths by
+    block (1e-12). Each grouping counts under its own key."""
+    ops = _probe_operands(cuda)
+    kw = dict(_PROBE_KW, ablate="base", valid=5 * 4096 + 77,
+              n_paths=3 * 8192)
+    ce.reset_launch_counts()
+    s0, h0, f0 = clt.clt_probe_chunk(*ops, tiles_per_block=0, **kw)
+    s1, h1, f1 = clt.clt_probe_chunk(*ops, tiles_per_block=tiles_per_block,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ce.LAUNCHES.items() if v} == {
+        "clt_probe_base": 1, f"clt_probe_ts{tiles_per_block}": 1}
+    assert torch.equal(f0, f1) and torch.equal(h0, h1)
+    assert torch.equal(s0[[0, 5, 6, 7]], s1[[0, 5, 6, 7]])
+    rel = ((s1[1:5] - s0[1:5]).abs() / s0[1:5].abs()).max()
+    assert float(rel) <= 1e-12
+
+
+def test_byte_planes_kernel_matches_plain(cuda):
+    """The 8 seeds of exp_prng_bytes.py and a seed past 2^31, bit for bit
+    against the plain version and the counter word itself."""
+    from stock_market_monte_carlo_torch.ops import byte_planes as bp
+
+    seeds = list(bp.BYTES_SEEDS) + [(1 << 31) + 3]
+    got = bp.byte_planes(seeds, device=cuda)
+    want = bp.byte_planes_plain(seeds, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    w = ce._arith_bits((1 << 31) + 3, 0, torch.arange(bp.WORDS,
+                                                      device=cuda))
+    planes = got[-1].reshape(4, -1).long()
+    for b in range(4):
+        assert torch.equal(planes[b], (w >> (8 * b)) & 0xFF)
+
+
+def test_probe_wrappers_check_inputs_and_count_launches(cuda):
+    from stock_market_monte_carlo_torch.ops import byte_planes as bp
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    ops = _probe_operands(cuda)
+    ce.reset_launch_counts()
+    cal.op_toy_chunk_plain("mm", 2, device=cuda)
+    clt.clt_probe_chunk_plain(*ops, ablate="base", **_PROBE_KW)
+    bp.byte_planes_plain([1], device=cuda)
+    assert sum(ce.LAUNCHES.values()) == 0
+    cal.op_toy_chunk("mul", 2, device=cuda)
+    clt.clt_probe_chunk(*ops, ablate="nomm", **_PROBE_KW)
+    bp.byte_planes([1, 2], device=cuda)
+    assert (ce.LAUNCHES["op_toy_mul"], ce.LAUNCHES["clt_probe_nomm"],
+            ce.LAUNCHES["byte_planes"]) == (1, 1, 1)
+    with pytest.raises(ValueError, match="op class"):
+        cal.op_toy_chunk("div", 2, device=cuda)
+    with pytest.raises(ValueError, match="in place"):
+        clt.clt_probe_chunk(*ops, ablate="base", **dict(_PROBE_KW, hb=102))
+    with pytest.raises(ValueError, match="ablation"):
+        clt.clt_probe_chunk(*ops, ablate="nothing", **_PROBE_KW)
+    with pytest.raises(TypeError):
+        clt.clt_probe_chunk(ops[0].float(), *ops[1:], ablate="base",
+                            **_PROBE_KW)
+    assert sum(ce.LAUNCHES.values()) == 3
+
+
+def test_op_toy_sass(cuda):
+    """Each toy instance is found in the built library's SASS; mul issues
+    at least one FMUL an element-pass, fma an FMUL and an FADD, mm its
+    HMMAs (16 n-tiles x 8 k-steps a pass), and the chains are not folded
+    away (a folded chain would cost about 1/12 of an instruction an
+    element-pass). iadd's passes add their own addends on the integer
+    pipe: IADD3, a three-input add, takes two passes' adds at once, so at
+    least one IADD3 for two element-passes and no LEA or IMAD that adds
+    x + 2ci (a few compute addresses)."""
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    sass = cal.op_toy_sass()
+    chains = 12 * 16
+    assert sass["mul"]["opcodes"].get("FMUL", 0) >= chains
+    assert sass["fma"]["opcodes"].get("FADD", 0) >= chains
+    assert sass["fma"]["opcodes"].get("FMUL", 0) >= chains
+    assert sass["mm"]["opcodes"].get("HMMA", 0) == 16 * 8
+    iadd = sass["iadd"]["opcodes"]
+    assert iadd.get("IADD3", 0) >= chains // 2
+    assert iadd.get("LEA", 0) + iadd.get("IMAD", 0) < 16
+    for op, v in sass.items():
+        assert v["per_element_pass"] >= 0.4, op
+    prod = cal.clt_production_sass()
+    assert sorted(prod) == [0, 1, 2] and min(prod.values()) > 100

@@ -54,7 +54,11 @@ def test_bench_modules_leave_jax_out():
     code = ("import sys; "
             "import stock_market_monte_carlo_torch.bench.headline, "
             "stock_market_monte_carlo_torch.bench.roofline, "
-            "stock_market_monte_carlo_torch.ops.calibration; "
+            "stock_market_monte_carlo_torch.bench.probes, "
+            "stock_market_monte_carlo_torch.ops.calibration, "
+            "stock_market_monte_carlo_torch.ops.clt, "
+            "stock_market_monte_carlo_torch.ops.byte_planes, "
+            "stock_market_monte_carlo_torch.data.loader; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith("
             "'stock_market_monte_carlo_tpu')))")

@@ -6,6 +6,8 @@ shifts; the port's plain versions compute in int64 tensors holding uint32.
 Inputs include sign-bit words and values whose products wrap.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,3 +157,20 @@ def test_seed_base_matches_jax(seed):
 
     want = np.asarray(pe._seed_base_i32(jax.random.key(seed)))
     assert port_engine._segment_base(seed, 0) == int(want.view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["sp500_monthly_returns_synthetic.csv",
+                                  "hostile_monthly_returns.csv"])
+def test_port_data_tables_are_byte_copies(name):
+    """The port reads its own copies of the vendored tables, byte for byte
+    the JAX package's, and parses them as the JAX loader does."""
+    from stock_market_monte_carlo_torch.data import loader as port_loader
+
+    port_path = os.path.join(os.path.dirname(port_loader.__file__), name)
+    jax_path = os.path.join(os.path.dirname(SYNTHETIC_CSV), name)
+    assert port_path in (port_loader.SYNTHETIC_CSV, port_loader.HOSTILE_CSV)
+    with open(port_path, "rb") as a, open(jax_path, "rb") as b:
+        assert a.read() == b.read()
+    np.testing.assert_array_equal(
+        port_loader.read_historical_returns(port_path),
+        read_historical_returns(jax_path))

@@ -34,14 +34,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HB = 4096
 
 
-def _experiment(name, small, defs):
+def _experiment(name, small, defs, extra=None, consts=None):
     """Namespace of ``experiments/<name>.py`` with its upper-case module
-    constants (each name in ``small`` replaced right after its own
-    assignment, so the constants derived from it follow) and the
-    top-level or nested statements that define the names in ``defs``."""
+    constants (only those named in ``consts``, if given; each name in
+    ``small`` replaced right after its own assignment, so the constants
+    derived from it follow) and the top-level or nested statements that
+    define the names in ``defs``; ``extra`` holds the names the file
+    imports or builds otherwise."""
     with open(os.path.join(REPO, "experiments", f"{name}.py")) as f:
         tree = ast.parse(f.read())
-    ns = dict(jax=jax, jnp=jnp, np=np, pl=pl, pltpu=pltpu)
+    ns = dict(jax=jax, jnp=jnp, np=np, pl=pl, pltpu=pltpu, **(extra or {}))
 
     def run(node):
         exec(compile(ast.Module([node], type_ignores=[]), name, "exec"), ns)
@@ -50,7 +52,9 @@ def _experiment(name, small, defs):
         if isinstance(node, ast.Assign):
             names = [n.id for t in node.targets
                      for n in ast.walk(t) if isinstance(n, ast.Name)]
-            if names and all(n.isupper() for n in names):
+            if names and all(n.isupper() and (consts is None
+                                              or n in consts)
+                             for n in names):
                 run(node)
                 ns.update({n: small[n] for n in names if n in small})
     for node in ast.walk(tree):
