@@ -6,8 +6,11 @@ reference-parity historical month loops, historical bands in hist mode,
 Gaussian bands in cdf mode, and the historical month loop with a
 20000-bin histogram counted by the histogram kernel), checks
 replicated-RQMC intervals, Sobol bands and trajectories on the card
-against the CPU, holds the histogram kernel's three modes and the tile
-flatten against their plain versions and np.bincount, the CLT and law
+against the CPU, holds the band kernels against their plain versions at
+adversarial thresholds too (tied, past float32, a depleting hostile
+table) and prints their launch plans, holds the histogram kernel's three
+modes and the tile flatten against their plain versions and np.bincount
+(and times the flatten and Tensor.copy_ in turns), the CLT and law
 chunks of an odd histogram and the Sobol draws at 1866 months against
 their plain versions, times the kernels and the paths, runs the histogram
 probes' reports (``bench/probes.py``) and the headline benchmark
@@ -151,6 +154,9 @@ CALIB_SEED = 123
 # a ragged tile offset for the calibration check
 CALIB_TILE0 = 37
 COUNTS_K = (8, 32, 64)
+# tile counts of the flatten besides the main 2048 (a block copies a tile):
+# one block, and an odd grid
+FLATTEN_ODD_TILES = (1, 2047)
 # the headline's mean errors against 1000 * g^360
 HEADLINE_MEAN_REL = 1e-3
 # the mm toy against its plain version, relative to a row's largest
@@ -270,7 +276,7 @@ def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
         ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(
             centers, scales, BAND_THRESHOLDS, 1000.0)
         reduce_kw = dict(kappa_lo=klo, kappa_hi=khi,
-                         n_thresholds=BAND_THRESHOLDS)
+                         n_thresholds=BAND_THRESHOLDS, coef_b_host=cb)
     table, draw = ce.draw_operands(model, DEVICE)
     keep = (None if strategy.kind == "none"
             else torch.as_tensor(_keep(strategy, n_periods), device=DEVICE))
@@ -655,6 +661,64 @@ def main():
                                          valid)
                     max_err[name] = max(max_err[name], err)
                     say("3b", f"{label}: kernel == plain")
+    # ... and at adversarial inputs, bit for bit, in a chunk whose last
+    # tile holds one path: the counts below thresholds at B_t = 1e-7 about
+    # the month's centre (thresholds tied in float32, the guess off by
+    # many cells) and at B_t = 10 (thresholds past float32: +inf above, 0
+    # below); both kernels on the hostile 97-row table, with a withdrawal
+    # of 60 % a month that takes every path through the denormals to 0
+    from stock_market_monte_carlo_torch.data.loader import (
+        HOSTILE_CSV,
+        read_historical_returns,
+    )
+
+    hostile = smt.HistoricalBootstrap(read_historical_returns(HOSTILE_CSV))
+    depleting = smt.VariablePercentWithdrawal(
+        np.full(MAIN_MONTHS, 60.0, np.float32))
+    valid = CHECK_PATHS - ce.TILE_PATHS + 1
+    for mname, model, strategy, reduce_kind, b_t in (
+            ("gaussian", gauss, strategies["none"], "cdf", 1e-7),
+            ("gaussian", gauss, strategies["none"], "cdf", 10.0),
+            ("hostile_n97", hostile, strategies["fixed_percent"], "cdf",
+             None),
+            ("hostile_n97", hostile, depleting, "cdf", None),
+            ("hostile_n97", hostile, depleting, "hist", None)):
+        name, chunk, plain = {"hist": ("bands_hist", bk.month_hist_chunk,
+                                       bk.month_hist_chunk_plain),
+                              "cdf": ("bands_cdf", bk.month_cdf_chunk,
+                                      bk.month_cdf_chunk_plain)}[reduce_kind]
+        ops, kw = band_chunk_args(model, strategy, reduce_kind, MAIN_MONTHS,
+                                  valid, CHECK_PATHS, seed=3, tile0=3)
+        what = f"{strategy.kind} grid"
+        if b_t is not None:
+            from stock_market_monte_carlo_torch.engine import bands as be
+
+            centers, _ = be.band_grid(model, strategy, MAIN_MONTHS, 1000.0)
+            ca = centers[1:].astype(np.float32)
+            cb = np.full(MAIN_MONTHS, b_t, np.float32)
+            ops = (*ops[:2], torch.as_tensor(ca, device=DEVICE),
+                   torch.as_tensor(cb, device=DEVICE))
+            kw = dict(kw, coef_b_host=cb)
+            what = f"A_t the centres, B_t = {b_t}"
+        label = f"{name} {mname} {what} valid={valid}"
+        err = compare_counts(label, chunk(*ops, **kw), plain(*ops, **kw),
+                             reduce_kind, valid)
+        max_err[name] = max(max_err[name], err)
+        say("3b", f"{label}: kernel == plain")
+    # what the band kernels launch for a main chunk
+    plans = {}
+    for model in (hist_model, gauss):
+        _, draw = ce.draw_operands(model, DEVICE)
+        for mode, (name, cells) in enumerate((("bands_hist", BAND_BINS + 2),
+                                              ("bands_cdf",
+                                               BAND_THRESHOLDS))):
+            plans[f"{name} {model.kind}"] = bk.kernel_info(
+                mode, draw["draw"], keep=False,
+                n_table=draw.get("n_table", 0), n_periods=MAIN_MONTHS,
+                valid=CHUNK, n_cells=cells)
+    say("3b", f"launch plans at {CHUNK} x {MAIN_MONTHS} (registers a "
+              f"thread, shared memory, threads a block, resident blocks a "
+              f"SM, grid, copies of the count table): {json.dumps(plans)}")
 
     # 3c. the headline's calibration kernels and the counts below a tile
     # against their plain versions, bit for bit: the grid overhead at the
@@ -755,6 +819,12 @@ def main():
           "flatten_tile: row-major order not kept")
     say("3d", f"flatten_tile {CHUNK // ce.TILE_PATHS} tiles: kernel == plain "
               "== arange (row-major order kept)")
+    for odd_tiles in FLATTEN_ODD_TILES:
+        odd = tiles[:odd_tiles * ce.TILE_ROWS]
+        check(torch.equal(histogram.flatten_tile(odd),
+                          histogram.flatten_tile_plain(odd)),
+              f"flatten_tile {odd_tiles} tiles: kernel differs from plain")
+    say("3d", f"flatten_tile {FLATTEN_ODD_TILES} tiles: kernel == plain")
     ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, CHECK_PATHS,
                              CHECK_PATHS, 5000.0, seed=9, keep_finals=True,
                              bins=ODD_BINS)
@@ -1290,13 +1360,21 @@ def main():
     # the flatten; the clip-cast and spec modes take several calls
     timings["histogram_index"]["library_ms"] = events_ms(
         lambda _: histogram.library_counts(idx_t, probes.CELLS), 20, 1)
-    flat_out = torch.empty((CHUNK, 1), dtype=torch.float32, device=DEVICE)
-    timings["flatten_tile"]["library_ms"] = events_ms(
-        lambda _: flat_out.copy_(tiles.view(-1, 1)), 20, 1)
     say(6, f"[{card}] library: torch.bincount "
-           f"{timings['histogram_index']['library_ms']!r} ms, copy_ "
-           f"{timings['flatten_tile']['library_ms']!r} ms per {CHUNK} "
+           f"{timings['histogram_index']['library_ms']!r} ms per {CHUNK} "
            "inputs")
+    # the flatten and Tensor.copy_ in turns on the same buffers (kernel,
+    # copy_, copy_, kernel); each time is the mean of its two turns
+    flat_launch, flat_out = histogram.flatten_tile_launcher(tiles)
+    flat_fns = (flat_launch, lambda: flat_out().copy_(tiles.view(-1, 1)))
+    turns = [events_ms(lambda _: flat_fns[i](), 20, 3) for i in (0, 1, 1, 0)]
+    flat = timings["flatten_tile"]
+    flat["ms"] = (turns[0] + turns[3]) / 2
+    flat["library_ms"] = (turns[1] + turns[2]) / 2
+    say(6, f"[{card}] flatten_tile {CHUNK // ce.TILE_PATHS} tiles in turns: "
+           f"kernel {turns[0]!r}, copy_ {turns[1]!r}, copy_ {turns[2]!r}, "
+           f"kernel {turns[3]!r} ms; kernel/copy_ "
+           f"{flat['ms'] / flat['library_ms']!r}")
     # 6c. the production CLT again, after the probe instances ran: within
     # CLT_TIME_REL of its phase-6 time
     launch, _ = clt.clt_launcher(*timed_args["clt"][0], **timed_args["clt"][1])

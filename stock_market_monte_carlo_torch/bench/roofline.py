@@ -144,11 +144,10 @@ def work(name, ops, kw):
             # the shared-memory atomic
             reduce_ops, cells = 10, kw["n_bins"] + 2
         else:
-            # what the count needs, not the kernel's binary search: the
-            # interior thresholds lie on an affine log grid, so the
-            # histogram's cell arithmetic and atomic give the cell; then a
-            # threshold load and a compare correct it, and two compares
-            # place the guard rows
+            # what the count needs: the interior thresholds lie on an
+            # affine log grid, so the histogram's cell arithmetic and
+            # atomic give the cell; then a threshold load and a compare
+            # correct it, and two compares place the guard rows
             k = kw["n_thresholds"]
             reduce_ops = 10 + 4
             cells = k + 1

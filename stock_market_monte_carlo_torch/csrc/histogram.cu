@@ -15,7 +15,7 @@
 //     law or the CLT cannot bin in the kernel (hb not a multiple of 64, or
 //     above 4096).
 //   - flatten_tile_kernel: experiments/exp_flatten_cost.py k_reshape (:29),
-//     a (64,128) tile to (8192,1) in row-major order.
+//     a (64,128) tile to (8192,1) in row-major order (its own note below).
 //   Plain versions: ops/histogram.py.
 //
 // What it computes: counts[c] = #{i : bin(x_i) == c} for c in [0, hb);
@@ -142,15 +142,33 @@ cudaError_t launch(const void* in, int n, int hb, const Spec& s, int* hist,
   return cudaGetLastError();
 }
 
-// out[(t * 64 + r) * 128 + c] = x[t][r][c]: row-major (64,128) tiles and
-// the (8192,1) column share one linear order, so the flatten is a copy of
-// 16-byte words.
-__global__ void __launch_bounds__(256)
-flatten_tile_kernel(const float4* __restrict__ x, float4* __restrict__ out,
-                    long long n4) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n4; i += (long long)gridDim.x * blockDim.x)
-    out[i] = x[i];
+// The tile flatten: out[(t * 64 + r) * 128 + c] = x[t][r][c]. Row-major
+// (64,128) tiles and the (8192,1) column share one linear order, so the
+// flatten is a copy of 16-byte words.
+//
+// What bounds it on an H100: bytes, each read once and written once (2 x
+// 64 MiB for 2048 tiles, 0.040 ms at 3.35 TB/s).
+//
+// What the design does about it: keeps bytes in flight. A block of
+// kFlatThreads threads copies one tile; each thread issues its
+// kFlatUnroll independent 16-byte loads (256 bytes) before their stores,
+// where a grid-stride loop over a capped grid had one load in flight a
+// thread. Both sides take the streaming, evict-first hint (ld/st.global.cs):
+// neither side is read again by this kernel, and the output is larger
+// than L2.
+constexpr int kFlatThreads = 128;
+constexpr int kFlatUnroll = kTilePaths / 4 / kFlatThreads;
+
+__global__ void __launch_bounds__(kFlatThreads)
+flatten_tile_kernel(const float4* __restrict__ x, float4* __restrict__ out) {
+  const size_t i0 = (size_t)blockIdx.x * (kTilePaths / 4) + threadIdx.x;
+  float4 r[kFlatUnroll];
+#pragma unroll
+  for (int u = 0; u < kFlatUnroll; ++u)
+    r[u] = __ldcs(x + i0 + u * kFlatThreads);
+#pragma unroll
+  for (int u = 0; u < kFlatUnroll; ++u)
+    __stcs(out + i0 + u * kFlatThreads, r[u]);
 }
 
 }  // namespace
@@ -179,16 +197,9 @@ extern "C" int smmc_histogram(int mode, const void* x, int n, int hb,
 extern "C" int smmc_flatten_tile(const float* x, float* out, int n_tiles,
                                  void* stream) {
   if (n_tiles < 0) return cudaErrorInvalidValue;
-  const long long n4 = (long long)n_tiles * kTilePaths / 4;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const long long need = (n4 + 255) / 256;
-  const int n_blocks =
-      (int)std::max(1LL, std::min(need, (long long)sms * 8));
-  flatten_tile_kernel<<<n_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n4);
+  if (n_tiles == 0) return cudaSuccess;
+  flatten_tile_kernel<<<n_tiles, kFlatThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out));
   return cudaGetLastError();
 }

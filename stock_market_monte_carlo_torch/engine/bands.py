@@ -299,8 +299,9 @@ def simulate_bands(
             )
         coef_a, coef_b, kap_lo, kap_hi, logthr, m0row = cdf_coefficients(
             centers, scales, n_thresholds, initial_capital)
+        # the kernel checks the order of the thresholds on the host copy
         reduce_kw = dict(kappa_lo=kap_lo, kappa_hi=kap_hi,
-                         n_thresholds=n_thresholds)
+                         n_thresholds=n_thresholds, coef_b_host=coef_b)
         chunk_fn = kb.month_cdf_chunk
         total = np.zeros((n_periods + 1, n_thresholds), np.float64)
 

@@ -50,8 +50,9 @@ _ARGTYPES = {
                  _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_clt_probe": (_i, _i, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f,
                        _f, _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
-    "smmc_bands": (_i, _i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _vp, _i, _u,
-                   _u, _i, _f, _i, _f, _f, _vp, _i, _vp),
+    "smmc_bands": (_i, _i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _vp, _vp, _vp,
+                   _i, _u, _u, _i, _f, _i, _vp, _vp),
+    "smmc_bands_info": (_i, _i, _i, _i, _i, _i, _i, _vp),
     "smmc_counts_below_tile": (_vp, _vp, _i, _vp, _vp),
     "smmc_grid_overhead": (_i, _u, _u, _i, _i, _vp, _vp, _vp),
     "smmc_calib": (_i, _u, _i, _i, _vp, _vp),

@@ -27,13 +27,16 @@ most 2^24 per cell per chunk).
 Each wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Launches
 count under ``cuda_engine.LAUNCHES["bands_hist"]``, ``["bands_cdf"]`` and
-``["counts_below_tile"]``.
+``["counts_below_tile"]``. The counts-below kernel finds a value's cell by
+a guess on the thresholds' log grid and a correction against them;
+``cdf_cell_twin`` is that arithmetic in plain torch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
@@ -43,9 +46,13 @@ CDF_THRESHOLDS = 32
 # the JAX kernel's VMEM budget for its (T*K, 128) int32 accumulator;
 # cdf_supported keeps its cap so the same inputs are accepted
 _CDF_VMEM_CAP = 8 << 20
-# shared memory of one block: the 32 KB of a tile's running values, the
-# table and two month histograms must fit under the opt-in maximum
+# shared memory of one block (the table, and a tile's running values and
+# two month histograms, or the (T, K+1) counts) must fit the opt-in maximum
 _MAX_SMEM = 227 * 1024
+# the smallest value the cell arithmetic takes the log of
+_TINY = 1e-37
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def bands_supported(model, strategy_kind: str) -> bool:
@@ -116,21 +123,69 @@ def cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_thresholds):
     guard rows 0 and K-1 at ``kappa_lo`` / ``kappa_hi``."""
     kk = torch.arange(n_thresholds, dtype=torch.float32,
                       device=coef_a.device)
-    kk[0], kk[-1] = ce._f32(kappa_lo), ce._f32(kappa_hi)
+    # fill_ takes the value as a kernel argument; an indexed assignment
+    # would copy it from the host and wait for the card
+    kk[0].fill_(ce._f32(kappa_lo))
+    kk[-1].fill_(ce._f32(kappa_hi))
     return torch.exp(coef_a[:, None] + kk[None, :] * coef_b[:, None])
 
 
 def month_cdf_chunk_plain(table, keep, coef_a, coef_b, *, kappa_lo,
-                          kappa_hi, n_thresholds, valid, **kw):
+                          kappa_hi, n_thresholds, valid, coef_b_host=None,
+                          **kw):
     """Plain PyTorch version of the counts-below kernel: (T, K) int32
     counts of the first ``valid`` paths with V_t below each threshold
-    (``cdf_thresholds``), months 1..T. ``kw`` as ``_month_values``."""
+    (``cdf_thresholds``), months 1..T. ``kw`` as ``_month_values``;
+    ``coef_b_host`` is the kernel's and unused here (the plain count needs
+    no order of the thresholds)."""
     thr = cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_thresholds)
     rows = []
     for t, total in _month_values(coef_a.device, table, keep, **kw):
         v = total.reshape(-1)[:valid]
         rows.append((v[:, None] < thr[t][None, :]).sum(0))
     return torch.stack(rows).to(torch.int32)
+
+
+def cdf_guess_coefficients(coef_a, coef_b):
+    """(T, 2) float32 (a_t, c_t) of the counts-below kernel's guess
+    floor((log2 V - a_t) * c_t): a_t = (A_t - B_t) log2 e, c_t = ln 2 / B_t,
+    so that in exact arithmetic the guess is floor((ln V - A_t) / B_t) + 1,
+    the cell of V on the thresholds' log grid A_t + k * B_t."""
+    return torch.stack(((coef_a - coef_b) * _LOG2E, _LN2 / coef_b),
+                       dim=1).contiguous()
+
+
+def cdf_cell_twin(v, thr, coef_a, coef_b):
+    """The counts-below kernel's cell arithmetic (``csrc/bands.cu``
+    ``cdf_guess`` and ``cdf_walk``) in plain torch, for the tests: int64 j
+    per float32 value of ``v``, the number of the month's K ascending
+    thresholds ``thr`` (K,) it is not below. The guess from
+    ``cdf_guess_coefficients`` of the month's float32 A_t, B_t
+    (``coef_a``, ``coef_b``), clamped in float to [1, K-1], then steps
+    down while v < thr[j-1] and up while !(v < thr[j]), so the result is
+    #{k : !(v < thr[k])} exactly. The kernel's guess takes the fast log2
+    (``__log2f``) where this takes ``torch.log2``, and checks a guess
+    before it walks; the walk makes the two results the same."""
+    k = thr.shape[0]
+    f32 = dict(dtype=torch.float32, device=v.device)
+    a, c = cdf_guess_coefficients(torch.as_tensor(coef_a, **f32).reshape(1),
+                                  torch.as_tensor(coef_b, **f32).reshape(1))[0]
+    lg = torch.log2(torch.fmax(v, torch.full((), ce._f32(_TINY), **f32)))
+    x = torch.fmin(torch.fmax(torch.floor((lg - a) * c),
+                              torch.ones((), **f32)),
+                   torch.full((), float(k - 1), **f32))
+    j = x.to(torch.int64)
+    while True:
+        down = (j > 0) & (v < thr[(j - 1).clamp(min=0)])
+        if not bool(down.any()):
+            break
+        j = j - down.long()
+    while True:
+        up = (j < k) & ~(v < thr[j.clamp(max=k - 1)])
+        if not bool(up.any()):
+            break
+        j = j + up.long()
+    return j
 
 
 # ---------------------------------------------------------------------------
@@ -140,12 +195,14 @@ def month_cdf_chunk_plain(table, keep, coef_a, coef_b, *, kappa_lo,
 
 def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
               n_periods, seed_base, tile0, valid, n_paths, v0, n_cells,
-              kappa_lo=0.0, kappa_hi=0.0):
+              kappa_lo=0.0, kappa_hi=0.0, coef_b_host=None):
     """Checked inputs of one band chunk on a CUDA device -> ``(launch,
     counts)``: ``launch()`` runs the kernel (``mode`` 0: histogram of
     ``n_cells`` cells, 1: counts below ``n_cells`` thresholds) into a
     zeroed int32 (T, cells) tensor on the current stream; ``counts()``
-    returns the (T, n_cells) result. One block per 8192-path tile."""
+    returns the (T, n_cells) result. Mode 1 takes ``coef_b_host``, a host
+    copy of ``coef_b``, and checks the order of the thresholds on it: a
+    check of the CUDA tensor would wait for the card."""
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     dev = coef_a.device
@@ -166,33 +223,47 @@ def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
         k_chunks = tail_n = n_table = 0
     else:
         raise ValueError(f"unknown draw {draw!r}")
-    # the counts-below kernel counts, per path, the thresholds it is not
-    # below and cumulates them here: exact for thresholds that do not
-    # decrease along a month's row, which B_t > 0 and ordered kk give
-    if mode == 1 and not (bool((coef_b > 0).all())
-                          and kappa_lo <= 1.0 <= n_cells - 2 <= kappa_hi):
-        raise ValueError("thresholds must increase along k: coef_b > 0 "
-                         "and kappa_lo <= 1, kappa_hi >= K - 2")
-    # shared memory: the table, a tile's running values, two months of
-    # cells (the counts-below kernel adds a cell "below none") and, for
-    # that kernel, two months of thresholds
+    thr = guess = None
+    if mode == 1:
+        # the kernel counts, per path, the thresholds it is not below, and
+        # cumulates them here: exact for thresholds that do not decrease
+        # along a month's row, which B_t > 0 and ordered kk give
+        if coef_b_host is None:
+            raise ValueError("the counts-below kernel needs coef_b_host, a "
+                             "host copy of coef_b, to check the order of "
+                             "the thresholds")
+        b_host = np.asarray(coef_b_host, dtype=np.float32)
+        if b_host.shape != (n_periods,):
+            raise ValueError(f"coef_b_host has shape {b_host.shape}, "
+                             f"expected ({n_periods},)")
+        if not (bool((b_host > 0).all())
+                and kappa_lo <= 1.0 <= n_cells - 2 <= kappa_hi):
+            raise ValueError("thresholds must increase along k: coef_b > 0 "
+                             "and kappa_lo <= 1, kappa_hi >= K - 2")
+        thr = cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_cells)
+        guess = cdf_guess_coefficients(coef_a, coef_b)
+    # shared memory: the table, then a tile's running values and two
+    # months of cells (mode 0), or 8 warps' month rows and pairs and every
+    # month's K+1 cells (mode 1, one copy of its count table; it takes more
+    # copies where they fit)
     cells = n_cells + mode
-    smem = 4 * (k_chunks * 128 + TILE_PATHS + 2 * cells + 2 * mode * n_cells)
+    smem = 4 * (k_chunks * 128 + (TILE_PATHS + 2 * cells if mode == 0
+                                  else 8 * 3 * n_cells + n_periods * cells))
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"{n_cells} cells and a {n_table}-row table need {smem} bytes "
-            f"of shared memory per block (at most {_MAX_SMEM})")
+            f"{n_periods} months of {n_cells} cells and a {n_table}-row "
+            f"table need {smem} bytes of shared memory per block (at most "
+            f"{_MAX_SMEM})")
     out = torch.zeros((n_periods, cells), dtype=torch.int32, device=dev)
     args = (mode, ce.DRAW_CODES[draw], ce._ptr(table), k_chunks, n_table,
             tail_n, ce._f32(a), ce._f32(b), ce._ptr(keep), ce._ptr(coef_a),
-            ce._ptr(coef_b), n_periods, int(seed_base) & ce.MASK32,
-            int(tile0) & ce.MASK32, valid, ce._f32(v0), n_cells,
-            ce._f32(kappa_lo), ce._f32(kappa_hi), ce._ptr(out),
-            -(-valid // TILE_PATHS),
+            ce._ptr(coef_b), ce._ptr(thr), ce._ptr(guess), n_periods,
+            int(seed_base) & ce.MASK32, int(tile0) & ce.MASK32, valid,
+            ce._f32(v0), n_cells, ce._ptr(out),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_bands
 
-    def launch():
+    def launch(thr=thr, guess=guess):  # holds them for the launch
         ce._raise_on(fn(*args), "smmc_bands")
 
     def counts():
@@ -241,13 +312,33 @@ def month_cdf_chunk(table, keep, coef_a, coef_b, **kw):
     """(T, K) int32 counts below the K thresholds of each month of one
     chunk, months 1..T. As ``month_hist_chunk``, with ``coef_a``/``coef_b``
     the log-threshold coefficients and ``kappa_lo``, ``kappa_hi``,
-    ``n_thresholds`` in place of ``n_bins``. Counts its launch under
-    ``bands_cdf``."""
+    ``n_thresholds`` in place of ``n_bins``; on a CUDA device also
+    ``coef_b_host``, a host copy of ``coef_b`` (numpy), on which the order
+    of the thresholds is checked without a synchronisation. Counts its
+    launch under ``bands_cdf``."""
     if coef_a.device.type == "cpu":
         return month_cdf_chunk_plain(table, keep, coef_a, coef_b, **kw)
     return ce._launch_counted("bands_cdf",
                               month_cdf_launcher(table, keep, coef_a,
                                                  coef_b, **kw))
+
+
+def kernel_info(mode, draw, *, keep, n_table, n_periods, valid, n_cells):
+    """What one band chunk launches on the current CUDA device: registers
+    a thread, static and dynamic shared memory (bytes), threads a block,
+    resident blocks a SM, the grid and the copies of the count table, of
+    the kernel of ``mode`` (0 histogram of ``n_cells`` cells, 1 counts
+    below ``n_cells`` thresholds), ``draw`` and ``keep`` (bool) for a
+    ``valid``-path chunk and an ``n_table``-row table (historical)."""
+    from stock_market_monte_carlo_torch.ops._build import load_library
+
+    info = (ctypes.c_int * 7)()
+    k_chunks = -(-n_table // 128) if draw == "historical" else 0
+    ce._raise_on(load_library().smmc_bands_info(
+        mode, ce.DRAW_CODES[draw], int(keep), k_chunks, n_periods, valid,
+        n_cells, info), "smmc_bands_info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads",
+                     "blocks_per_sm", "grid", "copies"), info))
 
 
 # ---------------------------------------------------------------------------

@@ -58,7 +58,8 @@ def _table(name):
         return read_historical_returns(SYNTHETIC_CSV)
     if name == "hostile_n97":
         return read_historical_returns(HOSTILE_CSV)
-    return np.random.default_rng(3).uniform(-6.0, 6.5, 20000).astype(
+    # "n20000", "n32000": that many uniform returns
+    return np.random.default_rng(3).uniform(-6.0, 6.5, int(name[1:])).astype(
         np.float32)
 
 
@@ -283,7 +284,10 @@ def _band_args(cuda, reduce_kind, draw, strategy, n_periods=24, n_cells=None,
              "fixed_percent": smt.FixedPercentWithdrawal(0.4),
              "variable_percent": smt.VariablePercentWithdrawal(
                  np.random.default_rng(5).uniform(0.0, 1.0, n_periods)
-                 .astype(np.float32))}[strategy]
+                 .astype(np.float32)),
+             # 60 % a month: every path through the denormals to 0
+             "depleting": smt.VariablePercentWithdrawal(
+                 np.full(n_periods, 60.0, np.float32))}[strategy]
     centers, scales = bands_eng.band_grid(model, strat, n_periods, 1000.0)
     if reduce_kind == "hist":
         n_bins = n_cells or 1024
@@ -294,7 +298,8 @@ def _band_args(cuda, reduce_kind, draw, strategy, n_periods=24, n_cells=None,
         k = n_cells or 32
         ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(centers, scales,
                                                             k, 1000.0)
-        reduce_kw = dict(kappa_lo=klo, kappa_hi=khi, n_thresholds=k)
+        reduce_kw = dict(kappa_lo=klo, kappa_hi=khi, n_thresholds=k,
+                         coef_b_host=cb)
     table, draw_kw = ce.draw_operands(model, cuda)
     keep = (None if strategy == "none" else torch.as_tensor(
         eng._keep_factors_np(strat, n_periods), device=cuda))
@@ -363,7 +368,11 @@ def test_band_wrappers_check_inputs_and_count_launches(cuda):
     with pytest.raises(ValueError, match="increase"):
         chunk(*ops, **dict(kw, kappa_lo=2.0))
     with pytest.raises(ValueError, match="increase"):
-        chunk(ops[0], ops[1], ops[2], -ops[3], **kw)
+        chunk(ops[0], ops[1], ops[2], -ops[3],
+              **dict(kw, coef_b_host=-kw["coef_b_host"]))
+    # the order is checked on the host copy, which the card route needs
+    with pytest.raises(ValueError, match="coef_b_host"):
+        chunk(*ops, **dict(kw, coef_b_host=None))
     with pytest.raises(TypeError):
         chunk(ops[0], ops[1], ops[2].double(), ops[3], **kw)
     hops, hkw = _band_args(cuda, "hist", "historical", "none",
@@ -371,6 +380,82 @@ def test_band_wrappers_check_inputs_and_count_launches(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         _band_fns("hist")[0](*hops, **dict(hkw, n_bins=30000))
     assert ce.LAUNCHES["bands_cdf"] == 1 and ce.LAUNCHES["bands_hist"] == 0
+
+
+@pytest.mark.parametrize("draw", ["historical", "gaussian"])
+@pytest.mark.parametrize("b_t", [1e-7, 10.0])
+def test_cdf_kernel_matches_plain_at_adversarial_thresholds(cuda, draw, b_t):
+    """B_t = 1e-7 about each month's centre (thresholds tied in float32,
+    the guess off by more than its check) and B_t = 10 (thresholds +inf
+    above and 0 below), at 360 months."""
+    from stock_market_monte_carlo_torch.engine import bands as bands_eng
+
+    ops, kw = _band_args(cuda, "cdf", draw, "none", n_periods=360,
+                         valid=3 * 8192 + 1, n_paths=4 * 8192)
+    model = (smt.HistoricalBootstrap(_table("n1127"))
+             if draw == "historical" else smt.GaussianReturns())
+    centers, _ = bands_eng.band_grid(model, smt.NoWithdrawal(), 360, 1000.0)
+    cb = np.full(360, b_t, np.float32)
+    ops = (*ops[:2], torch.as_tensor(centers[1:].astype(np.float32),
+                                     device=cuda),
+           torch.as_tensor(cb, device=cuda))
+    _assert_band_kernel_matches_plain("cdf", ops, dict(kw, coef_b_host=cb))
+
+
+@pytest.mark.parametrize("reduce_kind", ["hist", "cdf"])
+@pytest.mark.parametrize("strategy", ["fixed_percent", "depleting"])
+def test_band_kernels_match_plain_on_hostile_table(cuda, reduce_kind,
+                                                   strategy):
+    """The hostile 97-row table at 360 months; under 60 % withdrawals a
+    month every value passes through the denormals to 0."""
+    _assert_band_kernel_matches_plain(reduce_kind, *_band_args(
+        cuda, reduce_kind, "historical", strategy, n_periods=360,
+        table_name="hostile_n97"))
+
+
+@pytest.mark.parametrize("valid", [1, 255, 257, 8192 + 1, 3 * 8192 - 1])
+def test_cdf_kernel_partial_items_match_plain(cuda, valid):
+    """Chunks that end inside a 256-path warp item, or leave the rest of
+    a tile and most warps of the grid without paths."""
+    _assert_band_kernel_matches_plain("cdf", *_band_args(
+        cuda, "cdf", "gaussian", "fixed_percent", n_periods=60, valid=valid))
+
+
+@pytest.mark.parametrize("table_name,n_periods,k,copies", [
+    ("n1127", 360, 32, 4), ("n20000", 360, 32, 2), ("n1127", 2048, 8, 2),
+    ("n32000", 512, 32, 1)])
+def test_cdf_kernel_copies_match_plain(cuda, table_name, n_periods, k,
+                                       copies):
+    """The counts-below kernel with 4, 2 and 1 copies of its count table
+    (as many as fit in a block's shared memory beside the table)."""
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    ops, kw = _band_args(cuda, "cdf", "historical", "none",
+                         n_periods=n_periods, n_cells=k,
+                         table_name=table_name, valid=8192 + 3,
+                         n_paths=2 * 8192)
+    plan = kb.kernel_info(1, "historical", keep=False,
+                          n_table=kw["n_table"], n_periods=n_periods,
+                          valid=kw["valid"], n_cells=k)
+    assert plan["copies"] == copies and plan["threads"] == 256 * copies
+    _assert_band_kernel_matches_plain("cdf", ops, kw)
+
+
+def test_band_kernel_plans(cuda):
+    """A main chunk's launch: the counts below thresholds with 4 copies in
+    blocks of 1024 threads, the blocks that fit on the card; the
+    histogram a block of 256 threads a tile."""
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cdf = kb.kernel_info(1, "gaussian", keep=False, n_table=0,
+                         n_periods=360, valid=1 << 24, n_cells=32)
+    assert cdf["copies"] == 4 and cdf["threads"] == 1024
+    assert cdf["grid"] == sms * cdf["blocks_per_sm"] > 0
+    hist = kb.kernel_info(0, "historical", keep=True, n_table=1127,
+                          n_periods=360, valid=1 << 24, n_cells=1026)
+    assert hist["threads"] == 256 and hist["grid"] == 2048
+    assert hist["copies"] == 1 and hist["blocks_per_sm"] > 0
 
 
 @pytest.mark.parametrize("mode", ["hist", "cdf"])
@@ -768,6 +853,20 @@ def test_flatten_tile_kernel_matches_plain(cuda):
                                                device=cuda))
 
 
+@pytest.mark.parametrize("n_tiles", [1, 3, 2047])
+def test_flatten_tile_kernel_odd_tile_counts(cuda, n_tiles):
+    """Odd grids: a block copies one tile, so any tile count fills its
+    blocks; one block, three, and one short of the main 2048."""
+    from stock_market_monte_carlo_torch.ops import histogram
+
+    x = torch.randn((n_tiles * 64, 128), generator=torch.Generator(
+        device=cuda).manual_seed(n_tiles), device=cuda)
+    got = histogram.flatten_tile(x)
+    torch.cuda.synchronize()
+    assert got.shape == (n_tiles * 8192, 1)
+    assert torch.equal(got, histogram.flatten_tile_plain(x))
+
+
 def test_histogram_wrappers_check_inputs_and_count_launches(cuda):
     from stock_market_monte_carlo_torch.ops import histogram
 
@@ -876,6 +975,12 @@ def test_counted_wrappers_do_not_synchronise(cuda):
                   lo=300.0, log_lo=float(np.log(300.0)), inv_w=2000.0,
                   hb=4096, with_hist=True, keep_finals=False)
     idx = torch.zeros((8192,), dtype=torch.int32, device=cuda)
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    band_cases = [(kb.month_hist_chunk,
+                   _band_args(cuda, "hist", "historical", "fixed_percent")),
+                  (kb.month_cdf_chunk,
+                   _band_args(cuda, "cdf", "gaussian", "none"))]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -886,6 +991,8 @@ def test_counted_wrappers_do_not_synchronise(cuda):
             ce.law_chunk(law, **dict(law_kw, hb=4002))
             clt.clt_chunk(*clt_ops, **dict(clt_kw, tile0=i))
             histogram.histogram_counts(idx, 4096)
+            for chunk, (ops, kw) in band_cases:
+                chunk(*ops, **dict(kw, tile0=i))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
