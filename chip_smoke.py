@@ -19,7 +19,12 @@ calibration kernels; then the experiment probes of the CLT and the
 counter stream: the op-class toys, the CLT's ablation and tile-grouping
 instances and the byte planes against their plain versions, the
 production CLT's SASS against the parent build's and its time against the
-same run's, and the probes' five reports.
+same run's, and the probes' five reports. The Sobol draws' kernel
+(``csrc/sobol_loop.cu``) also: its ptxas resources and launch plans, its
+instances against the plain version (at 64-bit positions, under every
+strategy, at 1866 months and at the main path's first and ragged last
+chunk); and the month loop's other instances' registers and SASS against
+the parent build's.
 
     python3 chip_smoke.py
 
@@ -36,6 +41,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import statistics
 import time
 
@@ -75,9 +81,9 @@ KERNELS = {
                        replaces=f"{_PE}:1097"),
     "month_loop_gaussian": dict(source=f"{_CSRC}/month_loop.cu",
                                 replaces=f"{_PE}:1097"),
-    "month_loop_sobol_gaussian": dict(source=f"{_CSRC}/month_loop.cu",
+    "month_loop_sobol_gaussian": dict(source=f"{_CSRC}/sobol_loop.cu",
                                       replaces=f"{_PE}:1097"),
-    "month_loop_sobol_historical": dict(source=f"{_CSRC}/month_loop.cu",
+    "month_loop_sobol_historical": dict(source=f"{_CSRC}/sobol_loop.cu",
                                         replaces=f"{_PE}:1097"),
     "month_loop_reference": dict(source=f"{_CSRC}/month_loop.cu",
                                  replaces=f"{_PE}:1097"),
@@ -169,6 +175,20 @@ MM_ROW_REL = 1e-3
 # 572bb64`, nvcc of CUDA 12.8 on the H100 machine; the probe instances must
 # leave them as they were
 CLT_SASS_PARENT = {0: 2030, 1: 2030, 2: 1866}
+# registers and SASS instructions (NOPs left out) of the month loop's
+# historical, ICDF and reference instances, month_loop_kernel<draw,
+# strategy, 1>, in the parent's build (4bfa447, where the Sobol draws were
+# instances of the same template): ptxas -v and cuobjdump -sass of
+# month_loop.cu from `git archive 4bfa447`, nvcc of CUDA 12.8 on the H100
+# machine; taking the Sobol instances out of the build must leave them
+MONTH_LOOP_REGS_PARENT = {
+    "<0,0,1>": 45, "<0,1,1>": 47, "<0,2,1>": 44, "<1,0,1>": 38,
+    "<1,1,1>": 38, "<1,2,1>": 35, "<4,0,1>": 32, "<4,1,1>": 40,
+    "<4,2,1>": 32}
+MONTH_LOOP_SASS_PARENT = {
+    "<0,0,1>": 703, "<0,1,1>": 722, "<0,2,1>": 720, "<1,0,1>": 975,
+    "<1,1,1>": 987, "<1,2,1>": 995, "<4,0,1>": 582, "<4,1,1>": 617,
+    "<4,2,1>": 615}
 # the production CLT's time in the probes' phase against phase 6's
 CLT_TIME_REL = 0.02
 # the byte planes: means within 127.5 +- 0.5, off-diagonal |corr| < 0.01
@@ -222,6 +242,14 @@ def _base(seed):
     from stock_market_monte_carlo_torch.engine import engine as eng
 
     return eng._segment_base(seed, 0)
+
+
+def template_args(mangled, kernel):
+    """"<1,0,1>": the integer and bool template arguments of ``kernel`` in
+    a mangled name, or None where the name is not that kernel's."""
+    m = re.search(rf"{kernel}I((?:L[ib]\d+E)+)E", mangled)
+    return ("<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
+            if m else None)
 
 
 def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
@@ -524,11 +552,50 @@ def main():
     from stock_market_monte_carlo_torch.ops import _build, clt
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    # 2. build
+    # 2. build; the month loops' ptxas report: the Sobol kernel's instances
+    # (registers, spills; shared memory, window and blocks a SM at the main
+    # shapes), and the other draws' registers against the parent build's
     t = time.perf_counter()
-    path = _build.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        path = _build.build(verbose=True)
+    print(report.getvalue(), end="")
     _build.load_library()
     say(2, f"built {path.name} in {time.perf_counter() - t:.1f} s")
+    from stock_market_monte_carlo_torch.bench import kernel_resources as kres
+
+    res = kres.ptxas_resources(report.getvalue())
+    sobol_res = {args: v for name, v in res.items()
+                 if (args := template_args(name, "sobol_loop_kernel"))}
+    check(len(sobol_res) == 6 and all(v[1] == v[2] == 0
+                                       for v in sobol_res.values()),
+          f"Sobol kernel instances (registers, spill stores, spill loads): "
+          f"{sobol_res}")
+    say(2, "sobol_loop_kernel<draw,strategy> (registers, spill stores, "
+           f"spill loads): {sobol_res}")
+    plans = {}
+    for draw in ("sobol_gaussian", "sobol_historical"):
+        for cols, months in ((32, MAIN_MONTHS), (64, MAIN_MONTHS),
+                             (64, SOBOL_MONTHS)):
+            plans[f"{draw} {cols} columns {months} months"] = \
+                ce.sobol_kernel_info(draw, n_table=1127, dir_cols=cols,
+                                     n_periods=months)
+    say(2, f"Sobol launch plans (paths a thread, registers, dynamic shared "
+           f"memory, window of months, blocks a SM): {json.dumps(plans)}")
+    regs = {args: v[0] for name, v in res.items()
+            if (args := template_args(name, "month_loop_kernel"))}
+    from stock_market_monte_carlo_torch.ops import calibration as cal
+
+    sass = {args: len(cal._instructions(body)[0])
+            for name, body in cal.sass_functions().items()
+            if (args := template_args(name, "month_loop_kernel"))}
+    check(regs == MONTH_LOOP_REGS_PARENT and sass == MONTH_LOOP_SASS_PARENT,
+          f"month_loop_kernel<draw,strategy,1> registers {regs}, SASS {sass} "
+          f"vs the parent build's {MONTH_LOOP_REGS_PARENT}, "
+          f"{MONTH_LOOP_SASS_PARENT}")
+    say(2, f"month_loop_kernel<draw,strategy,1> registers {regs} and SASS "
+           f"instructions {sass} == the parent build's (the historical, ICDF "
+           "and reference instances; the Sobol ones are no longer built)")
 
     # 3. kernels against their plain versions on the card
     hist_model = smt.HistoricalBootstrap.from_csv()
@@ -587,9 +654,10 @@ def main():
                                      valid, n_paths, target, seed=5)
             run_pair("clt", f"clt {variant} {valid}x{n_periods}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops, kw, CLT_REL)
-    # the Sobol draws at 64-bit positions (index_offset 2^33 + 777)
+    # the Sobol draws at 64-bit positions (index_offset 2^33 + 777, not a
+    # multiple of the kernel's 8 or 16 paths a thread), under every strategy
     for name, model in deep_models.items():
-        for sname in ("none", "fixed_percent"):
+        for sname in strategies:
             ops, kw = month_chunk_args(model, strategies[sname], MAIN_MONTHS,
                                        CHECK_PATHS, CHECK_PATHS, 5000.0,
                                        seed=5)
@@ -605,17 +673,19 @@ def main():
                  ce.law_chunk, ce.law_chunk_plain, ops, kw, 0.0,
                  plain_kw=dict(kw, keep_finals=True))
     # ... and at the main paths' own chunks: the first, and the ragged
-    # last one at its own tile offset (seed 0, target 2000)
+    # last one at its own tile offset (seed 0, target 2000); the Sobol
+    # draws also at 64-bit positions
     n_chunks = -(-MAIN_PATHS // CHUNK)
     last = (n_chunks - 1) * CHUNK
     for first, valid in ((0, CHUNK), (last, MAIN_PATHS - last)):
         finals = first != 0
         tile0 = first // ce.TILE_PATHS
-        for name, model in month_models.items():
+        for name, model in (*month_models.items(), *deep_models.items()):
             ops, kw = month_chunk_args(model, smt.NoWithdrawal(),
                                        MAIN_MONTHS, valid, CHUNK, 2000.0,
                                        seed=0, tile0=tile0)
-            run_pair(name, f"{name} main chunk tile0={tile0} valid={valid}",
+            run_pair(name, f"{name} main chunk tile0={tile0} valid={valid} "
+                           f"index_offset={getattr(model, 'index_offset', 0)}",
                      ce.month_loop_chunk, ce.month_loop_chunk_plain, ops,
                      dict(kw, keep_finals=finals), 0.0, plain_kw=kw)
         ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, valid, CHUNK,
@@ -725,8 +795,6 @@ def main():
     # 2^24-path shape, both variants, 1 and 16 tiles a block (and group 1
     # == group 16); the calibration pair at 2^24 x 360 and at a ragged tile
     # offset; the counts below a tile with ties, K = 8, 32, 64
-    from stock_market_monte_carlo_torch.ops import calibration as cal
-
     n_tiles = CHUNK // ce.TILE_PATHS
     for variant in cal.VARIANTS:
         outs = {}
@@ -841,9 +909,12 @@ def main():
             SOBOL_MONTHS, index_offset=DEEP_OFFSET),
         "month_loop_sobol_historical": smt.SobolHistoricalBootstrap.create(
             hist_model.returns_pct, SOBOL_MONTHS, index_offset=DEEP_OFFSET)}
+    long_strategies = dict(strategies, variable_percent=(
+        smt.VariablePercentWithdrawal(np.random.default_rng(7).uniform(
+            0.0, 1.0, SOBOL_MONTHS).astype(np.float32))))
     for name, model in long_models.items():
-        for sname in ("none", "fixed_percent"):
-            ops, kw = month_chunk_args(model, strategies[sname],
+        for sname in strategies:
+            ops, kw = month_chunk_args(model, long_strategies[sname],
                                        SOBOL_MONTHS, 3 * ce.TILE_PATHS + 5,
                                        4 * ce.TILE_PATHS, 5000.0, seed=5,
                                        tile0=11)
@@ -1200,6 +1271,11 @@ def main():
     say(6, f"[{card}] wall 100M x 360 historical month loop, {BIG_BINS} "
            f"bins: median {wall!r} s of {reps} (4094 bins: "
            f"{walls['month_loop'][0]!r} s)")
+    wall, reps = wall_median(lambda: smt.rqmc_estimate(
+        sobol_gauss, RQMC_PATHS, MAIN_MONTHS, replicates=RQMC_REPLICATES,
+        confidence=0.99))
+    say(6, f"[{card}] wall rqmc_estimate Sobol Gaussian {RQMC_REPLICATES} x "
+           f"{RQMC_PATHS} x {MAIN_MONTHS}: median {wall!r} s of {reps}")
     for key, (label, _, _) in band_paths.items():
         wall, reps = wall_median(lambda: band_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "

@@ -9,7 +9,13 @@
 //   - kGaussian: kind="gaussian" (exact ICDF of the counter stream, the
 //     growth(t) branch at :449-461);
 //   - kSobolGaussian, kSobolHistorical: kind="sobol_gaussian" /
-//     "sobol_historical", with and without sobol_deep (:362-397, :449-461);
+//     "sobol_historical", with and without sobol_deep (:362-397, :449-461):
+//     smmc_month_loop runs these two draws on csrc/sobol_loop.cu, and
+//     their instances of this template are no longer built. The template
+//     keeps their branches: taking them out changed the other instances'
+//     registers and SASS (historical 45 -> 40 registers, reference 32 ->
+//     39, on the H100 machine's nvcc), and those instances keep the code
+//     they were measured with (chip_smoke.py MONTH_LOOP_*_PARENT);
 //   - kReference: rng_mode="reference" (:500-525).
 //   Plain version: ops/cuda_engine.py month_loop_chunk_plain.
 //
@@ -259,6 +265,16 @@ cudaError_t launch_strategy(const Args& g, int strategy, int n_blocks,
 
 }  // namespace
 
+// csrc/sobol_loop.cu: the Sobol draws, with this entry point's operands
+extern "C" int smmc_sobol_loop(
+    int draw, const float* table, int k_chunks, int n_table, int tail_n,
+    float a, float b, const unsigned int* dir, const unsigned int* shift,
+    int dir_cols, unsigned int off_lo, unsigned int off_hi, const float* keep,
+    int strategy, float amount, int n_periods, unsigned int seed_base,
+    unsigned int tile0, int valid, float v0, float inv0, float target,
+    float shift_c, float log_lo, float inv_w, int hb, float* finals,
+    double* partials, int* hist, int n_blocks, void* stream);
+
 // One chunk. draw: 0 historical (table, k_chunks, n_table, tail_n), 1
 // Gaussian (a, b), 2 Sobol Gaussian (a, b, dir, shift, dir_cols, off_lo,
 // off_hi), 3 Sobol historical (the table and the Sobol operands), 4
@@ -285,9 +301,12 @@ extern "C" int smmc_month_loop(
     case kGaussian:
       return launch_strategy<kGaussian>(g, strategy, n_blocks, s);
     case kSobolGaussian:
-      return launch_strategy<kSobolGaussian>(g, strategy, n_blocks, s);
     case kSobolHistorical:
-      return launch_strategy<kSobolHistorical>(g, strategy, n_blocks, s);
+      return smmc_sobol_loop(draw, table, k_chunks, n_table, tail_n, a, b,
+                             dir, shift, dir_cols, off_lo, off_hi, keep,
+                             strategy, amount, n_periods, seed_base, tile0,
+                             valid, v0, inv0, target, shift_c, log_lo, inv_w,
+                             hb, finals, partials, hist, n_blocks, stream);
     case kReference:
       return launch_strategy<kReference>(g, strategy, n_blocks, s);
     default:

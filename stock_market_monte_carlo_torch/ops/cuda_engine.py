@@ -7,7 +7,8 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 - ``month_loop_chunk`` replaces ``_build_kernel``, source
   ``csrc/month_loop.cu``, in five draws (``DRAW_CODES``): the counter
   stream's historical bootstrap and Gaussian ICDF, the Sobol Gaussian and
-  Sobol historical draws (32-bit or 64-bit sequence positions) and the
+  Sobol historical draws (32-bit or 64-bit sequence positions; their
+  kernel is ``csrc/sobol_loop.cu``, ``sobol_kernel_info``) and the
   reference-parity historical stream;
 - ``law_chunk`` replaces ``_build_law_kernel`` and
   ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``.
@@ -51,6 +52,7 @@ spec) and for +inf (cell hb-1 against cell 1).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -416,6 +418,53 @@ def _sobol_words(direction, shift, index_offset, gid):
     return word
 
 
+def sobol_words_recurrence(direction, shift, index_offset, gid, k):
+    """``word(t)`` as ``_sobol_words`` returns it, built the way
+    ``csrc/sobol_loop.cu`` builds it; only the tests call it. ``gid``: a
+    chunk's uint32 path ids (1-D int64), cut into warps of 32 runs of
+    ``k`` paths, each warp's positions consecutive; the last warp is
+    padded with the ids that follow it, as the kernel computes them. Each
+    month: the fold of each warp's first position, an XOR scan of each
+    run's steps direction[t, ctz(i)] across the warp's lanes, then the
+    steps inside each run. A step's column is clamped into the row, as the
+    kernel clamps lane 31's unused step to 2^32 at 32-bit positions."""
+    d = _as_u32(direction)
+    group = 32 * k
+    n = gid.numel()
+    pad = -n % group
+    ids = torch.cat([gid, gid[-1] + 1 + torch.arange(pad, device=gid.device)])
+    idx = (int(index_offset) + ids).reshape(-1, 32, k)
+    first = idx[:, 0, 0]
+    if not torch.equal(idx.reshape(-1, group) - first[:, None],
+                       torch.arange(group, device=gid.device).expand(
+                           first.numel(), group)):
+        raise ValueError("a warp's positions are not consecutive")
+    nxt = idx + 1
+    # the column of the step from each position to the next: ctz (x & -x
+    # is a power of two below 2^63, exact in float64)
+    cols = torch.log2((nxt & -nxt).double()).long().clamp_max(d.shape[1] - 1)
+    fold = xor_fold(d, first ^ (first >> 1))
+    shift = _as_u32(shift)
+
+    def word(t):
+        steps = d[t][cols]
+        run = steps[..., 0]
+        for j in range(1, k):
+            run = run ^ steps[..., j]
+        scan = run
+        o = 1
+        while o < 32:
+            scan = scan ^ torch.nn.functional.pad(scan[:, :-o], (o, 0))
+            o <<= 1
+        w = fold[:, t, None] ^ scan ^ run ^ shift[t]
+        words = [w]
+        for j in range(k - 1):
+            w = w ^ steps[..., j]
+            words.append(w)
+        return torch.stack(words, -1).reshape(-1)[:n]
+    return word
+
+
 def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
                  n_paths, direction=None, shift=None, index_offset=0):
     """``growth(t)``: the (tiles, 64, 128) float32 growth factors of month
@@ -666,8 +715,8 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
         raise ValueError(f"unknown draw {draw!r}")
     # what the kernel keeps in shared memory always fits a block: the table
     # (at most 2^15 rows, 128 KB) and an in-place histogram (at most 4096
-    # cells); the Sobol direction rows sit there only where they fit too
-    # (csrc/month_loop.cu reads them from global memory otherwise)
+    # cells); the Sobol direction rows sit there in windows of months that
+    # fit beside them (csrc/sobol_loop.cu)
     if draw in _TABLE_DRAWS:
         if not 0 < n_table < (1 << 15):
             raise ValueError(f"table length {n_table} outside [1, 2^15)")
@@ -705,9 +754,47 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
             int(seed_base) & MASK32, int(tile0) & MASK32, valid, _f32(v0),
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
+    geometry = {}
+    if draw in _SOBOL_DRAWS:
+        # the Sobol kernel's blocks take groups of 256 x K paths, at most 8
+        # blocks a SM as the other draws: a persistent grid (the resident
+        # blocks) was 4-8 % slower (bench/sobol_grid.py, PERF.md)
+        plan = sobol_kernel_info(draw, strategy, n_table=n_table,
+                                 dir_cols=dir_cols, n_periods=n_periods,
+                                 hb=hb, with_hist=with_hist, device=dev)
+        geometry = dict(rows_per_block=_BLOCK * plan["paths_a_thread"])
     return _prepare("smmc_month_loop", args, dev, valid, lo=lo,
                     log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
-                    keep_finals=keep_finals)
+                    keep_finals=keep_finals, **geometry)
+
+
+def sobol_kernel_info(draw, strategy="none", *, n_table=0, dir_cols=32,
+                      n_periods, hb=4096, with_hist=True, device=None):
+    """What one chunk of a Sobol draw launches on a CUDA device (C
+    ``smmc_sobol_info``): paths a thread (K), registers a thread, dynamic
+    shared memory (bytes), the window of months of direction rows and
+    resident blocks a SM. A host query, cached; it does not wait for the
+    device."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    k_chunks = -(-n_table // 128) if draw == "sobol_historical" else 0
+    return dict(_sobol_info(index, DRAW_CODES[draw],
+                            STRATEGY_CODES[strategy], k_chunks, dir_cols,
+                            n_periods, hb, in_kernel_hist(hb, with_hist)))
+
+
+@functools.lru_cache(maxsize=256)
+def _sobol_info(index, draw, strategy, k_chunks, dir_cols, n_periods, hb,
+                hist):
+    from stock_market_monte_carlo_torch.ops._build import load_library
+
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(index):
+        _raise_on(load_library().smmc_sobol_info(
+            draw, strategy, k_chunks, dir_cols, n_periods, hb, int(hist),
+            info), "smmc_sobol_info")
+    return tuple(zip(("paths_a_thread", "registers", "dynamic_smem",
+                      "window", "blocks_per_sm"), info))
 
 
 def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,

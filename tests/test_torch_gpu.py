@@ -10,7 +10,10 @@ counters, the launch counts of the engine's samplers, and bands,
 trajectories and seed segments on the card against the CPU. The month
 loop's Sobol and reference-parity draws against their plain versions under
 every strategy, at 64-bit positions (past 2^33, across a word carry, near
-2^62), at 360 months and with large tables; the engine, trajectories,
+2^62, at offsets of every residue mod 8), with valid paths that leave part
+of a Sobol thread's run over, across the 32-bit ids' wrap, at 360 months
+and with large tables; the Sobol kernel's windows of direction rows at
+360 months under every strategy; the engine, trajectories,
 bands and RQMC of those models on the card against the CPU. The
 headline's calibration kernels (grid overhead, the calibration pair) and
 the counts below a tile against their plain versions, their launch
@@ -550,27 +553,54 @@ def _assert_draw_matches_plain(ops, kw):
                                  ce.month_loop_chunk_plain(*ops, **kw))
 
 
+# the 32-bit path ids wrap to 0 after this tile
+WRAP_TILE0 = (1 << 19) - 1
+
+
 @pytest.mark.parametrize("draw", NEW_DRAWS)
 @pytest.mark.parametrize("strategy", ["none", "fixed_percent",
                                       "variable_percent", "fixed_amount"])
 @pytest.mark.parametrize("hb,with_hist", [(4096, True), (102, True),
                                           (4096, False)])
-def test_new_draw_kernels_match_plain(cuda, draw, strategy, hb, with_hist):
-    """Bit for bit, at a ragged chunk (2*8192+1001 of 4*8192 paths) at tile
-    offset 37."""
+@pytest.mark.parametrize("tile0,valid", [
+    *((37, 2 * 8192 + 1000 + r) for r in range(16) if r != 8),
+    (WRAP_TILE0, 2 * 8192 + 1003)])
+def test_new_draw_kernels_match_plain(cuda, draw, strategy, hb, with_hist,
+                                      tile0, valid):
+    """Bit for bit, at a ragged chunk of 4*8192 paths at tile offset 37
+    whose valid paths leave 1 .. 15 of a Sobol run of 16 (the historical
+    draw's paths a thread; 1 .. 7 of the Gaussian's 8) over, and across the
+    32-bit path ids' wrap at 2^32."""
     _assert_draw_matches_plain(*_draw_args(cuda, draw, strategy, hb=hb,
-                                           with_hist=with_hist))
+                                           with_hist=with_hist, tile0=tile0,
+                                           valid=valid))
 
 
 @pytest.mark.parametrize("draw", ["sobol_gaussian", "sobol_historical"])
-@pytest.mark.parametrize("index_offset", [(1 << 33) + 777,
-                                          (1 << 32) - 40000,
-                                          (1 << 62) - (1 << 20)])
+@pytest.mark.parametrize("index_offset", [
+    (1 << 33) + 777, (1 << 32) - 40000, (1 << 62) - (1 << 20),
+    *((1 << 33) + 777 + r for r in range(1, 7)), 3, (1 << 32) - 3])
 def test_sobol_deep_kernels_match_plain(cuda, draw, index_offset):
     """64-bit positions: past 2^33, a carry into the high word inside the
-    chunk, and near the 2^62 end."""
+    chunk and inside a thread's run (2^32 - 3), near the 2^62 end, and
+    offsets of every residue 1 .. 7 mod 8 (the runs' first positions off
+    a multiple of 8)."""
     _assert_draw_matches_plain(*_draw_args(cuda, draw, "fixed_percent",
                                            index_offset=index_offset))
+
+
+@pytest.mark.parametrize("draw", ["sobol_gaussian", "sobol_historical"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "variable_percent", "fixed_amount"])
+@pytest.mark.parametrize("index_offset", [0, 777, (1 << 32) - 3])
+def test_sobol_windows_match_plain(cuda, draw, strategy, index_offset):
+    """360 months: the kernel stages the direction rows in windows of
+    months (124 at 32-bit positions, 63 at 64-bit) and restages them for
+    each group of runs; at a ragged chunk (valid paths leave 13 of a run
+    of 16, 5 of 8) at tile offset 3, under every strategy."""
+    _assert_draw_matches_plain(*_draw_args(
+        cuda, draw, strategy, n_periods=360, index_offset=index_offset,
+        valid=2 * 8192 + 1005, tile0=3))
 
 
 @pytest.mark.parametrize("draw,index_offset", [
@@ -608,8 +638,8 @@ def test_new_draw_wrappers_check_inputs_and_count_launches(cuda):
         ce.month_loop_chunk(*ops, **dict(kw, index_offset=5))
     with pytest.raises(ValueError, match="shape"):
         ce.month_loop_chunk(*ops, **dict(kw, direction=kw["direction"][:6]))
-    # 900 x 65 direction words do not fit in shared memory: read from
-    # global memory
+    # 900 x 65 direction words do not fit in shared memory at once: staged
+    # in windows of months
     deep_ops, deep_kw = _draw_args(cuda, "sobol_historical", "none",
                                    n_periods=900, index_offset=3)
     ce.month_loop_chunk(*deep_ops, **deep_kw)
@@ -969,6 +999,9 @@ def test_counted_wrappers_do_not_synchronise(cuda):
                   inv_zmax=1.0 / LAW_ZMAX, lo=200.0,
                   log_lo=float(np.log(200.0)), inv_w=1000.0, hb=4096,
                   with_hist=True, keep_finals=False)
+    sobol_cases = [_draw_args(cuda, "sobol_historical", "fixed_percent",
+                              index_offset=offset, keep_finals=False)
+                   for offset in (0, 777)]
     clt_ops = _clt_operands(cuda, "plain", 24)
     clt_kw = dict(variant="plain", seed_base=5, tile0=0, valid=8192 + 5,
                   n_paths=2 * 8192, v0=1000.0, target=1000.0, shift=1.0,
@@ -987,6 +1020,8 @@ def test_counted_wrappers_do_not_synchronise(cuda):
         for i in range(3):
             ce.month_loop_chunk(table, keep, **dict(month_kw, tile0=i))
             ce.month_loop_chunk(table, keep, **dict(month_kw, hb=20002))
+            for ops, kw in sobol_cases:
+                ce.month_loop_chunk(*ops, **dict(kw, tile0=i))
             ce.law_chunk(law, **dict(law_kw, tile0=i))
             ce.law_chunk(law, **dict(law_kw, hb=4002))
             clt.clt_chunk(*clt_ops, **dict(clt_kw, tile0=i))
