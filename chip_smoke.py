@@ -19,12 +19,14 @@ calibration kernels; then the experiment probes of the CLT and the
 counter stream: the op-class toys, the CLT's ablation and tile-grouping
 instances and the byte planes against their plain versions, the
 production CLT's SASS against the parent build's and its time against the
-same run's, and the probes' five reports. The Sobol draws' kernel
-(``csrc/sobol_loop.cu``) also: its ptxas resources and launch plans, its
-instances against the plain version (at 64-bit positions, under every
-strategy, at 1866 months and at the main path's first and ragged last
-chunk); and the month loop's other instances' registers and SASS against
-the parent build's.
+same run's, and the probes' five reports. The run kernel
+(``csrc/run_loop.cu``: the Gaussian ICDF and the Sobol draws) also: its
+ptxas resources and launch plans, its instances against the plain version
+(the Sobol draws at 64-bit positions, under every strategy, at 1866 months
+and at the main path's first and ragged last chunk); and the month loop's
+historical and reference instances' registers and spills. The band
+histogram also at an odd number of cells too many for a window of more
+than two months, and its launch plan (months a window, windows).
 
     python3 chip_smoke.py
 
@@ -79,11 +81,11 @@ _CSRC = "stock_market_monte_carlo_torch/csrc"
 KERNELS = {
     "month_loop": dict(source=f"{_CSRC}/month_loop.cu",
                        replaces=f"{_PE}:1097"),
-    "month_loop_gaussian": dict(source=f"{_CSRC}/month_loop.cu",
+    "month_loop_gaussian": dict(source=f"{_CSRC}/run_loop.cu",
                                 replaces=f"{_PE}:1097"),
-    "month_loop_sobol_gaussian": dict(source=f"{_CSRC}/sobol_loop.cu",
+    "month_loop_sobol_gaussian": dict(source=f"{_CSRC}/run_loop.cu",
                                       replaces=f"{_PE}:1097"),
-    "month_loop_sobol_historical": dict(source=f"{_CSRC}/sobol_loop.cu",
+    "month_loop_sobol_historical": dict(source=f"{_CSRC}/run_loop.cu",
                                         replaces=f"{_PE}:1097"),
     "month_loop_reference": dict(source=f"{_CSRC}/month_loop.cu",
                                  replaces=f"{_PE}:1097"),
@@ -140,6 +142,9 @@ ODD_BINS = 4000
 # the Sobol table's dimensions: the longest Sobol horizon
 SOBOL_MONTHS = 1866
 BAND_BINS = 1024
+# a band histogram of 20003 cells: two months a window (80 KB each), 180
+# windows at 360 months
+BAND_ODD_BINS = 20001
 BAND_THRESHOLDS = 32
 # the median band of a 100M-path run against the exact marginal law
 BAND_MEDIAN_REL = 0.01
@@ -175,20 +180,6 @@ MM_ROW_REL = 1e-3
 # 572bb64`, nvcc of CUDA 12.8 on the H100 machine; the probe instances must
 # leave them as they were
 CLT_SASS_PARENT = {0: 2030, 1: 2030, 2: 1866}
-# registers and SASS instructions (NOPs left out) of the month loop's
-# historical, ICDF and reference instances, month_loop_kernel<draw,
-# strategy, 1>, in the parent's build (4bfa447, where the Sobol draws were
-# instances of the same template): ptxas -v and cuobjdump -sass of
-# month_loop.cu from `git archive 4bfa447`, nvcc of CUDA 12.8 on the H100
-# machine; taking the Sobol instances out of the build must leave them
-MONTH_LOOP_REGS_PARENT = {
-    "<0,0,1>": 45, "<0,1,1>": 47, "<0,2,1>": 44, "<1,0,1>": 38,
-    "<1,1,1>": 38, "<1,2,1>": 35, "<4,0,1>": 32, "<4,1,1>": 40,
-    "<4,2,1>": 32}
-MONTH_LOOP_SASS_PARENT = {
-    "<0,0,1>": 703, "<0,1,1>": 722, "<0,2,1>": 720, "<1,0,1>": 975,
-    "<1,1,1>": 987, "<1,2,1>": 995, "<4,0,1>": 582, "<4,1,1>": 617,
-    "<4,2,1>": 615}
 # the production CLT's time in the probes' phase against phase 6's
 CLT_TIME_REL = 0.02
 # the byte planes: means within 127.5 +- 0.5, off-diagonal |corr| < 0.01
@@ -289,17 +280,18 @@ def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
 
 
 def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
-                    tile0=0):
+                    tile0=0, n_bins=BAND_BINS):
     """(table, keep, coef_a, coef_b), kwargs of one band chunk with the
-    coefficients simulate_bands builds; ``kind`` "hist" or "cdf"."""
+    coefficients simulate_bands builds; ``kind`` "hist" (of ``n_bins``
+    bins) or "cdf"."""
     from stock_market_monte_carlo_torch.engine import bands as bands_eng
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
     centers, scales = bands_eng.band_grid(model, strategy, n_periods, 1000.0)
     if kind == "hist":
-        ca, cb, _ = bands_eng.hist_coefficients(centers, scales, BAND_BINS,
+        ca, cb, _ = bands_eng.hist_coefficients(centers, scales, n_bins,
                                                 1000.0)
-        reduce_kw = dict(n_bins=BAND_BINS)
+        reduce_kw = dict(n_bins=n_bins, coef_a_host=ca)
     else:
         ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(
             centers, scales, BAND_THRESHOLDS, 1000.0)
@@ -552,9 +544,9 @@ def main():
     from stock_market_monte_carlo_torch.ops import _build, clt
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    # 2. build; the month loops' ptxas report: the Sobol kernel's instances
-    # (registers, spills; shared memory, window and blocks a SM at the main
-    # shapes), and the other draws' registers against the parent build's
+    # 2. build; the month loops' ptxas report: the run kernel's instances
+    # (registers, spills; paths a thread, shared memory, window and blocks a
+    # SM at the main shapes), and the month-loop kernel's
     t = time.perf_counter()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
@@ -565,37 +557,28 @@ def main():
     from stock_market_monte_carlo_torch.bench import kernel_resources as kres
 
     res = kres.ptxas_resources(report.getvalue())
-    sobol_res = {args: v for name, v in res.items()
-                 if (args := template_args(name, "sobol_loop_kernel"))}
-    check(len(sobol_res) == 6 and all(v[1] == v[2] == 0
-                                       for v in sobol_res.values()),
-          f"Sobol kernel instances (registers, spill stores, spill loads): "
-          f"{sobol_res}")
-    say(2, "sobol_loop_kernel<draw,strategy> (registers, spill stores, "
-           f"spill loads): {sobol_res}")
-    plans = {}
+    for kernel, instances in (("run_loop_kernel", 9),
+                              ("month_loop_kernel", 6)):
+        found = {args: v for name, v in res.items()
+                 if (args := template_args(name, kernel))}
+        check(len(found) == instances
+              and all(v[1] == v[2] == 0 for v in found.values()),
+              f"{kernel} instances (registers, spill stores, spill loads): "
+              f"{found}")
+        say(2, f"{kernel}<draw,strategy> (registers, spill stores, spill "
+               f"loads): {found}")
+    plans = {"gaussian": ce.run_kernel_info("gaussian",
+                                            n_periods=MAIN_MONTHS)}
     for draw in ("sobol_gaussian", "sobol_historical"):
         for cols, months in ((32, MAIN_MONTHS), (64, MAIN_MONTHS),
                              (64, SOBOL_MONTHS)):
             plans[f"{draw} {cols} columns {months} months"] = \
-                ce.sobol_kernel_info(draw, n_table=1127, dir_cols=cols,
-                                     n_periods=months)
-    say(2, f"Sobol launch plans (paths a thread, registers, dynamic shared "
-           f"memory, window of months, blocks a SM): {json.dumps(plans)}")
-    regs = {args: v[0] for name, v in res.items()
-            if (args := template_args(name, "month_loop_kernel"))}
+                ce.run_kernel_info(draw, n_table=1127, dir_cols=cols,
+                                   n_periods=months)
+    say(2, f"run kernel launch plans (paths a thread, registers, dynamic "
+           f"shared memory, window of months, blocks a SM): "
+           f"{json.dumps(plans)}")
     from stock_market_monte_carlo_torch.ops import calibration as cal
-
-    sass = {args: len(cal._instructions(body)[0])
-            for name, body in cal.sass_functions().items()
-            if (args := template_args(name, "month_loop_kernel"))}
-    check(regs == MONTH_LOOP_REGS_PARENT and sass == MONTH_LOOP_SASS_PARENT,
-          f"month_loop_kernel<draw,strategy,1> registers {regs}, SASS {sass} "
-          f"vs the parent build's {MONTH_LOOP_REGS_PARENT}, "
-          f"{MONTH_LOOP_SASS_PARENT}")
-    say(2, f"month_loop_kernel<draw,strategy,1> registers {regs} and SASS "
-           f"instructions {sass} == the parent build's (the historical, ICDF "
-           "and reference instances; the Sobol ones are no longer built)")
 
     # 3. kernels against their plain versions on the card
     hist_model = smt.HistoricalBootstrap.from_csv()
@@ -775,6 +758,17 @@ def main():
                              reduce_kind, valid)
         max_err[name] = max(max_err[name], err)
         say("3b", f"{label}: kernel == plain")
+    # the band histogram at 20003 cells (two months a window) on both draws
+    for model in (hist_model, gauss):
+        ops, kw = band_chunk_args(model, strategies["fixed_percent"], "hist",
+                                  MAIN_MONTHS, valid, CHECK_PATHS, seed=3,
+                                  tile0=3, n_bins=BAND_ODD_BINS)
+        label = f"bands_hist {model.kind} {BAND_ODD_BINS + 2} cells"
+        err = compare_counts(label, bk.month_hist_chunk(*ops, **kw),
+                             bk.month_hist_chunk_plain(*ops, **kw), "hist",
+                             valid)
+        max_err["bands_hist"] = max(max_err["bands_hist"], err)
+        say("3b", f"{label} valid={valid}: kernel == plain")
     # what the band kernels launch for a main chunk
     plans = {}
     for model in (hist_model, gauss):
@@ -788,7 +782,8 @@ def main():
                 valid=CHUNK, n_cells=cells)
     say("3b", f"launch plans at {CHUNK} x {MAIN_MONTHS} (registers a "
               f"thread, shared memory, threads a block, resident blocks a "
-              f"SM, grid, copies of the count table): {json.dumps(plans)}")
+              f"SM, grid, copies of the count table, months a window, "
+              f"windows): {json.dumps(plans)}")
 
     # 3c. the headline's calibration kernels and the counts below a tile
     # against their plain versions, bit for bit: the grid overhead at the
@@ -1280,6 +1275,13 @@ def main():
         wall, reps = wall_median(lambda: band_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
                f"{reps}")
+    # the band histogram's cell edges, bisected once a simulate_bands call
+    (_, _, ca, cb), _ = band_chunk_args(hist_model, smt.NoWithdrawal(),
+                                        "hist", MAIN_MONTHS, CHUNK, CHUNK,
+                                        seed=0)
+    wall, reps = wall_median(lambda: bk.hist_edges(ca, cb, BAND_BINS))
+    say(6, f"[{card}] hist_edges {MAIN_MONTHS} x {BAND_BINS + 1}: median "
+           f"{wall!r} s of {reps} (once a bands call)")
     none = smt.NoWithdrawal()
     chunk_cases = {
         "month_loop": (month_chunk_args(hist_model, none, MAIN_MONTHS,

@@ -4,15 +4,20 @@ checkout's (for example a parent commit unpacked with ``git archive``),
 each built with the same nvcc and flags (``ops/_build.NVCC_FLAGS``).
 
     python3 -m stock_market_monte_carlo_torch.bench.kernel_resources \\
-        OTHER_ROOT [SOURCE ...]
+        OTHER_ROOT [--rename OLD=NEW ...] [SOURCE ...]
 
 SOURCE names files of ``csrc/`` (default: every source of
 ``ops/_build.SOURCES``); each is compiled to a cubin with ``-Xptxas -v``
-in both trees where it exists, all in parallel. Prints one JSON line:
+in both trees where it exists, all in parallel. ``--rename OLD=NEW``
+compares the other tree's kernels whose names hold OLD with this tree's
+of the same name with NEW in its place (a kernel renamed between the
+two). Prints one JSON line:
 ``{"kernels": {mangled name: {"this": [registers, spill stores, spill
 loads, SASS instructions], "other": [...]}}, "differ": [names whose
-numbers differ], "only_this": [...], "only_other": [...]}``; the names
-leave out the id nvcc gives each source's anonymous namespace. SASS
+numbers differ], "only_this": {name: [...]}, "only_other": {name:
+[...]}}``; the names leave out the anonymous namespace nvcc names after
+each source (its file and a hash), so that a kernel keeps its name when
+its source is renamed. SASS
 instructions are ``cuobjdump -sass``'s, NOPs left out. Needs the CUDA
 toolkit, not a card. Imports neither jax nor the JAX package.
 """
@@ -32,15 +37,18 @@ from stock_market_monte_carlo_torch.ops import calibration as cal
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-# the unique id nvcc gives an anonymous namespace, which follows the
-# source's path
-_ANON_ID = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# a name in the anonymous namespace nvcc names after a source (its path
+# and file and a hash): _ZN<length><that namespace's name>...
+_ANON = re.compile(r"_ZN(\d+)_GLOBAL__N_")
 
 
 def _name(mangled: str) -> str:
-    """A kernel's mangled name without its anonymous namespace's id, so
-    that the same kernel of two checkouts has one name."""
-    return _ANON_ID.sub("_GLOBAL__N__", mangled)
+    """A kernel's mangled name without its anonymous namespace, so that the
+    same kernel of two checkouts (or of a renamed source) has one name."""
+    m = _ANON.match(mangled)
+    if not m:
+        return mangled
+    return "_ZN_GLOBAL__N_" + mangled[m.end(1) + int(m.group(1)):]
 
 
 def ptxas_resources(report: str) -> dict:
@@ -84,7 +92,7 @@ def build_resources(csrc: Path, sources, out_dir: Path) -> dict:
     return out
 
 
-def compare(other_root: Path, sources=None) -> dict:
+def compare(other_root: Path, sources=None, renames=()) -> dict:
     this_csrc = _build.CSRC_DIR
     other_csrc = other_root / this_csrc.relative_to(this_csrc.parents[1])
     sources = [s for s in (sources or _build.SOURCES)
@@ -99,20 +107,28 @@ def compare(other_root: Path, sources=None) -> dict:
         other = build_resources(
             other_csrc, [s for s in sources if (other_csrc / s).exists()],
             other_dir)
+    for old, new in renames:
+        other = {k.replace(old, new): v for k, v in other.items()}
     both = sorted(set(this) & set(other))
     return dict(
         kernels={k: {"this": this[k], "other": other[k]} for k in both},
         differ=[k for k in both if this[k] != other[k]],
-        only_this=sorted(set(this) - set(other)),
-        only_other=sorted(set(other) - set(this)))
+        only_this={k: this[k] for k in sorted(set(this) - set(other))},
+        only_other={k: other[k] for k in sorted(set(other) - set(this))})
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         raise SystemExit(__doc__)
+    renames = []
+    while "--rename" in argv:
+        i = argv.index("--rename")
+        renames.append(tuple(argv[i + 1].split("=", 1)))
+        del argv[i:i + 2]
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
-    print(json.dumps(compare(Path(argv[0]).resolve(), argv[1:] or None)))
+    print(json.dumps(compare(Path(argv[0]).resolve(), argv[1:] or None,
+                             renames)))
 
 
 if __name__ == "__main__":

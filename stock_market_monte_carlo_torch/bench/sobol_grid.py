@@ -1,7 +1,7 @@
-"""The Sobol draws' month-loop kernel (``csrc/sobol_loop.cu``) under two
+"""The Sobol draws' month-loop kernel (``csrc/run_loop.cu``) under two
 grids, timed in turns on one CUDA card: the launcher's (at most 8 blocks a
 SM, as the other month-loop draws) and a persistent grid (as many blocks
-as are resident at once, ``sobol_kernel_info``), each block looping over
+as are resident at once, ``run_kernel_info``), each block looping over
 its groups of 256 x K paths.
 
     python3 -m stock_market_monte_carlo_torch.bench.sobol_grid
@@ -62,7 +62,7 @@ def _launcher(ops, kw, persistent):
 
     def patched(sms, valid, rows_per_block, blocks_per_sm):
         if persistent:
-            blocks_per_sm = ce.sobol_kernel_info(
+            blocks_per_sm = ce.run_kernel_info(
                 kw["draw"], kw["strategy"], n_table=kw["n_table"],
                 dir_cols=kw["direction"].shape[1],
                 n_periods=kw["n_periods"], hb=kw["hb"],

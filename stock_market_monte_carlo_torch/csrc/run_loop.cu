@@ -1,42 +1,53 @@
-// Sobol month-loop kernel: one chunk of paths compounded month by month
-// under the Sobol Gaussian or the Sobol historical draw.
+// Run month-loop kernel: one chunk of paths compounded month by month,
+// each thread holding a run of K consecutive paths, under the counter
+// stream's Gaussian ICDF draw or the Sobol Gaussian or Sobol historical
+// draw.
 //
 // Replaces: stock_market_monte_carlo_tpu/ops/pallas_engine.py
 //   _build_kernel, built by _build_pallas_call (pl.pallas_call at :1097),
+//   kind="gaussian" (the growth(t) branch at :449-461) and
 //   kind="sobol_gaussian" / "sobol_historical", with and without
 //   sobol_deep (:362-397, :449-461). csrc/month_loop.cu's smmc_month_loop
-//   routes its draws 2 and 3 here. Plain version: ops/cuda_engine.py
-//   month_loop_chunk_plain (the word from the byte tables, _sobol_words).
+//   routes its draws 1-3 here. Plain version: ops/cuda_engine.py
+//   month_loop_chunk_plain (the Sobol word from the byte tables,
+//   _sobol_words).
 //
-// What it computes, per path and month: the digital-shifted Sobol word of
-// dimension t at the path's sequence position idx = index_offset + gid
-// (gid = tile0 * 8192 + p in uint32), word = shift[t] ^ XOR of
-// dir[t][b] over the set bits b of gray(idx) = idx ^ (idx >> 1); then a
-// + b*normal_z(word) (kSobolGaussian) or table row floor(n * word / 2^32)
-// (kSobolHistorical), one compounding step under the strategy; then the
-// chunk's stats row and log histogram, as month_loop.cu.
+// What it computes, per path and month: a 32-bit word, then a +
+// b*normal_z(word) (kGaussian, kSobolGaussian) or table row
+// floor(n * word / 2^32) (kSobolHistorical), one compounding step under
+// the strategy; then the chunk's stats row and log histogram, as
+// month_loop.cu. The word:
+// - kGaussian: the counter word arith_word(h, pos) of the path's position
+//   pos in its 8192-path tile, h = tile_seed(tile seed, month);
+// - the Sobol draws: the digital-shifted Sobol word of dimension t at the
+//   path's sequence position idx = index_offset + gid (gid = tile0 * 8192
+//   + p in uint32), word = shift[t] ^ XOR of dir[t][b] over the set bits b
+//   of gray(idx) = idx ^ (idx >> 1).
 //
-// What bounds it on an H100: the function needs one direction load and
-// one XOR a path-month (neighbouring positions' gray codes differ in one
-// bit, gray(i) ^ gray(i-1) = 1 << ctz(i), so word(i) = word(i-1) ^
-// dir[t][ctz(i)]), then the draw: the erfinv's ~35 float operations
-// (Gaussian) or an index map and a shared-memory gather (historical).
-// A per-path fold of the 32 (64) bits is one shared-memory load a bit,
-// and shared-memory loads issue at one warp instruction a clock per SM:
-// that fold alone took ~23 ms of a 2^24-path chunk x 360 months.
+// What bounds it on an H100: operations. The counter word is a hash (~10
+// integer operations) a path-month and its month key one a tile-month;
+// the Sobol word needs one direction load and one XOR a path-month
+// (neighbouring positions' gray codes differ in one bit, gray(i) ^
+// gray(i-1) = 1 << ctz(i), so word(i) = word(i-1) ^ dir[t][ctz(i)]). Then
+// the draw: the erfinv's ~35 float operations (Gaussian draws) or an index
+// map and a shared-memory gather (historical). A per-path fold of the 32
+// (64) bits is one shared-memory load a bit, and shared-memory loads issue
+// at one warp instruction a clock per SM: that fold alone took ~23 ms of a
+// 2^24-path chunk x 360 months.
 //
 // What the design does about it:
 // - A thread holds K consecutive chunk paths p0 .. p0+K-1 in registers
-//   (K = 8 for the Gaussian draw, 16 for the historical: the faster of 4,
-//   8 and 16 on the H100, PERF.md), and a warp the 32K consecutive paths
-//   of 32 neighbouring runs. The
-//   runs never leave an 8192-path tile (32K divides 8192), so their
-//   sequence positions are consecutive: gid wraps at 2^32 only between
-//   tiles, and idx is 64-bit.
-// - The step columns c_j = ctz(idx0 + j), j = 1..K, do not depend on the
-//   month; each thread works them out once per run, before the months.
-// - Each month the warp folds its first position once, spread over the
-//   lanes: lane b holds dir[t][b] (and dir[t][32+b]) masked by
+//   (K = 8 for the Gaussian draws, 16 for the Sobol historical: the faster
+//   of 4, 8 and 16 on the H100, PERF.md), and a warp the 32K consecutive
+//   paths of 32 neighbouring runs. The runs never leave an 8192-path tile
+//   (32K divides 8192): the counter draw hashes its month key once a
+//   thread-month, and the Sobol positions are consecutive (gid wraps at
+//   2^32 only between tiles, and idx is 64-bit).
+// - The Sobol step columns c_j = ctz(idx0 + j), j = 1..K, do not depend
+//   on the month; each thread works them out once per run, before the
+//   months (the counter draw does not read them).
+// - Each month the warp folds its first Sobol position once, spread over
+//   the lanes: lane b holds dir[t][b] (and dir[t][32+b]) masked by
 //   bit b of that gray code, and a 5-step XOR butterfly gives every lane
 //   the word. A 5-step XOR scan of the runs' step XORs D (the XOR of
 //   dir[t][c_j], j = 1..K) gives each lane the word at its run's first
@@ -55,10 +66,11 @@
 //   lane of a warp runs the shuffles: paths past `valid` are computed and
 //   not counted). Staging all 360 months of the 64-bit table (2 blocks a
 //   SM) was slower, and a window of 32 or 64 months no faster (PERF.md).
-// - The Gaussian draw evaluates the erfinv's tail polynomial (w >= 5,
+// - The Gaussian draws evaluate the erfinv's tail polynomial (w >= 5,
 //   about one draw in 300) only where a lane of the warp needs it, behind
 //   a warp-uniform branch (normal_z_warp): the same operations on each
 //   value as the branch-free normal_z, which computes both polynomials.
+//   Every lane of a warp runs every path, so the warps stay whole.
 // - keep[t] is read once a thread-month; the growth table (historical)
 //   and the histogram sit in shared memory as in month_loop.cu; partial
 //   statistics are float64 per thread, one row a block; finals are
@@ -74,7 +86,7 @@ namespace {
 
 using namespace smmc;
 
-enum Draw { kSobolGaussian = 2, kSobolHistorical = 3 };
+enum Draw { kGaussian = 1, kSobolGaussian = 2, kSobolHistorical = 3 };
 enum Strategy { kNone = 0, kKeep = 1, kFixedAmount = 2 };
 // shared memory for a window of direction rows and shifts
 constexpr size_t kDirBudget = 16 * 1024;
@@ -82,7 +94,7 @@ constexpr size_t kDirBudget = 16 * 1024;
 // K, the consecutive paths a thread holds: the faster of 4, 8 and 16 for
 // each draw on the H100 (PERF.md)
 __host__ __device__ constexpr int paths_a_thread(int draw) {
-  return draw == kSobolGaussian ? 8 : 16;
+  return draw == kSobolHistorical ? 16 : 8;
 }
 
 struct Args {
@@ -105,6 +117,7 @@ struct Args {
   double* partials;       // (gridDim.x, 8)
   int* hist;              // (hb,) or null
   int window;             // months of direction rows in shared memory
+  uint32_t seed_base;     // the counter stream's base; kGaussian
 };
 
 // Dynamic shared memory of one block: the table (historical), the window
@@ -127,8 +140,25 @@ __device__ __forceinline__ void stage_rows(const Args& g, uint32_t* s_dir,
     s_shift[i] = g.shift[t0 + i];
 }
 
+// One month of one path: compound by the growth gfac, then withdraw under
+// the strategy (keep_t: the month's keep factor), adding the withdrawal
+// to wsum.
+template <int STRATEGY>
+__device__ __forceinline__ void step(float& total, float& wsum, float gfac,
+                                     float keep_t, float amount) {
+  const float grown = total * gfac;
+  if constexpr (STRATEGY == kNone) {
+    total = grown;
+  } else {
+    const float nv = STRATEGY == kKeep ? grown * keep_t
+                                       : fmaxf(grown - amount, 0.0f);
+    wsum = wsum + (grown - nv);
+    total = nv;
+  }
+}
+
 template <int DRAW, int STRATEGY>
-__global__ void __launch_bounds__(kBlock) sobol_loop_kernel(const Args g) {
+__global__ void __launch_bounds__(kBlock) run_loop_kernel(const Args g) {
   constexpr int K = paths_a_thread(DRAW);
   extern __shared__ __align__(16) unsigned char smem[];
   const bool with_hist = g.hist != nullptr;
@@ -144,7 +174,8 @@ __global__ void __launch_bounds__(kBlock) sobol_loop_kernel(const Args g) {
     for (int i = threadIdx.x; i < g.k_chunks * 128; i += blockDim.x)
       s_table[i] = g.table[i];
   const bool staged_once = g.window >= g.n_periods;
-  if (staged_once) stage_rows(g, s_dir, s_shift, 0, g.n_periods);
+  if (DRAW != kGaussian && staged_once)
+    stage_rows(g, s_dir, s_shift, 0, g.n_periods);
   if (with_hist)
     for (int i = threadIdx.x; i < g.hb; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
@@ -163,6 +194,7 @@ __global__ void __launch_bounds__(kBlock) sobol_loop_kernel(const Args g) {
                           ((uint32_t)p0 & (kTilePaths - 1));
     const uint64_t idx0 = g.index_offset + gid0;
     // col[j-1]: the direction column of the step to position idx0 + j
+    // (the Sobol draws; the counter draw reads none of what follows)
     int col[K];
 #pragma unroll
     for (int j = 1; j <= K; ++j)
@@ -178,54 +210,62 @@ __global__ void __launch_bounds__(kBlock) sobol_loop_kernel(const Args g) {
       total[j] = g.v0;
       wsum[j] = 0.0f;
     }
-    for (int t0 = 0; t0 < g.n_periods; t0 += g.window) {
-      const int n = min(g.window, g.n_periods - t0);
-      if (!staged_once) {
-        __syncthreads();
-        stage_rows(g, s_dir, s_shift, t0, n);
-        __syncthreads();
-      }
-      const int r0 = staged_once ? t0 : 0;
-      for (int r = r0; r < r0 + n; ++r) {
-        const uint32_t* row = s_dir + r * cols;
-        uint32_t d[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) d[j] = row[col[j]];
-        uint32_t f = row[lane] & m_lo;
-        if (cols == 64) f ^= row[32 + lane] & m_hi;
-        uint32_t run = d[0];
-#pragma unroll
-        for (int j = 1; j < K; ++j) run ^= d[j];
-        uint32_t scan = run;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          f ^= __shfl_xor_sync(0xffffffffu, f, o);
-          const uint32_t up = __shfl_up_sync(0xffffffffu, scan, o);
-          if (lane >= o) scan ^= up;
-        }
-        // the warp's first word, then the lanes before this one
-        uint32_t w = f ^ scan ^ run ^ s_shift[r];
-        const int t = t0 + r - r0;
+    if constexpr (DRAW == kGaussian) {
+      // the run's counter words: positions pos0 .. pos0+K-1 of its tile
+      const uint32_t seed = tile_seed(g.seed_base, tile);
+      const uint32_t pos0 = (uint32_t)p0 & (kTilePaths - 1);
+      for (int t = 0; t < g.n_periods; ++t) {
+        const uint32_t h = tile_seed(seed, (uint32_t)t);
         float keep_t = 0.0f;
         if constexpr (STRATEGY == kKeep) keep_t = g.keep[t];
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          float gfac;
-          if constexpr (DRAW == kSobolGaussian)
-            gfac = g.a + g.b * normal_z_warp(w);
-          else
-            gfac = s_table[idx_exact(w, n_table)];
-          const float grown = total[j] * gfac;
-          if constexpr (STRATEGY == kNone) {
-            total[j] = grown;
-          } else {
-            const float nv = STRATEGY == kKeep
-                                 ? grown * keep_t
-                                 : fmaxf(grown - g.amount, 0.0f);
-            wsum[j] = wsum[j] + (grown - nv);
-            total[j] = nv;
+          const float gfac =
+              g.a + g.b * normal_z_warp(arith_word(h, pos0 + (uint32_t)j));
+          step<STRATEGY>(total[j], wsum[j], gfac, keep_t, g.amount);
+        }
+      }
+    } else {
+      for (int t0 = 0; t0 < g.n_periods; t0 += g.window) {
+        const int n = min(g.window, g.n_periods - t0);
+        if (!staged_once) {
+          __syncthreads();
+          stage_rows(g, s_dir, s_shift, t0, n);
+          __syncthreads();
+        }
+        const int r0 = staged_once ? t0 : 0;
+        for (int r = r0; r < r0 + n; ++r) {
+          const uint32_t* row = s_dir + r * cols;
+          uint32_t d[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) d[j] = row[col[j]];
+          uint32_t f = row[lane] & m_lo;
+          if (cols == 64) f ^= row[32 + lane] & m_hi;
+          uint32_t run = d[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) run ^= d[j];
+          uint32_t scan = run;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            f ^= __shfl_xor_sync(0xffffffffu, f, o);
+            const uint32_t up = __shfl_up_sync(0xffffffffu, scan, o);
+            if (lane >= o) scan ^= up;
           }
-          w ^= d[j];
+          // the warp's first word, then the lanes before this one
+          uint32_t w = f ^ scan ^ run ^ s_shift[r];
+          const int t = t0 + r - r0;
+          float keep_t = 0.0f;
+          if constexpr (STRATEGY == kKeep) keep_t = g.keep[t];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            float gfac;
+            if constexpr (DRAW == kSobolGaussian)
+              gfac = g.a + g.b * normal_z_warp(w);
+            else
+              gfac = s_table[idx_exact(w, n_table)];
+            step<STRATEGY>(total[j], wsum[j], gfac, keep_t, g.amount);
+            w ^= d[j];
+          }
         }
       }
     }
@@ -256,15 +296,18 @@ using KernelFn = void (*)(const Args);
 template <int DRAW>
 KernelFn kernel_of(int strategy) {
   switch (strategy) {
-    case kNone: return sobol_loop_kernel<DRAW, kNone>;
-    case kKeep: return sobol_loop_kernel<DRAW, kKeep>;
-    case kFixedAmount: return sobol_loop_kernel<DRAW, kFixedAmount>;
+    case kNone: return run_loop_kernel<DRAW, kNone>;
+    case kKeep: return run_loop_kernel<DRAW, kKeep>;
+    case kFixedAmount: return run_loop_kernel<DRAW, kFixedAmount>;
     default: return nullptr;
   }
 }
 
-// The instance of (draw, strategy), or null where there is none.
+// The instance of (draw, strategy), or null where there is none: the
+// counter draw takes no direction table, the Sobol draws 32 or 64 columns.
 KernelFn kernel_of(int draw, int strategy, int dir_cols) {
+  if (draw == kGaussian)
+    return dir_cols == 0 ? kernel_of<kGaussian>(strategy) : nullptr;
   if (dir_cols != 32 && dir_cols != 64) return nullptr;
   switch (draw) {
     case kSobolGaussian: return kernel_of<kSobolGaussian>(strategy);
@@ -273,21 +316,25 @@ KernelFn kernel_of(int draw, int strategy, int dir_cols) {
   }
 }
 
-// The window of months of direction rows: every month where the rows fit
-// in kDirBudget, else as many months as fit.
-int pick_window(int dir_cols, int n_periods) {
+// The window of months of direction rows: none for the counter draw; for
+// the Sobol draws every month where the rows fit in kDirBudget, else as
+// many months as fit.
+int pick_window(int draw, int dir_cols, int n_periods) {
+  if (draw == kGaussian) return 0;
   const size_t row_bytes = (size_t)(dir_cols + 1) * sizeof(uint32_t);
   return (int)std::min<size_t>(n_periods, kDirBudget / row_bytes);
 }
 
 }  // namespace
 
-// One chunk of a Sobol draw: draw 2 (Sobol Gaussian: a, b) or 3 (Sobol
-// historical: table, k_chunks, n_table), the operands as smmc_month_loop
-// takes them, which routes these two draws here (tail_n and seed_base are
-// not read). The grid's blocks each take groups of kBlock x K paths
-// (smmc_sobol_info). Returns cudaGetLastError() after the launch.
-extern "C" int smmc_sobol_loop(
+// One chunk of draw 1 (counter Gaussian: a, b, seed_base), 2 (Sobol
+// Gaussian: a, b and the Sobol operands) or 3 (Sobol historical: table,
+// k_chunks, n_table and the Sobol operands), the operands as
+// smmc_month_loop takes them, which routes these draws here (tail_n is not
+// read; dir_cols is 0 for draw 1). The grid's blocks each take groups of
+// kBlock x K paths (smmc_run_info). Returns cudaGetLastError() after the
+// launch.
+extern "C" int smmc_run_loop(
     int draw, const float* table, int k_chunks, int n_table, int tail_n,
     float a, float b, const unsigned int* dir, const unsigned int* shift,
     int dir_cols, unsigned int off_lo, unsigned int off_hi, const float* keep,
@@ -301,7 +348,7 @@ extern "C" int smmc_sobol_loop(
                dir_cols, ((uint64_t)off_hi << 32) | off_lo, keep, amount,
                n_periods, tile0, valid, v0, inv0, target, shift_c, log_lo,
                inv_w, hb, finals, partials, hist,
-               pick_window(dir_cols, n_periods)};
+               pick_window(draw, dir_cols, n_periods), seed_base};
   const size_t smem = smem_bytes(g, draw);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -310,13 +357,13 @@ extern "C" int smmc_sobol_loop(
   return cudaGetLastError();
 }
 
-// What one chunk of a Sobol draw launches, as smmc_sobol_loop would with
+// What one chunk of draw 1, 2 or 3 launches, as smmc_run_loop would with
 // these operands (hist: whether the chunk bins in place): info[0] paths a
 // thread (K), [1] registers a thread, [2] dynamic shared memory (bytes),
 // [3] the window of months, [4] resident blocks a SM on the current device.
-extern "C" int smmc_sobol_info(int draw, int strategy, int k_chunks,
-                               int dir_cols, int n_periods, int hb, int hist,
-                               int* info) {
+extern "C" int smmc_run_info(int draw, int strategy, int k_chunks,
+                             int dir_cols, int n_periods, int hb, int hist,
+                             int* info) {
   const KernelFn fn = kernel_of(draw, strategy, dir_cols);
   if (fn == nullptr) return cudaErrorInvalidValue;
   Args g{};
@@ -324,7 +371,7 @@ extern "C" int smmc_sobol_info(int draw, int strategy, int k_chunks,
   g.dir_cols = dir_cols;
   g.hb = hb;
   g.hist = hist ? reinterpret_cast<int*>(1) : nullptr;
-  g.window = pick_window(dir_cols, n_periods);
+  g.window = pick_window(draw, dir_cols, n_periods);
   const size_t smem = smem_bytes(g, draw);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

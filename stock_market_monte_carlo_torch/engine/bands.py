@@ -104,6 +104,21 @@ def _chunk_month_hist(model, strategy, root_key, scramble_key, v0, offset,
                           ).reshape(t + 1, cells)
 
 
+def _to_host(counts):
+    """(host counts, event or None): a CUDA tensor's copy into pinned host
+    memory, queued on the current stream right behind the kernel that made
+    it, and the event to wait on before reading it; a CPU tensor as it is.
+    Waiting on that event waits for this chunk only, where ``.cpu()``
+    would wait for every kernel queued before it (the next chunk's too)."""
+    if counts.device.type != "cuda":
+        return counts, None
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(counts.device))
+    return host, copied
+
+
 def band_grid(model, strategy, n_periods: int, initial_capital: float):
     """(centers, scales) of the z-grid, (T+1,) each: month t's log centre
     log(v0) + t*mu_l and log scale sigma_l*sqrt(t); a percent strategy
@@ -308,18 +323,20 @@ def simulate_bands(
         def absorb(counts, valid):
             out = np.zeros_like(total)
             out[0] = float(valid) * m0row
-            out[1:] = counts.cpu().numpy()
+            out[1:] = counts.numpy()
             return out
     else:
         if use_kernels:
             coef_a, coef_b, idx0 = hist_coefficients(
                 centers, scales, n_bins, initial_capital)
-            reduce_kw = dict(n_bins=n_bins)
+            # the kernel checks A_t > 0 on the host copy; the cell edges
+            # are computed once for every chunk
+            reduce_kw = dict(n_bins=n_bins, coef_a_host=coef_a)
             chunk_fn = kb.month_hist_chunk
         total = np.zeros((n_periods + 1, n_bins + 2), np.float64)
 
         def absorb(counts, valid):
-            return _expand(counts.cpu().numpy(), valid, use_kernels,
+            return _expand(counts.numpy(), valid, use_kernels,
                            idx0 if use_kernels else 0)
 
     if use_kernels:
@@ -328,6 +345,8 @@ def simulate_bands(
                   else torch.as_tensor(keep_np, device=dev))
         coef_a_t = torch.as_tensor(coef_a, device=dev)
         coef_b_t = torch.as_tensor(coef_b, device=dev)
+        if not use_cdf and dev.type == "cuda":
+            reduce_kw["edges"] = kb.hist_edges(coef_a_t, coef_b_t, n_bins)
         base = eng._segment_base(seed, 0)
 
         def run_chunk(offset, valid, this_b):
@@ -349,22 +368,32 @@ def simulate_bands(
                                      centers_t, inv_scales, this_b,
                                      n_periods, n_bins, linear)
 
+    def absorb_pending():
+        (counts, copied), valid = pending
+        if copied is not None:
+            copied.synchronize()
+        return absorb(counts, valid), valid
+
     done, offset, remaining = 0, 0, n_paths
-    pending = None  # (device counts, valid): absorbed after the next launch
+    # (host counts, their copy's event or None, valid): absorbed after the
+    # next chunk's launch, so the card runs it meanwhile
+    pending = None
     while remaining > 0:
         valid = min(remaining, b)
         this_b = b if n_paths > b else eng._round_up(valid, eng.KEY_TILE)
-        counts = run_chunk(offset, valid, this_b)
+        counts = _to_host(run_chunk(offset, valid, this_b))
         if pending is not None:
-            total += absorb(*pending)
-            done += pending[1]
+            block, n = absorb_pending()
+            total += block
+            done += n
             if progress is not None:
                 progress(done, n_paths)
         pending = (counts, valid)
         offset += this_b
         remaining -= valid
-    total += absorb(*pending)
-    done += pending[1]
+    block, n = absorb_pending()
+    total += block
+    done += n
     if progress is not None:
         progress(done, n_paths)
 

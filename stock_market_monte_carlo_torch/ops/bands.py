@@ -27,9 +27,12 @@ most 2^24 per cell per chunk).
 Each wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Launches
 count under ``cuda_engine.LAUNCHES["bands_hist"]``, ``["bands_cdf"]`` and
-``["counts_below_tile"]``. The counts-below kernel finds a value's cell by
-a guess on the thresholds' log grid and a correction against them;
-``cdf_cell_twin`` is that arithmetic in plain torch, for the tests.
+``["counts_below_tile"]``. Both band kernels find a value's cell by a
+guess on the month's log grid and a correction against its thresholds or,
+for the histogram, its cell edges (``hist_edges``: the least float of each
+cell); ``cdf_cell_twin`` and ``hist_cell_twin`` are that arithmetic in
+plain torch, ``hist_plan_twin`` and ``hist_work_twin`` the histogram's
+split of a chunk into windows of months and warp items, for the tests.
 """
 
 from __future__ import annotations
@@ -46,9 +49,11 @@ CDF_THRESHOLDS = 32
 # the JAX kernel's VMEM budget for its (T*K, 128) int32 accumulator;
 # cdf_supported keeps its cap so the same inputs are accepted
 _CDF_VMEM_CAP = 8 << 20
-# shared memory of one block (the table, and a tile's running values and
-# two month histograms, or the (T, K+1) counts) must fit the opt-in maximum
+# shared memory of one block (the table, and a month's histogram cells and
+# their edges, or the (T, K+1) counts) must fit the opt-in maximum
 _MAX_SMEM = 227 * 1024
+# paths of a warp item of the band kernels (32 lanes x 8 paths)
+_ITEM_PATHS = 256
 # the smallest value the cell arithmetic takes the log of
 _TINY = 1e-37
 _LOG2E = 1.4426950408889634
@@ -104,10 +109,11 @@ def _month_values(dev, table, keep, *, draw, n_table, a, b, n_periods,
 
 
 def month_hist_chunk_plain(table, keep, coef_a, coef_b, *, n_bins, valid,
-                           **kw):
+                           coef_a_host=None, edges=None, **kw):
     """Plain PyTorch version of the band-histogram kernel: (T, n_bins+2)
     int32 counts of the first ``valid`` paths of the chunk, months 1..T.
-    ``kw`` as ``_month_values``."""
+    ``kw`` as ``_month_values``; ``coef_a_host`` and ``edges`` are the
+    kernel's and unused here."""
     floor_v = torch.full((), ce._f32(1e-37), device=coef_a.device)
     rows = []
     for t, total in _month_values(coef_a.device, table, keep, **kw):
@@ -116,6 +122,56 @@ def month_hist_chunk_plain(table, keep, coef_a, coef_b, *, n_bins, valid,
         idx = torch.clamp(x, -1.0, float(n_bins)).to(torch.int64) + 1
         rows.append(torch.bincount(idx, minlength=n_bins + 2))
     return torch.stack(rows).to(torch.int32)
+
+
+def hist_cells(v, coef_a, coef_b, n_bins):
+    """int64 cells of float32 values ``v`` under bin coefficients
+    ``coef_a``, ``coef_b`` (broadcast against ``v``): clamp(floor(log(
+    fmax(v, 1e-37)) * A + B), -1, n_bins) + 1, in ``month_hist_chunk_plain``'s
+    float32 operations."""
+    logv = torch.log(torch.fmax(v, torch.full((), ce._f32(_TINY),
+                                               device=v.device)))
+    x = torch.floor(logv * coef_a + coef_b)
+    return torch.clamp(x, -1.0, float(n_bins)).to(torch.int64) + 1
+
+
+def hist_edges(coef_a, coef_b, n_bins):
+    """(T, n_bins+1) float32 cell edges of the band histogram: edge c-1 of
+    month t is the least float32 x >= 1e-37 (or +inf) whose cell
+    (``hist_cells`` under A_t > 0, B_t) is at least c, c = 1..n_bins+1.
+    Where the cell does not decrease as x grows (``torch.log`` does not
+    decrease over the floats, which the card's tests check for its log),
+    the cell of V is then the number of its month's edges that fmax(V,
+    1e-37) is not below: NaN and values below 1e-37 in the cell of 1e-37,
+    +inf in the last. A bisection over the float32 bit patterns from 1e-37
+    to +inf, every edge at once, on ``coef_a``'s device with its log."""
+    dev = coef_a.device
+    c = torch.arange(1, n_bins + 2, device=dev)
+    ca, cb = coef_a[:, None], coef_b[:, None]
+    lo_bits = int(np.float32(_TINY).view(np.int32)) - 1
+    hi_bits = int(np.float32(np.inf).view(np.int32))
+    # lo: below the edge (the pattern before 1e-37 stands for "none");
+    # hi: at or above it
+    lo = torch.full((coef_a.numel(), n_bins + 1), lo_bits, dtype=torch.int64,
+                    device=dev)
+    hi = torch.full_like(lo, hi_bits)
+    for _ in range((hi_bits - lo_bits).bit_length()):
+        gap = hi - lo > 1
+        mid = lo + (hi - lo) // 2
+        up = hist_cells(mid.to(torch.int32).view(torch.float32), ca, cb,
+                        n_bins) >= c
+        hi = torch.where(gap & up, mid, hi)
+        lo = torch.where(gap & ~up, mid, lo)
+    return hi.to(torch.int32).view(torch.float32).contiguous()
+
+
+def hist_guess_coefficients(coef_a, coef_b):
+    """(T, 2) float32 (a_t, c_t) of the band histogram kernel's guess of a
+    cell, floor((log2 V - a_t) * c_t) clamped to [1, n_bins]: c_t = A_t ln 2,
+    a_t = -(B_t + 1) / c_t, so that in exact arithmetic the guess is
+    floor(ln V * A_t + B_t) + 1, the cell."""
+    c = coef_a * _LN2
+    return torch.stack((-(coef_b + 1.0) / c, c), dim=1).contiguous()
 
 
 def cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_thresholds):
@@ -155,21 +211,23 @@ def cdf_guess_coefficients(coef_a, coef_b):
                        dim=1).contiguous()
 
 
-def cdf_cell_twin(v, thr, coef_a, coef_b):
-    """The counts-below kernel's cell arithmetic (``csrc/bands.cu``
-    ``cdf_guess`` and ``cdf_walk``) in plain torch, for the tests: int64 j
-    per float32 value of ``v``, the number of the month's K ascending
-    thresholds ``thr`` (K,) it is not below. The guess from
-    ``cdf_guess_coefficients`` of the month's float32 A_t, B_t
-    (``coef_a``, ``coef_b``), clamped in float to [1, K-1], then steps
-    down while v < thr[j-1] and up while !(v < thr[j]), so the result is
-    #{k : !(v < thr[k])} exactly. The kernel's guess takes the fast log2
-    (``__log2f``) where this takes ``torch.log2``, and checks a guess
-    before it walks; the walk makes the two results the same."""
+def cdf_cell_twin(v, thr, coef_a, coef_b, guess=cdf_guess_coefficients):
+    """The band kernels' cell arithmetic (``csrc/bands.cu`` ``cdf_guess``
+    and ``cdf_walk``) in plain torch, for the tests: int64 j per float32
+    value of ``v``, the number of the month's K ascending thresholds
+    ``thr`` (K,) it is not below. The guess from ``guess`` (the counts
+    below thresholds' ``cdf_guess_coefficients``, or the histogram's
+    ``hist_guess_coefficients`` with its edges as ``thr``) of the month's
+    float32 A_t, B_t (``coef_a``, ``coef_b``), clamped in float to [1,
+    K-1], then steps down while v < thr[j-1] and up while !(v < thr[j]),
+    so the result is #{k : !(v < thr[k])} exactly. The kernel's guess
+    takes the fast log2 (``__log2f``) where this takes ``torch.log2``, and
+    checks a guess before it walks; the walk makes the two results the
+    same."""
     k = thr.shape[0]
     f32 = dict(dtype=torch.float32, device=v.device)
-    a, c = cdf_guess_coefficients(torch.as_tensor(coef_a, **f32).reshape(1),
-                                  torch.as_tensor(coef_b, **f32).reshape(1))[0]
+    a, c = guess(torch.as_tensor(coef_a, **f32).reshape(1),
+                 torch.as_tensor(coef_b, **f32).reshape(1))[0]
     lg = torch.log2(torch.fmax(v, torch.full((), ce._f32(_TINY), **f32)))
     x = torch.fmin(torch.fmax(torch.floor((lg - a) * c),
                               torch.ones((), **f32)),
@@ -188,21 +246,110 @@ def cdf_cell_twin(v, thr, coef_a, coef_b):
     return j
 
 
+def hist_plan_twin(valid, n_periods, n_cells, n_table=0, sms=132,
+                   blocks_per_sm=1):
+    """The band-histogram kernel's launch plan (``csrc/bands.cu`` ``plan``,
+    mode 0) in plain Python, for the tests: {"window", "windows", "grid",
+    "threads"} for a ``valid``-path chunk of ``n_periods`` months of
+    ``n_cells`` cells beside an ``n_table``-row table (0: the Gaussian
+    draw), on a card of ``sms`` SMs holding ``blocks_per_sm`` blocks. The
+    fewest windows whose months' counts fit in shared memory beside the
+    table, evened out; the blocks that fit at once, or fewer where the
+    chunk has fewer warp items than their warps. Raises where one month
+    does not fit."""
+    tab = 4 * -(-n_table // 128) * 128
+    month = 4 * (2 * n_cells - 1)    # the cells and their edges
+    if n_periods < 1 or n_cells < 3 or tab + month > _MAX_SMEM:
+        raise ValueError(f"a month of {n_cells} cells does not fit")
+    most = min(n_periods, (_MAX_SMEM - tab) // month)
+    windows = -(-n_periods // most)
+    threads = 1024
+    items = -(-valid // _ITEM_PATHS)
+    grid = max(1, min(sms * max(1, blocks_per_sm),
+                      -(-items // (threads // 32))))
+    return dict(window=-(-n_periods // windows), windows=windows, grid=grid,
+                threads=threads)
+
+
+def hist_work_twin(valid, n_periods, window, grid, warps=32):
+    """How often the band-histogram kernel bins each path it simulates,
+    summed over the months, as its loops split the chunk (``csrc/bands.cu``
+    ``hist_kernel``), in plain torch for the tests: an int32 tensor over
+    the chunk's 256-path warp items' paths. Each of the ``grid`` x
+    ``warps`` warps walks a contiguous range of warp items (ranges differ
+    by at most one item) for each window of ``window`` months; lane l holds
+    the paths tile * 8192 + pos0 + 32 i (i < 8) of an item, pos0 = (item %
+    32) * 256 + l, and bins path i while 32 i < valid - tile * 8192 -
+    pos0."""
+    n_items = -(-valid // _ITEM_PATHS)
+    n_warps = grid * warps
+    gw = torch.arange(n_warps, dtype=torch.int64)
+    first, last = gw * n_items // n_warps, (gw + 1) * n_items // n_warps
+    # the warps that walk each item
+    edges = torch.zeros(n_items + 1, dtype=torch.int64)
+    edges.index_add_(0, first, torch.ones_like(first))
+    edges.index_add_(0, last, -torch.ones_like(last))
+    walkers = edges.cumsum(0)[:n_items, None]
+    item = torch.arange(n_items, dtype=torch.int64)[:, None]
+    tile = item // (TILE_PATHS // _ITEM_PATHS)
+    pos0 = (item % (TILE_PATHS // _ITEM_PATHS)) * _ITEM_PATHS + torch.arange(
+        32, dtype=torch.int64)
+    live = valid - tile * TILE_PATHS - pos0
+    counted = torch.zeros(n_items * _ITEM_PATHS, dtype=torch.int32)
+    for t0 in range(0, n_periods, window):
+        months = min(t0 + window, n_periods) - t0
+        for i in range(_ITEM_PATHS // 32):
+            path = (tile * TILE_PATHS + pos0 + 32 * i).reshape(-1)
+            binned = (walkers * (32 * i < live) * months).reshape(-1)
+            counted.index_add_(0, path, binned.to(torch.int32))
+    return counted
+
+
+def hist_cell_twin(v, edges, coef_a, coef_b):
+    """The band-histogram kernel's cell arithmetic in plain torch, for the
+    tests: ``cdf_cell_twin`` of fmax(v, 1e-37) against the month's edges
+    (``hist_edges``, (n_bins+1,)) with the histogram's guess
+    (``hist_guess_coefficients``). Equal to ``hist_cells`` of v where the
+    edges are the cells' least values."""
+    x = torch.fmax(v, torch.full((), ce._f32(_TINY), device=v.device))
+    return cdf_cell_twin(x, edges, coef_a, coef_b,
+                         guess=hist_guess_coefficients)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 
+def _host_coefficients(host, name, n_periods):
+    """A host copy of bin or threshold coefficients as float32 numpy,
+    checked to be (n_periods,)."""
+    if host is None:
+        raise ValueError(f"the kernel needs {name}, a host copy of "
+                         f"{name[:-5]}, to check its order")
+    host = np.asarray(host, dtype=np.float32)
+    if host.shape != (n_periods,):
+        raise ValueError(f"{name} has shape {host.shape}, expected "
+                         f"({n_periods},)")
+    return host
+
+
 def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
               n_periods, seed_base, tile0, valid, n_paths, v0, n_cells,
-              kappa_lo=0.0, kappa_hi=0.0, coef_b_host=None):
+              kappa_lo=0.0, kappa_hi=0.0, coef_b_host=None,
+              coef_a_host=None, edges=None):
     """Checked inputs of one band chunk on a CUDA device -> ``(launch,
     counts)``: ``launch()`` runs the kernel (``mode`` 0: histogram of
     ``n_cells`` cells, 1: counts below ``n_cells`` thresholds) into a
     zeroed int32 (T, cells) tensor on the current stream; ``counts()``
-    returns the (T, n_cells) result. Mode 1 takes ``coef_b_host``, a host
-    copy of ``coef_b``, and checks the order of the thresholds on it: a
-    check of the CUDA tensor would wait for the card."""
+    returns the (T, n_cells) result. Mode 0 takes ``coef_a_host``, a host
+    copy of ``coef_a``, and checks A_t > 0 on it, so that the cells do not
+    decrease as V grows; its cell edges are ``edges`` ((T, n_cells-1),
+    ``hist_edges``), or computed here; it keeps its running values
+    between windows of months in a scratch of the chunk's warp items. Mode
+    1 takes ``coef_b_host``, a host copy of ``coef_b``, and checks the
+    order of the thresholds on it. A check of the CUDA tensors would wait
+    for the card."""
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     dev = coef_a.device
@@ -223,47 +370,58 @@ def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
         k_chunks = tail_n = n_table = 0
     else:
         raise ValueError(f"unknown draw {draw!r}")
-    thr = guess = None
-    if mode == 1:
-        # the kernel counts, per path, the thresholds it is not below, and
-        # cumulates them here: exact for thresholds that do not decrease
-        # along a month's row, which B_t > 0 and ordered kk give
-        if coef_b_host is None:
-            raise ValueError("the counts-below kernel needs coef_b_host, a "
-                             "host copy of coef_b, to check the order of "
-                             "the thresholds")
-        b_host = np.asarray(coef_b_host, dtype=np.float32)
-        if b_host.shape != (n_periods,):
-            raise ValueError(f"coef_b_host has shape {b_host.shape}, "
-                             f"expected ({n_periods},)")
-        if not (bool((b_host > 0).all())
-                and kappa_lo <= 1.0 <= n_cells - 2 <= kappa_hi):
-            raise ValueError("thresholds must increase along k: coef_b > 0 "
-                             "and kappa_lo <= 1, kappa_hi >= K - 2")
-        thr = cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_cells)
-        guess = cdf_guess_coefficients(coef_a, coef_b)
-    # shared memory: the table, then a tile's running values and two
-    # months of cells (mode 0), or 8 warps' month rows and pairs and every
-    # month's K+1 cells (mode 1, one copy of its count table; it takes more
-    # copies where they fit)
+    # shared memory: the table, then a month's cells and edges (mode 0,
+    # which takes windows of as many months as fit), or 8 warps' month rows
+    # and pairs and every month's K+1 cells (mode 1, one copy of its count
+    # table; it takes more copies where they fit)
     cells = n_cells + mode
-    smem = 4 * (k_chunks * 128 + (TILE_PATHS + 2 * cells if mode == 0
+    smem = 4 * (k_chunks * 128 + (2 * cells - 1 if mode == 0
                                   else 8 * 3 * n_cells + n_periods * cells))
     if smem > _MAX_SMEM:
         raise ValueError(
             f"{n_periods} months of {n_cells} cells and a {n_table}-row "
             f"table need {smem} bytes of shared memory per block (at most "
             f"{_MAX_SMEM})")
+    if mode == 0:
+        # the kernel counts, per path, the month's cell edges it is not
+        # below: the cell exactly where the cells do not decrease as V
+        # grows, which A_t > 0 gives (with log not decreasing)
+        a_host = _host_coefficients(coef_a_host, "coef_a_host", n_periods)
+        if n_cells < 3 or not bool((np.isfinite(a_host) & (a_host > 0))
+                                   .all()):
+            raise ValueError("the band histogram needs n_bins >= 1 and "
+                             "finite coef_a > 0")
+        if edges is None:
+            edges = hist_edges(coef_a, coef_b, n_cells - 2)
+        ce._check(edges, "edges", dev, n_periods * (n_cells - 1))
+        # the edges, then the running values between windows of months, one
+        # a path of the chunk's 256-path warp items (overwritten)
+        buf = torch.empty((edges.numel()
+                           + -(-valid // _ITEM_PATHS) * _ITEM_PATHS,),
+                          dtype=torch.float32, device=dev)
+        buf[:edges.numel()].copy_(edges.reshape(-1))
+        guess = hist_guess_coefficients(coef_a, coef_b)
+    else:
+        # the kernel counts, per path, the thresholds it is not below, and
+        # cumulates them here: exact for thresholds that do not decrease
+        # along a month's row, which B_t > 0 and ordered kk give
+        b_host = _host_coefficients(coef_b_host, "coef_b_host", n_periods)
+        if not (bool((b_host > 0).all())
+                and kappa_lo <= 1.0 <= n_cells - 2 <= kappa_hi):
+            raise ValueError("thresholds must increase along k: coef_b > 0 "
+                             "and kappa_lo <= 1, kappa_hi >= K - 2")
+        buf = cdf_thresholds(coef_a, coef_b, kappa_lo, kappa_hi, n_cells)
+        guess = cdf_guess_coefficients(coef_a, coef_b)
     out = torch.zeros((n_periods, cells), dtype=torch.int32, device=dev)
     args = (mode, ce.DRAW_CODES[draw], ce._ptr(table), k_chunks, n_table,
             tail_n, ce._f32(a), ce._f32(b), ce._ptr(keep), ce._ptr(coef_a),
-            ce._ptr(coef_b), ce._ptr(thr), ce._ptr(guess), n_periods,
+            ce._ptr(coef_b), ce._ptr(buf), ce._ptr(guess), n_periods,
             int(seed_base) & ce.MASK32, int(tile0) & ce.MASK32, valid,
             ce._f32(v0), n_cells, ce._ptr(out),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_bands
 
-    def launch(thr=thr, guess=guess):  # holds them for the launch
+    def launch(buf=buf, guess=guess):  # holds them for the launch
         ce._raise_on(fn(*args), "smmc_bands")
 
     def counts():
@@ -299,8 +457,12 @@ def month_hist_chunk(table, keep, coef_a, coef_b, **kw):
     coefficients A_t, B_t. Keywords: ``draw``, ``n_table``, ``a``, ``b``,
     ``n_periods``, ``seed_base`` and ``tile0`` (the uint32 stream base and
     the first global 8192-path tile), ``valid`` of the ``n_paths`` (a
-    multiple of 8192) paths counting, ``v0``, ``n_bins``. Counts its launch
-    under ``bands_hist``."""
+    multiple of 8192) paths counting, ``v0``, ``n_bins``; on a CUDA device
+    also ``coef_a_host``, a host copy of ``coef_a`` (numpy), on which A_t >
+    0 is checked without a synchronisation, and optionally ``edges``, the
+    coefficients' ``hist_edges`` on the device (computed once for the
+    chunks of a run; else by each launch). Counts its launch under
+    ``bands_hist``."""
     if coef_a.device.type == "cpu":
         return month_hist_chunk_plain(table, keep, coef_a, coef_b, **kw)
     return ce._launch_counted("bands_hist",
@@ -326,19 +488,22 @@ def month_cdf_chunk(table, keep, coef_a, coef_b, **kw):
 def kernel_info(mode, draw, *, keep, n_table, n_periods, valid, n_cells):
     """What one band chunk launches on the current CUDA device: registers
     a thread, static and dynamic shared memory (bytes), threads a block,
-    resident blocks a SM, the grid and the copies of the count table, of
-    the kernel of ``mode`` (0 histogram of ``n_cells`` cells, 1 counts
-    below ``n_cells`` thresholds), ``draw`` and ``keep`` (bool) for a
-    ``valid``-path chunk and an ``n_table``-row table (historical)."""
+    resident blocks a SM, the grid, the copies of the count table (1 for
+    the histogram), the months of a window and the windows (all months in
+    one for the counts below), of the kernel of ``mode`` (0 histogram of
+    ``n_cells`` cells, 1 counts below ``n_cells`` thresholds), ``draw`` and
+    ``keep`` (bool) for a ``valid``-path chunk and an ``n_table``-row table
+    (historical)."""
     from stock_market_monte_carlo_torch.ops._build import load_library
 
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 9)()
     k_chunks = -(-n_table // 128) if draw == "historical" else 0
     ce._raise_on(load_library().smmc_bands_info(
         mode, ce.DRAW_CODES[draw], int(keep), k_chunks, n_periods, valid,
         n_cells, info), "smmc_bands_info")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "threads",
-                     "blocks_per_sm", "grid", "copies"), info))
+                     "blocks_per_sm", "grid", "copies", "window", "windows"),
+                    info))
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,9 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 - ``month_loop_chunk`` replaces ``_build_kernel``, source
   ``csrc/month_loop.cu``, in five draws (``DRAW_CODES``): the counter
   stream's historical bootstrap and Gaussian ICDF, the Sobol Gaussian and
-  Sobol historical draws (32-bit or 64-bit sequence positions; their
-  kernel is ``csrc/sobol_loop.cu``, ``sobol_kernel_info``) and the
-  reference-parity historical stream;
+  Sobol historical draws (32-bit or 64-bit sequence positions) and the
+  reference-parity historical stream; the Gaussian ICDF and the Sobol
+  draws run on ``csrc/run_loop.cu`` (``run_kernel_info``);
 - ``law_chunk`` replaces ``_build_law_kernel`` and
   ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``.
 
@@ -98,6 +98,8 @@ MONTH_LOOP_COUNTERS = {
 }
 _TABLE_DRAWS = ("historical", "sobol_historical", "reference")
 _SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
+# the draws of csrc/run_loop.cu, whose threads hold runs of paths
+RUN_DRAWS = ("gaussian", *_SOBOL_DRAWS)
 
 LAUNCHES = dict.fromkeys(
     [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
@@ -420,7 +422,7 @@ def _sobol_words(direction, shift, index_offset, gid):
 
 def sobol_words_recurrence(direction, shift, index_offset, gid, k):
     """``word(t)`` as ``_sobol_words`` returns it, built the way
-    ``csrc/sobol_loop.cu`` builds it; only the tests call it. ``gid``: a
+    ``csrc/run_loop.cu`` builds it; only the tests call it. ``gid``: a
     chunk's uint32 path ids (1-D int64), cut into warps of 32 runs of
     ``k`` paths, each warp's positions consecutive; the last warp is
     padded with the ids that follow it, as the kernel computes them. Each
@@ -716,7 +718,7 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
     # what the kernel keeps in shared memory always fits a block: the table
     # (at most 2^15 rows, 128 KB) and an in-place histogram (at most 4096
     # cells); the Sobol direction rows sit there in windows of months that
-    # fit beside them (csrc/sobol_loop.cu)
+    # fit beside them (csrc/run_loop.cu)
     if draw in _TABLE_DRAWS:
         if not 0 < n_table < (1 << 15):
             raise ValueError(f"table length {n_table} outside [1, 2^15)")
@@ -755,44 +757,47 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
     geometry = {}
-    if draw in _SOBOL_DRAWS:
-        # the Sobol kernel's blocks take groups of 256 x K paths, at most 8
+    if draw in RUN_DRAWS:
+        # the run kernel's blocks take groups of 256 x K paths, at most 8
         # blocks a SM as the other draws: a persistent grid (the resident
-        # blocks) was 4-8 % slower (bench/sobol_grid.py, PERF.md)
-        plan = sobol_kernel_info(draw, strategy, n_table=n_table,
-                                 dir_cols=dir_cols, n_periods=n_periods,
-                                 hb=hb, with_hist=with_hist, device=dev)
+        # blocks) was 4-8 % slower for the Sobol draws (bench/sobol_grid.py,
+        # PERF.md)
+        plan = run_kernel_info(draw, strategy, n_table=n_table,
+                               dir_cols=dir_cols, n_periods=n_periods,
+                               hb=hb, with_hist=with_hist, device=dev)
         geometry = dict(rows_per_block=_BLOCK * plan["paths_a_thread"])
     return _prepare("smmc_month_loop", args, dev, valid, lo=lo,
                     log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
                     keep_finals=keep_finals, **geometry)
 
 
-def sobol_kernel_info(draw, strategy="none", *, n_table=0, dir_cols=32,
-                      n_periods, hb=4096, with_hist=True, device=None):
-    """What one chunk of a Sobol draw launches on a CUDA device (C
-    ``smmc_sobol_info``): paths a thread (K), registers a thread, dynamic
-    shared memory (bytes), the window of months of direction rows and
-    resident blocks a SM. A host query, cached; it does not wait for the
-    device."""
+def run_kernel_info(draw, strategy="none", *, n_table=0, dir_cols=32,
+                    n_periods, hb=4096, with_hist=True, device=None):
+    """What one chunk of a draw of ``RUN_DRAWS`` launches on a CUDA device
+    (C ``smmc_run_info``): paths a thread (K), registers a thread, dynamic
+    shared memory (bytes), the window of months of direction rows (0 for
+    the counter Gaussian draw, which takes no ``dir_cols``) and resident
+    blocks a SM. A host query, cached; it does not wait for the device."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     k_chunks = -(-n_table // 128) if draw == "sobol_historical" else 0
-    return dict(_sobol_info(index, DRAW_CODES[draw],
-                            STRATEGY_CODES[strategy], k_chunks, dir_cols,
-                            n_periods, hb, in_kernel_hist(hb, with_hist)))
+    if draw == "gaussian":
+        dir_cols = 0
+    return dict(_run_info(index, DRAW_CODES[draw], STRATEGY_CODES[strategy],
+                          k_chunks, dir_cols, n_periods, hb,
+                          in_kernel_hist(hb, with_hist)))
 
 
 @functools.lru_cache(maxsize=256)
-def _sobol_info(index, draw, strategy, k_chunks, dir_cols, n_periods, hb,
-                hist):
+def _run_info(index, draw, strategy, k_chunks, dir_cols, n_periods, hb,
+              hist):
     from stock_market_monte_carlo_torch.ops._build import load_library
 
     info = (ctypes.c_int * 5)()
     with torch.cuda.device(index):
-        _raise_on(load_library().smmc_sobol_info(
+        _raise_on(load_library().smmc_run_info(
             draw, strategy, k_chunks, dir_cols, n_periods, hb, int(hist),
-            info), "smmc_sobol_info")
+            info), "smmc_run_info")
     return tuple(zip(("paths_a_thread", "registers", "dynamic_smem",
                       "window", "blocks_per_sm"), info))
 

@@ -145,6 +145,31 @@ def test_gaussian_month_loop_kernel_matches_plain(cuda, strategy, hb,
                                  ce.month_loop_chunk_plain(None, keep, **kw))
 
 
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "fixed_amount"])
+@pytest.mark.parametrize("extra", range(1, 16))
+@pytest.mark.parametrize("keep_finals", [True, False])
+def test_gaussian_month_loop_ragged_runs_match_plain(cuda, strategy, extra,
+                                                     keep_finals):
+    """The run kernel's Gaussian ICDF draw holds K consecutive paths a
+    thread (a constant of the draw, at most 16): chunks whose valid paths
+    leave 1 .. 15 past a multiple of 16, so 1 .. K-1 past a run's start,
+    with and without finals, under each strategy."""
+    keep = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.99, 1.0, 24).astype(np.float32), device=cuda)
+    a, b = ce.gaussian_ab(0.5, 10.0 / 12)
+    kw = dict(_month_kw(strategy, 0, 24, 4096, True), draw="gaussian",
+              a=a, b=b, shift=1.05, valid=2 * 8192 + 1008 + extra)
+    k_out = ce.month_loop_chunk(None, keep, **dict(kw,
+                                                   keep_finals=keep_finals))
+    p_out = ce.month_loop_chunk_plain(None, keep, **kw)
+    if not keep_finals:
+        assert k_out[2] is None
+        k_out = (k_out[0], k_out[1], p_out[2])
+    _assert_kernel_matches_plain(k_out, p_out)
+    assert torch.equal(k_out[1], p_out[1])
+
+
 def _clt_operands(cuda, variant, n_periods, mean=0.5, std=10.0 / 12):
     a, b = ce.gaussian_ab(mean, std)
     keep = np.random.default_rng(6).uniform(0.995, 1.0, n_periods).astype(
@@ -296,7 +321,7 @@ def _band_args(cuda, reduce_kind, draw, strategy, n_periods=24, n_cells=None,
         n_bins = n_cells or 1024
         ca, cb, _ = bands_eng.hist_coefficients(centers, scales, n_bins,
                                                 1000.0)
-        reduce_kw = dict(n_bins=n_bins)
+        reduce_kw = dict(n_bins=n_bins, coef_a_host=ca)
     else:
         k = n_cells or 32
         ca, cb, klo, khi, _, _ = bands_eng.cdf_coefficients(centers, scales,
@@ -380,8 +405,17 @@ def test_band_wrappers_check_inputs_and_count_launches(cuda):
         chunk(ops[0], ops[1], ops[2].double(), ops[3], **kw)
     hops, hkw = _band_args(cuda, "hist", "historical", "none",
                            table_name="n20000")
+    # the table (80 KB) and one month of 20002 cells and their edges
+    # (160 KB)
     with pytest.raises(ValueError, match="shared memory"):
-        _band_fns("hist")[0](*hops, **dict(hkw, n_bins=30000))
+        _band_fns("hist")[0](*hops, **dict(hkw, n_bins=20000))
+    # the cells must not decrease as V grows: A_t > 0, checked on the
+    # host copy, which the card route needs
+    with pytest.raises(ValueError, match="coef_a"):
+        _band_fns("hist")[0](*hops, **dict(hkw, coef_a_host=-hkw[
+            "coef_a_host"]))
+    with pytest.raises(ValueError, match="coef_a_host"):
+        _band_fns("hist")[0](*hops, **dict(hkw, coef_a_host=None))
     assert ce.LAUNCHES["bands_cdf"] == 1 and ce.LAUNCHES["bands_hist"] == 0
 
 
@@ -445,9 +479,13 @@ def test_cdf_kernel_copies_match_plain(cuda, table_name, n_periods, k,
 
 
 def test_band_kernel_plans(cuda):
-    """A main chunk's launch: the counts below thresholds with 4 copies in
-    blocks of 1024 threads, the blocks that fit on the card; the
-    histogram a block of 256 threads a tile."""
+    """A main chunk's launch: both kernels in blocks of 1024 threads, the
+    blocks that fit on the card; the counts below thresholds with 4
+    copies, all months at once; the histogram in 14 windows of 26 months
+    (27 months of 1026 cells and 1025 edges fit beside the 1127-row
+    table, evened out), the Gaussian draw's in 13 of 28 (28 fit without a
+    table). A chunk of fewer warp items than the card's warps takes fewer
+    blocks."""
     from stock_market_monte_carlo_torch.ops import bands as kb
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -455,10 +493,93 @@ def test_band_kernel_plans(cuda):
                          n_periods=360, valid=1 << 24, n_cells=32)
     assert cdf["copies"] == 4 and cdf["threads"] == 1024
     assert cdf["grid"] == sms * cdf["blocks_per_sm"] > 0
-    hist = kb.kernel_info(0, "historical", keep=True, n_table=1127,
-                          n_periods=360, valid=1 << 24, n_cells=1026)
-    assert hist["threads"] == 256 and hist["grid"] == 2048
-    assert hist["copies"] == 1 and hist["blocks_per_sm"] > 0
+    assert (cdf["window"], cdf["windows"]) == (360, 1)
+    for draw, n_table, window, windows in (("historical", 1127, 26, 14),
+                                           ("gaussian", 0, 28, 13)):
+        hist = kb.kernel_info(0, draw, keep=True, n_table=n_table,
+                              n_periods=360, valid=1 << 24, n_cells=1026)
+        assert hist["threads"] == 1024 and hist["copies"] == 1
+        assert hist["grid"] == sms * hist["blocks_per_sm"] > 0
+        assert (hist["window"], hist["windows"]) == (window, windows)
+        assert hist["dynamic_smem"] == 4 * (-(-n_table // 128) * 128
+                                            + window * (2 * 1026 - 1))
+        assert {k: hist[k] for k in ("window", "windows", "grid")} == {
+            k: v for k, v in kb.hist_plan_twin(
+                1 << 24, 360, 1026, n_table, sms,
+                hist["blocks_per_sm"]).items() if k != "threads"}
+    small = kb.kernel_info(0, "historical", keep=False, n_table=1127,
+                           n_periods=12, valid=3 * 8192, n_cells=1026)
+    assert small["grid"] == 3 and (small["window"], small["windows"]) == (
+        12, 1)
+    # near the largest month that fits beside the table: one a window
+    one = kb.kernel_info(0, "historical", keep=False, n_table=97,
+                         n_periods=5, valid=8192, n_cells=28000)
+    assert (one["window"], one["windows"]) == (1, 5)
+
+
+def test_cuda_log_does_not_decrease_over_the_floats(cuda):
+    """The band histogram counts a value in the number of its month's cell
+    edges it is not below (ops/bands.hist_edges), which is its cell where
+    the cell does not decrease as the value grows: torch.log on the card
+    must not decrease over the floats it is given. Every non-negative
+    float, 0 to the largest finite float and +inf, in slices (each slice's
+    first log against the last of the slice before)."""
+    last = torch.full((), -float("inf"), device=cuda)
+    end = int(np.float32(np.inf).view(np.int32)) + 1
+    step = 1 << 26
+    for start in range(0, end, step):
+        bits = torch.arange(start, min(start + step, end), dtype=torch.int32,
+                            device=cuda)
+        y = torch.log(bits.view(torch.float32))
+        assert not bool(torch.isnan(y).any())
+        assert bool((y[1:] >= y[:-1]).all()) and bool(y[0] >= last)
+        last = y[-1]
+    assert float(last) == float("inf")
+
+
+def test_hist_edges_on_the_card_are_the_cells_least_values(cuda):
+    """The edges of a 360-month grid of 1024 bins, bisected on the card:
+    each edge's cell is at least its cell and the float before it is in
+    a lower one (or the edge is the least value, 1e-37), under the card's
+    log."""
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    (_, _, ca, cb), _ = _band_args(cuda, "hist", "historical", "none",
+                                   n_periods=360)
+    edges = kb.hist_edges(ca, cb, 1024)
+    c = torch.arange(1, 1026, device=cuda)
+    prev = (edges.view(torch.int32) - 1).view(torch.float32)
+    tiny = float(np.float32(1e-37))
+    assert bool((kb.hist_cells(edges, ca[:, None], cb[:, None], 1024)
+                 >= c).all())
+    assert bool(((kb.hist_cells(prev, ca[:, None], cb[:, None], 1024) < c)
+                 | (edges == tiny)).all())
+
+
+@pytest.mark.parametrize("draw", ["historical", "gaussian"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent"])
+@pytest.mark.parametrize("valid", [1, 255, 257, 8191, 3 * 8192 - 1])
+def test_hist_kernel_partial_items_match_plain(cuda, draw, strategy, valid):
+    """Chunks that end inside a 256-path warp item or a tile (one window
+    of 60 months), with and without a keep factor."""
+    _assert_band_kernel_matches_plain("hist", *_band_args(
+        cuda, "hist", draw, strategy, n_periods=60, valid=valid))
+
+
+@pytest.mark.parametrize("draw,table_name", [("historical", "n1127"),
+                                             ("historical", "hostile_n97"),
+                                             ("gaussian", "n1127")])
+@pytest.mark.parametrize("n_bins,n_periods", [(4093, 360), (20001, 37),
+                                              (28000, 5)])
+def test_hist_kernel_windows_match_plain(cuda, draw, table_name, n_bins,
+                                         n_periods):
+    """Windows of months: 4095 cells (6 months a window at 360 months
+    beside the 1127-row table, 60 windows), 20003 and 28002 (one month a
+    window; 28002 near the most cells that fit beside the 1127-row table),
+    at a ragged chunk under a keep factor."""
+    _assert_band_kernel_matches_plain("hist", *_band_args(
+        cuda, "hist", draw, "fixed_percent", n_periods=n_periods,
+        n_cells=n_bins, table_name=table_name))
 
 
 @pytest.mark.parametrize("mode", ["hist", "cdf"])
@@ -486,6 +607,36 @@ def test_simulate_bands_on_cuda_matches_cpu(cuda, mode, kind):
     np.testing.assert_allclose(got.values, want.values, rtol=1e-4)
     np.testing.assert_allclose(got.sample_paths, want.sample_paths,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["hist", "cdf"])
+def test_simulate_bands_waits_for_one_chunk_at_a_time(cuda, mode):
+    """The band loop absorbs chunk i while chunk i+1 runs and waits for
+    chunk i's counts alone: each chunk's counts are copied to pinned
+    memory behind its own kernel, and the loop waits on that copy's
+    event. A .cpu() of the counts would wait for the stream (chunk i+1's
+    kernel too), which torch's sync debug mode "error" refuses: it is on
+    from the first absorbed chunk to the last."""
+    model = smt.GaussianReturns()
+    n = 5 * 8192 + 77
+    seen = []
+
+    def progress(done, total):
+        seen.append(done)
+        torch.cuda.set_sync_debug_mode("error" if done < total
+                                       else "default")
+
+    try:
+        got = smt.simulate_bands(model, n, 24, seed=4, band_mode=mode,
+                                 sample_paths=3, progress=progress,
+                                 options=smt.EngineOptions(chunk_paths=8192))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seen == [8192, 2 * 8192, 3 * 8192, 4 * 8192, 5 * 8192, n]
+    want = smt.simulate_bands(model, n, 24, seed=4, band_mode=mode,
+                              sample_paths=3, options=smt.EngineOptions(
+                                  chunk_paths=8192, device="cpu"))
+    assert np.abs(got.month_hist - want.month_hist).max() <= 2
 
 
 @pytest.mark.parametrize("kind", ["historical", "gaussian"])
@@ -1012,14 +1163,21 @@ def test_counted_wrappers_do_not_synchronise(cuda):
 
     band_cases = [(kb.month_hist_chunk,
                    _band_args(cuda, "hist", "historical", "fixed_percent")),
+                  (kb.month_hist_chunk,
+                   _band_args(cuda, "hist", "gaussian", "none",
+                              n_periods=120)),
                   (kb.month_cdf_chunk,
                    _band_args(cuda, "cdf", "gaussian", "none"))]
+    a, b = ce.gaussian_ab(0.5, 10.0 / 12)
+    gauss_kw = dict(_month_kw("fixed_percent", 0, 24, 4096, True),
+                    draw="gaussian", a=a, b=b, keep_finals=False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for i in range(3):
             ce.month_loop_chunk(table, keep, **dict(month_kw, tile0=i))
             ce.month_loop_chunk(table, keep, **dict(month_kw, hb=20002))
+            ce.month_loop_chunk(None, keep, **dict(gauss_kw, tile0=i))
             for ops, kw in sobol_cases:
                 ce.month_loop_chunk(*ops, **dict(kw, tile0=i))
             ce.law_chunk(law, **dict(law_kw, tile0=i))

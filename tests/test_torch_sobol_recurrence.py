@@ -1,4 +1,4 @@
-"""The Sobol kernel's word recurrence (``csrc/sobol_loop.cu``) in its CPU
+"""The Sobol kernel's word recurrence (``csrc/run_loop.cu``) in its CPU
 twin, ``cuda_engine.sobol_words_recurrence``, against the per-position
 fold: the port's byte-table fold (``_sobol_words``, the plain month loop's
 draw), ``xor_fold`` and the JAX package's ``sobol_bits`` /
