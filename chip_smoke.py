@@ -73,6 +73,8 @@ MAIN_MONTHS = 360
 CHUNK = 1 << 24
 # paths of the kernel-against-plain checks at the main paths' months
 CHECK_PATHS = 1 << 20
+# valid paths that end inside the historical month loop's 256-path items
+PARTIAL_ITEMS = (1, 255, 257, 2 * 8192 + 1001)
 DEVICE = torch.device("cuda")
 _PE = "stock_market_monte_carlo_tpu/ops/pallas_engine.py"
 _PB = "stock_market_monte_carlo_tpu/ops/pallas_bands.py"
@@ -175,11 +177,11 @@ HEADLINE_MEAN_REL = 1e-3
 # element by 2^-8 of itself, which Q spreads over the row
 MM_ROW_REL = 1e-3
 # SASS instructions (NOPs left out) of the production CLT kernels, variant
-# -> count, in the parent's build (572bb64, before the probe instances):
-# calibration.clt_production_sass on a library built from `git archive
-# 572bb64`, nvcc of CUDA 12.8 on the H100 machine; the probe instances must
-# leave them as they were
-CLT_SASS_PARENT = {0: 2030, 1: 2030, 2: 1866}
+# -> count, in the build of the commit that last changed clt.cu (the
+# wgmma product and the finish in the accumulators' layout):
+# calibration.clt_production_sass, nvcc of CUDA 12.8 on the H100 machine;
+# the probe instances must leave them as they are
+CLT_SASS_PARENT = {0: 3270, 1: 3270, 2: 1872}
 # the production CLT's time in the probes' phase against phase 6's
 CLT_TIME_REL = 0.02
 # the byte planes: means within 127.5 +- 0.5, off-diagonal |corr| < 0.01
@@ -244,7 +246,7 @@ def template_args(mangled, kernel):
 
 
 def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
-                     seed, tile0=0):
+                     seed, tile0=0, bins=4094):
     """(table, keep), kwargs of one month-loop chunk; the draw follows the
     model (historical table, Gaussian a + b*z, the Sobol draws with the
     seed's digital shift, the reference stream)."""
@@ -256,7 +258,7 @@ def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
              if model.is_quasi else None)
     table, draw = ce.draw_operands(model, DEVICE, n_periods, shift)
     kw = dict(_common(model, strategy, n_periods, valid, n_paths, target,
-                      tile0),
+                      tile0, bins),
               strategy=strategy.kind,
               amount=float(getattr(strategy, "amount", 0.0)),
               n_periods=n_periods, seed_base=_base(seed), **draw)
@@ -544,9 +546,10 @@ def main():
     from stock_market_monte_carlo_torch.ops import _build, clt
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    # 2. build; the month loops' ptxas report: the run kernel's instances
-    # (registers, spills; paths a thread, shared memory, window and blocks a
-    # SM at the main shapes), and the month-loop kernel's
+    # 2. build; the month loops' and the CLT's ptxas report: the run
+    # kernel's instances (registers, spills; paths a thread, shared memory,
+    # window and blocks a SM at the main shapes), the month-loop kernel's
+    # and the CLT kernel's (no spills allowed)
     t = time.perf_counter()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
@@ -557,16 +560,18 @@ def main():
     from stock_market_monte_carlo_torch.bench import kernel_resources as kres
 
     res = kres.ptxas_resources(report.getvalue())
-    for kernel, instances in (("run_loop_kernel", 9),
-                              ("month_loop_kernel", 6)):
+    for kernel, instances, params in (
+            ("run_loop_kernel", 9, "draw,strategy"),
+            ("month_loop_kernel", 6, "draw,strategy"),
+            ("clt_kernel", 8, "variant,ablate")):
         found = {args: v for name, v in res.items()
                  if (args := template_args(name, kernel))}
         check(len(found) == instances
               and all(v[1] == v[2] == 0 for v in found.values()),
               f"{kernel} instances (registers, spill stores, spill loads): "
               f"{found}")
-        say(2, f"{kernel}<draw,strategy> (registers, spill stores, spill "
-               f"loads): {found}")
+        say(2, f"{kernel}<{params}> (registers, spill stores, spill loads): "
+               f"{found}")
     plans = {"gaussian": ce.run_kernel_info("gaussian",
                                             n_periods=MAIN_MONTHS)}
     for draw in ("sobol_gaussian", "sobol_historical"):
@@ -686,6 +691,87 @@ def main():
                      f"clt {variant} main chunk tile0={tile0} valid={valid}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops,
                      dict(kw, keep_finals=finals), CLT_REL, plain_kw=kw)
+
+    # 3a. the historical month loop's warp items: chunks whose valid paths
+    # end inside a 256-path item, at tile0 37, under three strategies, at
+    # 4, 8 and 16 blocks a SM, binned in place (4096 cells) and by the
+    # histogram kernel (102); bit for bit. The CLT at 2, 3 and 4 blocks a
+    # SM: the same finals, counts and histogram. The CLT's finish against
+    # its twin (clt.finals_twin) bit for bit, where both sides' products
+    # are exact: the production variants at rows of products from 1e-6 to
+    # 8 (cs = 0), the nomm probe on the stream's rows.
+    n_items = 0
+    for valid in PARTIAL_ITEMS:
+        for sname in ("none", "fixed_percent", "fixed_amount"):
+            for bins in (4094, 100):
+                ops, kw = month_chunk_args(hist_model, strategies[sname],
+                                           MAIN_MONTHS, valid, 3 * 8192,
+                                           1500.0, seed=5, tile0=37,
+                                           bins=bins)
+                plain = ce.month_loop_chunk_plain(*ops, **kw)
+                for bps in ((4, 8, 16) if bins == 4094 else (None,)):
+                    launch, outputs = ce.month_loop_launcher(
+                        *ops, **kw, blocks_per_sm=bps)
+                    launch()
+                    compare_chunk(f"month_loop items valid={valid} {sname} "
+                                  f"{bins} bins {bps} blocks a SM",
+                                  outputs(), plain, kw, 0.0)
+                    n_items += 1
+    say("3a", f"month_loop at partial items {PARTIAL_ITEMS} x 3 strategies x "
+              f"(4096 cells at 4, 8, 16 blocks a SM; 102 cells): {n_items} "
+              "chunks == plain")
+    for variant, sname in clt_cases.items():
+        ops, kw = clt_chunk_args(variant, strategies[sname], MAIN_MONTHS,
+                                 CHECK_PATHS + 1001, CHECK_PATHS + 8192,
+                                 2000.0, seed=5, tile0=3)
+        outs = []
+        for bps in (2, 3, 4):
+            launch, outputs = clt.clt_launcher(*ops, **kw, blocks_per_sm=bps)
+            launch()
+            outs.append(outputs())
+        torch.cuda.synchronize()
+        (s0, h0, f0), rels = outs[0], []
+        for sk, hk, fk in outs[1:]:
+            check(torch.equal(fk, f0) and torch.equal(hk, h0)
+                  and torch.equal(sk[[0, 5, 6, 7]], s0[[0, 5, 6, 7]]),
+                  f"clt {variant}: results depend on the grid")
+            rels.append(float(((sk - s0).abs() / s0.abs().clamp_min(
+                1e-30)).max()))
+        say("3a", f"clt {variant} at 2, 3, 4 blocks a SM: finals, histogram, "
+                  f"counts, min, max equal; stats rel {rels}")
+    q = clt.q_tensor(DEVICE)
+    nblocks = -(-MAIN_MONTHS // clt.CLT_K)
+    logs = np.random.default_rng(11).normal(0.015, 0.08, clt.CLT_K)
+    logs[:3], logs[-3:] = -13.8, 2.08
+    arow = torch.as_tensor(np.broadcast_to(np.exp(logs / nblocks).astype(
+        np.float32), (nblocks, clt.CLT_K)).copy(), device=DEVICE)
+    zero = torch.zeros_like(arow)
+    rows = torch.arange(CHECK_PATHS, device=DEVICE)
+    for variant in ("plain", "keep_fold"):
+        kw = dict(_common(gauss, strategies["none"], MAIN_MONTHS, CHECK_PATHS,
+                          CHECK_PATHS, 2000.0, 0),
+                  variant=variant, seed_base=0x11C7)
+        fk = clt.clt_chunk(q, arow, zero, None, **kw)[2]
+        twin = clt.finals_twin(clt.row_products(
+            q, arow, zero, seed_base=0x11C7, tile0=0, rows=rows), 1000.0)
+        torch.cuda.synchronize()
+        check(torch.equal(fk, twin), f"clt {variant}: finish differs from "
+              f"its twin (max {float((fk - twin).abs().max())})")
+    from stock_market_monte_carlo_torch.bench import probes
+
+    ops, kw = probes.clt_probe_case(CHECK_PATHS, DEVICE, probes.ABLATE_SEED)
+    kw = dict(kw, ablate="nomm", keep_finals=True)
+    fk = clt.clt_probe_chunk(*ops, **kw)[2]
+    twin = clt.finals_twin(clt.row_products(
+        *ops, seed_base=kw["seed_base"], tile0=kw["tile0"],
+        rows=torch.arange(kw["valid"], device=DEVICE), ablate="nomm"),
+        kw["v0"], "nomm")
+    torch.cuda.synchronize()
+    check(torch.equal(fk, twin), "clt_probe nomm: finish differs from its "
+          f"twin (max {float((fk - twin).abs().max())})")
+    say("3a", f"clt finish == its twin bit for bit: plain and keep_fold "
+              f"{CHECK_PATHS} x {MAIN_MONTHS} at products 1e-6 .. 8 (cs = 0), "
+              f"nomm probe {kw['valid']} x {probes.CLT_MONTHS}")
 
     # 3b. the band kernels against their plain versions, bit for bit: both
     # draws, with and without a percent strategy, at 2^20 x 360 and at the
@@ -1007,9 +1093,9 @@ def main():
               f"corr(lo16, hi16) {stats['corr_lo16_hi16']!r}")
     sass = cal.clt_production_sass()
     check(sass == CLT_SASS_PARENT,
-          f"production CLT SASS {sass} vs the parent's {CLT_SASS_PARENT}")
-    say("3e", f"production CLT SASS instructions {sass} == the parent "
-              "build's (clt_kernel<V> before the probe instances)")
+          f"production CLT SASS {sass} vs the pinned {CLT_SASS_PARENT}")
+    say("3e", f"production CLT SASS instructions {sass} == the pinned "
+              f"build's {CLT_SASS_PARENT}")
 
     # 4. goldens on the card
     f = smt.simulate_final_values(

@@ -66,6 +66,10 @@ def cases():
     for name, model in month_models.items():
         out[name] = (ce.month_loop_launcher, *cs.month_chunk_args(
             model, none, MONTHS, CHUNK, CHUNK, TARGET, seed=0))
+    out["month_loop_keep"] = (
+        ce.month_loop_launcher, *cs.month_chunk_args(
+            hist, smt.FixedPercentWithdrawal(0.4), MONTHS, CHUNK, CHUNK,
+            TARGET, seed=0))
     out["month_loop_gaussian_keep"] = (
         ce.month_loop_launcher, *cs.month_chunk_args(
             gauss, smt.FixedPercentWithdrawal(0.4), MONTHS, CHUNK, CHUNK,

@@ -25,26 +25,37 @@
 // ~25 ms on the float32 pipes. The scalar work (hashes, affine step, logs)
 // is ~1.1e11 32-bit ops, ~3.2 ms at the SMs' issue rate, so with the
 // product on the tensor cores the scalar work bounds it
-// (chip_smoke.py::bound). No device-memory traffic beyond Q, the
-// constants and the per-block rows.
+// (bench/roofline.py). No device-memory traffic beyond Q, the constants
+// and the per-block rows.
 //
 // What the design does about it:
-// - The product runs on the tensor cores, as mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate): each warp owns a 16-path strip and all 128 columns.
-//   The fragment layouts of that instruction are fixed by the PTX ISA, so
-//   each thread builds its A fragment (the counts of its two rows and
-//   eight months per k-step) straight from the hash in registers: the
-//   count tile never touches memory. Q is staged once per block in shared
-//   memory, already in B-fragment order (32 KB, one 8-byte load per mma).
-// - The accumulators come out in the same known layout (row, column), so
-//   the affine growth and the running product over blocks stay in
-//   registers. A path's row is finished by one thread through a padded
-//   shared-memory tile: the 128 logs and the exp (plain), or per block
-//   the prefix and the withdrawn total (prefix), column by column.
-// - The wgmma / TMA / warp-specialised form is later work.
+// - A block is one warpgroup (4 warps) over 64 paths; each warp owns a
+//   16-path strip and all 128 columns.
+// - The product runs on the tensor cores. Plain and keep-fold (and the
+//   probes): wgmma m64n128k16, bf16 in, float32 accumulate, 8 k-steps a
+//   block of months for the warpgroup. A comes from registers: each thread
+//   builds its fragments (the counts of its two rows, eight months a
+//   k-step; the m16n8k16 A layout, which wgmma's shares for each warp's 16
+//   rows) straight from the hash, so the count tile never touches memory;
+//   k-step ks+1's are hashed and packed while ks runs (two register
+//   buffers, wait_group 1). B is Q, staged once a block in shared memory in
+//   wgmma's K-major layout without swizzle (32 KB), read through a matrix
+//   descriptor. The prefix variant keeps mma.sync m16n8k16 with Q in
+//   B-fragment order (one 8-byte load an mma): on wgmma it was 11 % slower
+//   (PERF.md).
+// - The accumulators come out in a known (row, column) layout, so the
+//   affine growth and the running product over blocks stay in registers.
+//   Plain and keep-fold finish there too: each thread takes the logs of
+//   its 64 values (32 columns of its two rows), sums each row's in its own
+//   column order, two xor shuffles add the quad's four partial sums, and
+//   lanes tig 0 and 1 of the quad finish the two rows (exp, statistics,
+//   histogram): no shared-memory tile and no barrier. The prefix variant
+//   finishes through a padded shared-memory tile, one thread a row, column
+//   by column (the exclusive prefix and the withdrawn total).
 // - Built with -fmad=false: the affine step, the prefix and the moments
-//   round as the plain version does; only the product's accumulation order
-//   differs from it (tensor-core vs. torch.matmul), hence the relative bars.
+//   round as the plain version does; the product's accumulation order and
+//   the finish's sum order (clt.finish_sum_twin) differ from it, hence the
+//   relative bars.
 //
 // Probe instances (smmc_clt_probe, the plain variant only; smmc_clt never
 // instantiates them, so its kernels do not move) port two experiments:
@@ -109,16 +120,132 @@ __device__ __forceinline__ uint32_t count_bf16(uint32_t h, uint32_t pos) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(c));
 }
 
+// The A fragments of k-step ks of the draw keyed h: the bf16 counts of
+// rows pos_lo / pos_hi (positions of their first month), months ks*16 +
+// 2 tig + {0, 1, 8, 9} (the m16n8k16 layout, which wgmma's A in registers
+// shares for each warp's 16 rows)
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], uint32_t h,
+                                       uint32_t pos_lo, uint32_t pos_hi,
+                                       int ks, int tig) {
+  const uint32_t m = ks * 16 + tig * 2;
+  a[0] = pack2(count_bf16(h, pos_lo + m), count_bf16(h, pos_lo + m + 1));
+  a[1] = pack2(count_bf16(h, pos_hi + m), count_bf16(h, pos_hi + m + 1));
+  a[2] = pack2(count_bf16(h, pos_lo + m + 8), count_bf16(h, pos_lo + m + 9));
+  a[3] = pack2(count_bf16(h, pos_hi + m + 8), count_bf16(h, pos_hi + m + 9));
+}
+
+// Q (bf16 bits, [k in][n out]) into s_q in wgmma's K-major layout without
+// swizzle: the 8x8 core matrix of months 8kc.. and columns 8ng.. at
+// element (kc * 16 + ng) * 64, column n's 8 months as one 16-byte row. A
+// k-step's B (months 16ks..16ks+15) then starts at byte 4096 ks, its two
+// core matrices along K 2048 bytes apart (LBO), along N 128 (SBO). Every
+// thread takes part; the caller fences and synchronises.
+__device__ __forceinline__ void stage_q(const unsigned short* q,
+                                        unsigned short* s_q) {
+  for (int i = threadIdx.x; i < (kK / 8) * kK; i += blockDim.x) {
+    const int n = i % kK, kc = i / kK;
+    const unsigned short* col = q + kc * 8 * kK + n;
+    *reinterpret_cast<uint4*>(s_q + (kc * 16 + n / 8) * 64 + (n % 8) * 8) =
+        make_uint4(pack2(col[0], col[kK]), pack2(col[2 * kK], col[3 * kK]),
+                   pack2(col[4 * kK], col[5 * kK]),
+                   pack2(col[6 * kK], col[7 * kK]));
+  }
+}
+
+// The shared-memory matrix descriptor of k-step 0 of s_q (no swizzle,
+// LBO 2048 bytes, SBO 128); k-step ks adds 256 ks (4096 bytes in 16-byte
+// units) to it.
+__device__ __forceinline__ uint64_t q_descriptor(const unsigned short* s_q) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(s_q);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(2048 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the wgmma instructions that own them asynchronously.
+__device__ __forceinline__ void fence_operands(float (&d)[kNTiles][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[nt][e])::"memory");
+}
+
+// d (64 x 128 of the warpgroup; d[nt][e] in the m16n8 C layout of each
+// warp's 16 rows) = a (64 x 16, registers) * B (16 x 128, descriptor),
+// plus d when scale_d is nonzero; bf16 in, float32 accumulate
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kNTiles][4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Dynamic shared memory of one block: Q (B fragments for mma.sync, or the
+// wgmma layout; 32 KB either way), the histogram, and the prefix variant's
+// padded row tile.
+size_t smem_bytes(int variant, const Args& g) {
+  return kQFrags * sizeof(uint2) + (g.hist ? g.hb * sizeof(int) : 0) +
+         (variant == kPrefix ? kRows * kStride * sizeof(float) : 0);
+}
+
 // Fragment layouts: smmc_common.cuh (mma_16x8x16).
 template <int VARIANT, int ABLATE>
 __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint2* s_q = reinterpret_cast<uint2*>(smem);
-  float* s_tile = reinterpret_cast<float*>(s_q + kQFrags);
-  int* s_hist = reinterpret_cast<int*>(s_tile + kRows * kStride);
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned short* s_q = reinterpret_cast<unsigned short*>(smem);
+  int* s_hist = reinterpret_cast<int*>(smem + kQFrags * sizeof(uint2));
   const bool with_hist = g.hist != nullptr && ABLATE != kNoHist;
+  float* s_tile = reinterpret_cast<float*>(s_hist + (g.hist ? g.hb : 0));
 
-  if (ABLATE != kNoMM) stage_mix_frags(g.q, s_q);
+  // the product on wgmma, but for the prefix variant, which is faster on
+  // mma.sync (PERF.md)
+  constexpr bool kWgmma = VARIANT != kPrefix;
+  if (ABLATE != kNoMM) {
+    if constexpr (kWgmma) {
+      stage_q(g.q, s_q);
+      // the generic proxy's stores, before wgmma reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    } else {
+      stage_mix_frags(g.q, reinterpret_cast<uint2*>(s_q));
+    }
+  }
   if (with_hist)
     for (int i = threadIdx.x; i < g.hb; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
@@ -127,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int r_lo = (threadIdx.x >> 5) * 16 + gid;  // rows r_lo and r_lo + 8
-  const bool row_thread = threadIdx.x < kRows;     // finishes row threadIdx.x
+  const uint64_t desc = kWgmma ? q_descriptor(s_q) : 0;
   Stats st;
   const int n_groups = (g.valid + kRows - 1) / kRows;
   int grp_begin = blockIdx.x, grp_end = n_groups, grp_step = gridDim.x;
@@ -138,6 +265,11 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
     grp_step = 1;
   }
   uint32_t a_keep[kKSteps][4];  // kNoDraw: the one draw's A fragments
+  float acc[kNTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
   for (int grp = grp_begin; grp < grp_end; grp += grp_step) {
     // kRows divides p_tile: the group lies inside one stream tile
     const uint32_t row0 = (uint32_t)grp * kRows;
@@ -154,26 +286,12 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
       // the one draw (key 0), packed once for all blocks
       const uint32_t h0 = tile_seed(seed, 0u);
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint32_t m = ks * 16 + tig * 2;
-        a_keep[ks][0] = pack2(count_bf16(h0, pos_lo + m),
-                              count_bf16(h0, pos_lo + m + 1));
-        a_keep[ks][1] = pack2(count_bf16(h0, pos_hi + m),
-                              count_bf16(h0, pos_hi + m + 1));
-        a_keep[ks][2] = pack2(count_bf16(h0, pos_lo + m + 8),
-                              count_bf16(h0, pos_lo + m + 9));
-        a_keep[ks][3] = pack2(count_bf16(h0, pos_hi + m + 8),
-                              count_bf16(h0, pos_hi + m + 9));
-      }
+      for (int ks = 0; ks < kKSteps; ++ks)
+        pack_a(a_keep[ks], h0, pos_lo, pos_hi, ks, tig);
     }
 
     for (int j = 0; j < g.nblocks; ++j) {
       const uint32_t h = tile_seed(seed, (uint32_t)j);
-      float acc[kNTiles][4];
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
       if (ABLATE == kNoMM) {
         // the counts at the accumulator positions, unmixed
 #pragma unroll
@@ -184,27 +302,43 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
                                  tig * 2 + (e & 1);
             acc[nt][e] = (float)(arith_word(h, pos) >> 16) * F(0.001953125);
           }
-      } else {
+      } else if constexpr (kWgmma) {
+        // eight k-steps of the warpgroup's 64 x 128 product: k-step ks+1's
+        // A is hashed and packed while ks runs (double-buffered registers)
+        uint32_t a[2][4];
+        if (ABLATE != kNoDraw) pack_a(a[0], h, pos_lo, pos_hi, 0, tig);
+        wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kKSteps; ++ks) {
-          const uint32_t m = ks * 16 + tig * 2;
+          wgmma_m64n128k16(acc, ABLATE == kNoDraw ? a_keep[ks] : a[ks & 1],
+                           desc + 256u * ks, ks);
+          wgmma_commit();
+          if (ABLATE != kNoDraw && ks + 1 < kKSteps) {
+            wgmma_wait<1>();  // k-step ks-1 has read a[(ks+1) & 1]
+            pack_a(a[(ks + 1) & 1], h, pos_lo, pos_hi, ks + 1, tig);
+            wgmma_fence();
+          }
+        }
+        wgmma_wait<0>();
+        fence_operands(acc);
+      } else {
+        const uint2* s_frag = reinterpret_cast<const uint2*>(s_q);
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kKSteps; ++ks) {
           uint32_t a[4];
           if (ABLATE == kNoDraw) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) a[r] = a_keep[ks][r];
           } else {
-            a[0] = pack2(count_bf16(h, pos_lo + m),
-                         count_bf16(h, pos_lo + m + 1));
-            a[1] = pack2(count_bf16(h, pos_hi + m),
-                         count_bf16(h, pos_hi + m + 1));
-            a[2] = pack2(count_bf16(h, pos_lo + m + 8),
-                         count_bf16(h, pos_lo + m + 9));
-            a[3] = pack2(count_bf16(h, pos_hi + m + 8),
-                         count_bf16(h, pos_hi + m + 9));
+            pack_a(a, h, pos_lo, pos_hi, ks, tig);
           }
 #pragma unroll
           for (int nt = 0; nt < kNTiles; ++nt)
-            mma_16x8x16(acc[nt], a, s_q[(ks * kNTiles + nt) * 32 + lane]);
+            mma_16x8x16(acc[nt], a, s_frag[(ks * kNTiles + nt) * 32 + lane]);
         }
       }
       const float* ar = g.arow + j * kK;
@@ -222,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
         }
       if (VARIANT == kPrefix) {
         __syncthreads();
-        if (row_thread) {
+        if (threadIdx.x < kRows) {
           const float* row = s_tile + threadIdx.x * kStride;
           const float* kr = g.keep + j * kK;
           float run = 0.0f, s = 0.0f, last = 0.0f;
@@ -242,37 +376,42 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
       }
     }
 
+    // the finish: thread threadIdx.x finishes row threadIdx.x (prefix), or
+    // lane tig < 2 of each quad row r_lo + 8 tig, from the sum over its
+    // quad of each thread's columns of that row
+    int r = threadIdx.x;
+    bool row_thread = threadIdx.x < kRows;
     float total = 0.0f;
     if (VARIANT == kPrefix) {
       total = g.v0 * carry;
     } else {
+      // each row's own columns nt*8 + 2 tig + (e & 1) in order, then the
+      // quad's four partial sums as (p0 + p1) + (p2 + p3)
+      float s[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int nt = 0; nt < kNTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s_tile[(r_lo + (e >> 1) * 8) * kStride + nt * 8 + tig * 2 +
-                 (e & 1)] = prod[nt][e];
-      __syncthreads();
-      if (row_thread) {
-        const float* row = s_tile + threadIdx.x * kStride;
-        float s = 0.0f;
-        if (ABLATE == kNoLogExp) {
-          for (int c = 0; c < kK; ++c) s = s + row[c];
-          total = (g.v0 * s) * F(0.0078125);
-        } else {
-          for (int c = 0; c < kK; ++c) s = s + logf(row[c]);
-          total = g.v0 * expf(s);
-        }
+          s[e >> 1] = s[e >> 1] + (ABLATE == kNoLogExp ? prod[nt][e]
+                                                       : logf(prod[nt][e]));
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s[0] = s[0] + __shfl_xor_sync(0xffffffffu, s[0], o);
+        s[1] = s[1] + __shfl_xor_sync(0xffffffffu, s[1], o);
       }
+      r = r_lo + 8 * tig;
+      row_thread = tig < 2;
+      const float sum = tig == 0 ? s[0] : s[1];
+      total = ABLATE == kNoLogExp ? (g.v0 * sum) * F(0.0078125)
+                                  : g.v0 * expf(sum);
     }
-    const int p = (int)row0 + threadIdx.x;
+    const int p = (int)row0 + r;
     if (row_thread && p < g.valid) {
       if (g.finals) g.finals[p] = total;
       st.add(total, wsum, g.inv0, g.shift, g.target);
       if (with_hist)
         atomicAdd(&s_hist[bin_index(total, g.log_lo, g.inv_w, g.hb)], 1);
     }
-    __syncthreads();  // the next group rewrites s_tile
   }
   st.store_block(g.partials + 8 * blockIdx.x);
   if (with_hist) {
@@ -283,9 +422,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
 
 template <int VARIANT, int ABLATE = kNone>
 cudaError_t launch(const Args& g, int n_blocks, cudaStream_t stream) {
-  const size_t smem = kQFrags * sizeof(uint2) +
-                      kRows * kStride * sizeof(float) +
-                      (g.hist ? g.hb * sizeof(int) : 0);
+  const size_t smem = smem_bytes(VARIANT, g);
   cudaError_t err = cudaFuncSetAttribute(
       clt_kernel<VARIANT, ABLATE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -87,7 +87,6 @@ namespace {
 using namespace smmc;
 
 enum Draw { kGaussian = 1, kSobolGaussian = 2, kSobolHistorical = 3 };
-enum Strategy { kNone = 0, kKeep = 1, kFixedAmount = 2 };
 // shared memory for a window of direction rows and shifts
 constexpr size_t kDirBudget = 16 * 1024;
 
@@ -138,23 +137,6 @@ __device__ __forceinline__ void stage_rows(const Args& g, uint32_t* s_dir,
     s_dir[i] = src[i];
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s_shift[i] = g.shift[t0 + i];
-}
-
-// One month of one path: compound by the growth gfac, then withdraw under
-// the strategy (keep_t: the month's keep factor), adding the withdrawal
-// to wsum.
-template <int STRATEGY>
-__device__ __forceinline__ void step(float& total, float& wsum, float gfac,
-                                     float keep_t, float amount) {
-  const float grown = total * gfac;
-  if constexpr (STRATEGY == kNone) {
-    total = grown;
-  } else {
-    const float nv = STRATEGY == kKeep ? grown * keep_t
-                                       : fmaxf(grown - amount, 0.0f);
-    wsum = wsum + (grown - nv);
-    total = nv;
-  }
 }
 
 template <int DRAW, int STRATEGY>

@@ -78,7 +78,9 @@ _CLT_Q128_SHA256 = (
 _Q_PATH = Path(__file__).resolve().parent / "_clt_q128.npy"
 
 _ROWS = 64              # paths per CUDA block (csrc/clt.cu kRows)
-_BLOCKS_PER_SM = 2
+# at most 4 blocks a SM (2 are resident at the kernel's registers): 1 %
+# faster than 2, and 3 leaves a wave partly idle (PERF.md)
+_BLOCKS_PER_SM = 4
 _SLAB = 1 << 18         # paths per slab of the plain version
 
 
@@ -172,6 +174,51 @@ def _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile,
         yield arow[j] + zraw * cs[j]
 
 
+def _block_product(blocks, n, dev):
+    """(n, 128) product over the blocks' growth factors, in block order."""
+    prod = torch.ones((n, CLT_K), dtype=torch.float32, device=dev)
+    for g in blocks:
+        prod = prod * g
+    return prod
+
+
+def row_products(q, arow, cs, *, seed_base, tile0, rows, p_tile=CLT_P,
+                 ablate="base"):
+    """(len(rows), 128) float32: the product over blocks of each column's
+    growth of the chunk-local paths ``rows``, as the plain and keep-fold
+    variants (and the probes under ``ablate``) take it."""
+    return _block_product(
+        _growth_blocks(q.to(torch.float32), arow, cs, seed_base, tile0,
+                       rows, p_tile, ablate), rows.numel(), q.device)
+
+
+def finish_sum_twin(terms):
+    """Each row's sum of the (paths, 128) float32 ``terms`` in the order of
+    ``csrc/clt.cu``'s finish (plain, keep-fold and the probes): lane tig of
+    a quad adds its columns nt*8 + 2*tig + e (nt = 0..15, e = 0, 1) in that
+    order from 0, then the quad adds the four partial sums as (p0 + p1) +
+    (p2 + p3) (two xor shuffles). The plain version sums column by column
+    instead; the two orders differ in the last bits."""
+    part = []
+    for tig in range(4):
+        acc = torch.zeros_like(terms[:, 0])
+        for nt in range(CLT_K // 8):
+            for e in range(2):
+                acc = acc + terms[:, nt * 8 + 2 * tig + e]
+        part.append(acc)
+    return (part[0] + part[1]) + (part[2] + part[3])
+
+
+def finals_twin(prod, v0, ablate="base"):
+    """Finals of the row products ``prod`` as the kernel finishes them:
+    v0 * exp(the twin sum of the logs), or, for the nologexp probe,
+    (v0 * the twin sum of the products) / 128."""
+    v0f = ce._f32(v0)
+    if ablate == "nologexp":
+        return (v0f * finish_sum_twin(prod)) * (1.0 / CLT_K)
+    return v0f * torch.exp(finish_sum_twin(torch.log(prod)))
+
+
 def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
                     n_paths, v0, target, shift, lo, log_lo, inv_w, hb,
                     with_hist, keep_finals):
@@ -209,10 +256,7 @@ def _finals_plain(q, arow, cs, keep, *, variant, seed_base, tile0, n_paths,
         blocks = _growth_blocks(qf, arow, cs, seed_base, tile0, rows, p_tile,
                                 ablate)
         if variant != "prefix":
-            prod = torch.ones((rows.numel(), CLT_K), dtype=torch.float32,
-                              device=dev)
-            for g in blocks:
-                prod = prod * g
+            prod = _block_product(blocks, rows.numel(), dev)
             terms = prod if ablate == "nologexp" else torch.log(prod)
             acc = torch.zeros_like(terms[:, 0])
             for c in range(CLT_K):
@@ -240,10 +284,11 @@ def _finals_plain(q, arow, cs, keep, *, variant, seed_base, tile0, n_paths,
 
 def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
                  n_paths, v0, target, shift, lo, log_lo, inv_w, hb,
-                 with_hist, keep_finals):
+                 with_hist, keep_finals, blocks_per_sm=_BLOCKS_PER_SM):
     """Checked inputs of one CLT chunk on a CUDA device -> ``(launch,
     outputs)`` (``cuda_engine._prepare``); ``launch()`` is the bare kernel,
-    uncounted."""
+    uncounted. ``blocks_per_sm`` caps the grid (the blocks stride over the
+    64-path groups); the results do not depend on it."""
     dev = q.device
     ce._check_chunk(dev, "CLT", valid, n_paths)
     ce._check(q, "q", dev, CLT_K * CLT_K, torch.bfloat16)
@@ -263,7 +308,7 @@ def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
     return ce._prepare("smmc_clt", args, dev, valid, lo=lo, log_lo=log_lo,
                        inv_w=inv_w, hb=hb, with_hist=with_hist,
                        keep_finals=keep_finals, rows_per_block=_ROWS,
-                       blocks_per_sm=_BLOCKS_PER_SM)
+                       blocks_per_sm=blocks_per_sm)
 
 
 def clt_chunk(q, arow, cs, keep, **kw):

@@ -83,6 +83,13 @@ _ERFINV_Q = (0.000100950558, 0.00134934322, -0.00367342844,
 KERNEL_HIST_CELLS = 4096
 _BLOCK = 256
 _BLOCKS_PER_SM = 8
+# the historical draw's warp items (csrc/month_loop.cu): paths a lane, and
+# the 32 lanes' paths of an item (two 128-path rows of a tile); its grid,
+# at most 16 blocks a SM (0.3 % faster than 8 and 1 % than 4 in turns,
+# PERF.md)
+HISTORICAL_LANE_PATHS = 8
+HISTORICAL_ITEM_PATHS = 32 * HISTORICAL_LANE_PATHS
+_HISTORICAL_BLOCKS_PER_SM = 16
 
 STRATEGY_CODES = {"none": 0, "fixed_percent": 1, "variable_percent": 1,
                   "fixed_amount": 2}
@@ -467,6 +474,49 @@ def sobol_words_recurrence(direction, shift, index_offset, gid, k):
     return word
 
 
+def historical_item_paths(valid, n_blocks):
+    """Index twin of ``csrc/month_loop.cu``'s historical draw: the chunk
+    paths its warps take at a grid of ``n_blocks`` blocks. Warp w (8 a
+    block) takes items w, w + 8 n_blocks, ... below ceil(valid / 256);
+    lane l of item k holds paths 256 k + l + 32 i, i < 8, and counts those
+    below ``valid``. Returns (paths, live): int64 and bool, (warps, items a
+    warp, 32, 8)."""
+    n_items = -(-valid // HISTORICAL_ITEM_PATHS)
+    n_warps = n_blocks * (_BLOCK // 32)
+    item = (torch.arange(n_warps)[:, None]
+            + n_warps * torch.arange(-(-n_items // n_warps))[None, :])
+    paths = (item[..., None, None] * HISTORICAL_ITEM_PATHS
+             + torch.arange(32)[:, None]
+             + 32 * torch.arange(HISTORICAL_LANE_PATHS))
+    return paths, (item[..., None, None] < n_items) & (paths < valid)
+
+
+def historical_item_growth(table, n_table, words):
+    """CPU twin of the historical kernel's draw of warp items: ``words``
+    (items, 256) are one month's words of each item's paths in path order
+    (row r = paths 128 r .. 128 r + 127). Lane l's path i, lane c = l + 32
+    (i % 4) of row i // 4, draws with its own word, its row's lane-0 word
+    (the shuffle) and the row's word at its source column w_col (the
+    item's words staged in shared memory). Returns the (items, 256)
+    growth factors in path order: ``_sliced_rotation_draw`` of the rows."""
+    k_chunks = table.numel() // 128
+    tail_n = n_table - 128 * (k_chunks - 1)
+    # (lane, i) flattened: path i's lane c in its row, and the row's start
+    i = torch.arange(HISTORICAL_LANE_PATHS)
+    c = (torch.arange(32)[:, None] + 32 * (i % 4)).reshape(-1)
+    row = (128 * (i // 4)).repeat(32)
+    own = row + c
+    w, w0 = words[:, own], words[:, row]
+    idx_dest = _bootstrap_idx_exact_i32(w, n_table)
+    w_col = torch.where(idx_dest < tail_n, idx_dest, (c + (w0 & 127)) & 127)
+    ws = torch.gather(words, 1, row + w_col)
+    n_valid = torch.where(w_col < tail_n, k_chunks, k_chunks - 1)
+    cprime = _bootstrap_idx_exact_i32((ws * n_table) & MASK32, n_valid)
+    out = torch.empty(words.shape, dtype=table.dtype)
+    out[:, own] = table[cprime * 128 + w_col]
+    return out
+
+
 def month_growth(dev, table, *, draw, n_table, a, b, seed_base, tile0,
                  n_paths, direction=None, shift=None, index_offset=0):
     """``growth(t)``: the (tiles, 64, 128) float32 growth factors of month
@@ -706,10 +756,14 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
                         seed_base, tile0, valid, n_paths, v0, target, shift,
                         lo, log_lo, inv_w, hb, with_hist, keep_finals,
                         draw="historical", n_table=0, a=0.0, b=0.0,
-                        direction=None, sobol_shift=None, index_offset=0):
+                        direction=None, sobol_shift=None, index_offset=0,
+                        blocks_per_sm=None):
     """Checked inputs of one month-loop chunk on a CUDA device ->
     ``(launch, outputs)`` (see ``_prepare``). ``launch()`` alone is the
-    kernel, uncounted: ``month_loop_chunk`` is the counted entry point."""
+    kernel, uncounted: ``month_loop_chunk`` is the counted entry point.
+    ``blocks_per_sm`` caps the grid (``_launch_geometry``; by default 16
+    for the historical draw, 8 for the others); the kernels' results do
+    not depend on it."""
     dev = keep.device
     _check_chunk(dev, "month-loop", valid, n_paths)
     _check(keep, "keep", dev, n_periods)
@@ -756,8 +810,14 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
             int(seed_base) & MASK32, int(tile0) & MASK32, valid, _f32(v0),
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
             _f32(shift), _f32(log_lo), _f32(inv_w), hb)
-    geometry = {}
-    if draw in RUN_DRAWS:
+    if blocks_per_sm is None:
+        blocks_per_sm = (_HISTORICAL_BLOCKS_PER_SM if draw == "historical"
+                         else _BLOCKS_PER_SM)
+    geometry = dict(blocks_per_sm=blocks_per_sm)
+    if draw == "historical":
+        # a block's 8 warps take items of 256 paths
+        geometry.update(rows_per_block=_BLOCK * HISTORICAL_LANE_PATHS)
+    elif draw in RUN_DRAWS:
         # the run kernel's blocks take groups of 256 x K paths, at most 8
         # blocks a SM as the other draws: a persistent grid (the resident
         # blocks) was 4-8 % slower for the Sobol draws (bench/sobol_grid.py,
@@ -765,7 +825,7 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
         plan = run_kernel_info(draw, strategy, n_table=n_table,
                                dir_cols=dir_cols, n_periods=n_periods,
                                hb=hb, with_hist=with_hist, device=dev)
-        geometry = dict(rows_per_block=_BLOCK * plan["paths_a_thread"])
+        geometry.update(rows_per_block=_BLOCK * plan["paths_a_thread"])
     return _prepare("smmc_month_loop", args, dev, valid, lo=lo,
                     log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
                     keep_finals=keep_finals, **geometry)

@@ -5,8 +5,11 @@ table needs the opt-in above 48 KB), odd histogram sizes and no
 histogram; the Gaussian month loop under every strategy; the CLT kernel's
 three variants over one and two 128-month blocks; the two band kernels
 under both draws and every percent strategy, odd bin and threshold
-counts, one and two months. Also the wrappers' input checks and launch
-counters, the launch counts of the engine's samplers, and bands,
+counts, one and two months. The historical month loop's warp items at
+partial items and three grids, the CLT at three grids, and the CLT's
+finish against its CPU twin (``clt.finals_twin``) bit for bit. Also the
+wrappers' input checks and launch counters, the launch counts of the
+engine's samplers, and bands,
 trajectories and seed segments on the card against the CPU. The month
 loop's Sobol and reference-parity draws against their plain versions under
 every strategy, at 64-bit positions (past 2^33, across a word carry, near
@@ -230,6 +233,129 @@ def test_clt_kernel_without_finals_or_histogram(cuda):
     np.testing.assert_array_equal(sk.cpu().numpy(), sf.cpu().numpy())
     assert float(hk.sum()) == 0.0 and float(hf.sum()) == 8192 + 5
     assert ff.shape == (8192 + 5,)
+
+
+@pytest.mark.parametrize("table_name", ["n1127", "hostile_n97", "n20000"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "fixed_amount"])
+@pytest.mark.parametrize("valid", [1, 255, 257, 2 * 8192 + 1001])
+@pytest.mark.parametrize("blocks_per_sm", [4, 8, 16])
+def test_month_loop_partial_items_match_plain(cuda, table_name, strategy,
+                                              valid, blocks_per_sm):
+    """The historical kernel's warps take items of 256 paths: chunks whose
+    valid paths end inside an item (one path, one short of a row, one past
+    a row, a ragged third tile) at tile0 37, at 4, 8 and 16 blocks a SM."""
+    flat, n = ce._pad_table(_table(table_name))
+    table = torch.as_tensor(flat, device=cuda)
+    keep = torch.full((24,), 0.995, dtype=torch.float32, device=cuda)
+    kw = dict(_month_kw(strategy, n, 24, 4096, True), valid=valid)
+    launch, outputs = ce.month_loop_launcher(table, keep, **kw,
+                                             blocks_per_sm=blocks_per_sm)
+    launch()
+    _assert_kernel_matches_plain(outputs(),
+                                 ce.month_loop_chunk_plain(table, keep, **kw))
+
+
+@pytest.mark.parametrize("table_name", ["n1127", "hostile_n97", "n20000"])
+@pytest.mark.parametrize("valid", [1, 255, 257, 2 * 8192 + 1001])
+def test_month_loop_partial_items_spec_histogram(cuda, table_name, valid):
+    """The same chunks with 102 cells: the kernel writes the finals and the
+    histogram kernel counts them."""
+    flat, n = ce._pad_table(_table(table_name))
+    table = torch.as_tensor(flat, device=cuda)
+    keep = torch.full((24,), 0.995, dtype=torch.float32, device=cuda)
+    kw = dict(_month_kw("fixed_percent", n, 24, 102, True), valid=valid)
+    _assert_kernel_matches_plain(ce.month_loop_chunk(table, keep, **kw),
+                                 ce.month_loop_chunk_plain(table, keep, **kw))
+
+
+@pytest.mark.parametrize("variant", ["plain", "keep_fold", "prefix"])
+def test_clt_grid_does_not_change_results(cuda, variant):
+    """At 2, 3 and 4 blocks a SM (the blocks stride over 64-path groups):
+    the same finals, counts, min, max and histogram; power sums within
+    float64 regrouping."""
+    ops = _clt_operands(cuda, variant, 200)
+    kw = dict(variant=variant, seed_base=0x9E3779B9 ^ clt.CLT_STREAM_XOR,
+              tile0=37, valid=40 * 8192 + 1001, n_paths=41 * 8192,
+              v0=1000.0, target=1000.0, shift=1.01, lo=300.0,
+              log_lo=float(np.log(300.0)),
+              inv_w=float(np.float32(4094 / np.log(10.0))), hb=4096,
+              with_hist=True, keep_finals=True)
+    outs = []
+    for bps in (2, 3, 4):
+        launch, outputs = clt.clt_launcher(*ops, **kw, blocks_per_sm=bps)
+        launch()
+        outs.append(outputs())
+    torch.cuda.synchronize()
+    s0, h0, f0 = outs[0]
+    for s, h, f in outs[1:]:
+        assert torch.equal(f, f0) and torch.equal(h, h0)
+        assert torch.equal(s[[0, 5, 6, 7]], s0[[0, 5, 6, 7]])
+        np.testing.assert_allclose(s.cpu().numpy(), s0.cpu().numpy(),
+                                   rtol=1e-6)
+
+
+def _adversarial_arow(cuda, n_periods):
+    """(nblocks, 128) growth constants whose per-column products over the
+    blocks spread from near 0 (1e-6) to large (8), with cs = 0: every
+    path's row of products is then exact, the same on the card as in
+    torch, whatever the product's accumulation order."""
+    nblocks = -(-n_periods // clt.CLT_K)
+    rng = np.random.default_rng(11)
+    logs = rng.normal(0.015, 0.08, clt.CLT_K)
+    cols = rng.permutation(clt.CLT_K)
+    logs[cols[:3]] = -13.8
+    logs[cols[3:6]] = 2.08
+    per_block = np.exp(logs / nblocks).astype(np.float32)
+    arow = np.broadcast_to(per_block, (nblocks, clt.CLT_K)).copy()
+    return (torch.as_tensor(arow, device=cuda),
+            torch.zeros((nblocks, clt.CLT_K), dtype=torch.float32,
+                        device=cuda))
+
+
+@pytest.mark.parametrize("variant", ["plain", "keep_fold"])
+def test_clt_finish_equals_its_twin(cuda, variant):
+    """The kernel's finish against ``clt.finals_twin`` (its sum order, on
+    the card's log and exp), bit for bit, at rows of products that do not
+    depend on the product's accumulation order (cs = 0)."""
+    arow, cs = _adversarial_arow(cuda, 360)
+    q = clt.q_tensor(cuda)
+    kw = dict(variant=variant, seed_base=0x11C7, tile0=3,
+              valid=8192 + 77, n_paths=2 * 8192, v0=1000.0, target=1000.0,
+              shift=1.0, lo=1e-30, log_lo=float(np.log(1e-30)),
+              inv_w=float(np.float32(4094 / np.log(1e40))), hb=4096,
+              with_hist=True, keep_finals=True)
+    _, _, fk = clt.clt_chunk(q, arow, cs, None, **kw)
+    prod = clt.row_products(q, arow, cs, seed_base=0x11C7, tile0=3,
+                            rows=torch.arange(8192 + 77, device=cuda))
+    twin = clt.finals_twin(prod, 1000.0)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, twin)
+
+
+@pytest.mark.parametrize("ablate", ["nomm", "nologexp"])
+def test_clt_probe_finish_equals_its_twin(cuda, ablate):
+    """The probes whose products are exact on both sides (nomm: no mixing
+    product) or whose finish takes no log (nologexp, against the plain
+    version's products at the bar) against the twin: nomm bit for bit on
+    the stream's rows, nologexp within the kernel-against-plain bar."""
+    ops = _clt_operands(cuda, "plain", 360)[:3]
+    kw = dict(seed_base=0x9E3779B9 ^ clt.CLT_STREAM_XOR, tile0=37,
+              valid=2 * 8192 + 1001, n_paths=3 * 8192, v0=1000.0,
+              target=1000.0, lo=300.0, log_lo=float(np.log(300.0)),
+              inv_w=float(np.float32(4094 / np.log(10.0))), hb=4096,
+              with_hist=True, keep_finals=True)
+    _, _, fk = clt.clt_probe_chunk(*ops, ablate=ablate, **kw)
+    prod = clt.row_products(*ops, seed_base=kw["seed_base"], tile0=37,
+                            rows=torch.arange(kw["valid"], device=cuda),
+                            ablate=ablate)
+    twin = clt.finals_twin(prod, 1000.0, ablate)
+    torch.cuda.synchronize()
+    if ablate == "nomm":
+        assert torch.equal(fk, twin)
+    else:
+        np.testing.assert_allclose(fk.cpu().numpy(), twin.cpu().numpy(),
+                                   rtol=CLT_KERNEL_REL, atol=0)
 
 
 @pytest.mark.parametrize("sampler,key", [("icdf", "month_loop_gaussian"),
