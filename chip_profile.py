@@ -1,7 +1,7 @@
 """Where the time goes in one 100M x 360 call of each main path of the
 PyTorch port, on one CUDA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [PATH ...]
 
 For each path (``simulate_stats`` through the historical month loop, the
 terminal law, the Gaussian ICDF month loop, the Gaussian CLT and the Sobol
@@ -11,6 +11,7 @@ Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
 ``torch.profiler`` (CPU and CUDA activity) over one call that ends in
 ``torch.cuda.synchronize()``; then ``cProfile`` over one more call, for
 the host functions that took most of its wall.
+PATH picks paths by label (default: all; for example "terminal law").
 Prints, per path, the profiled wall, the summed time of the CUDA-device
 rows of ``key_averages()`` (kernels and copies, each counted once), the
 device busy share (device time over wall), the rows that took most
@@ -25,6 +26,7 @@ import cProfile
 import json
 import pstats
 import subprocess
+import sys
 import time
 
 import torch
@@ -71,7 +73,10 @@ def main():
         "historical bands (hist)": bands(hist, band_mode="hist"),
         "Gaussian bands (cdf)": bands(gauss, band_mode="cdf"),
     }
+    picked = sys.argv[1:]
     for label, run in paths.items():
+        if picked and label not in picked:
+            continue
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

@@ -273,12 +273,13 @@ def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
     from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
 
     none = NoWithdrawal()
-    fit = tlaw.fit_terminal_law(model, none, n_periods, 1000.0)
+    op = tlaw.fit_terminal_law(model, none, n_periods, 1000.0).operand()
     kw = dict(_common(model, none, n_periods, valid, n_paths, target, tile0,
                       bins),
               seed_base=_base(seed) ^ ce.LAW_STREAM_XOR,
-              inv_zmax=1.0 / tlaw.LAW_ZMAX, keep_finals=keep_finals)
-    return (torch.as_tensor(fit.operand(), device=DEVICE),), kw
+              inv_zmax=1.0 / tlaw.LAW_ZMAX, keep_finals=keep_finals,
+              law_host=op)
+    return (torch.as_tensor(op, device=DEVICE),), kw
 
 
 def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
@@ -546,10 +547,10 @@ def main():
     from stock_market_monte_carlo_torch.ops import _build, clt
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    # 2. build; the month loops' and the CLT's ptxas report: the run
-    # kernel's instances (registers, spills; paths a thread, shared memory,
-    # window and blocks a SM at the main shapes), the month-loop kernel's
-    # and the CLT kernel's (no spills allowed)
+    # 2. build; the month loops', the CLT's and the law's ptxas report: the
+    # run kernel's instances (registers, spills; paths a thread, shared
+    # memory, window and blocks a SM at the main shapes), the month-loop,
+    # CLT and terminal-law kernels' (no spills allowed)
     t = time.perf_counter()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
@@ -563,7 +564,8 @@ def main():
     for kernel, instances, params in (
             ("run_loop_kernel", 9, "draw,strategy"),
             ("month_loop_kernel", 6, "draw,strategy"),
-            ("clt_kernel", 8, "variant,ablate")):
+            ("clt_kernel", 8, "variant,ablate"),
+            ("law_kernel", 2, "finals")):
         found = {args: v for name, v in res.items()
                  if (args := template_args(name, kernel))}
         check(len(found) == instances

@@ -8,11 +8,12 @@ into the other checkout where it lacks it.
 Each case is one 2^24-path chunk at 360 months with the operands that
 ``chip_smoke.py`` builds for its phase-6 timings (its ``*_chunk_args``,
 seed 0, target 2000, 4096 histogram cells, no withdrawal unless the name
-says so), or the headline's and the probes' shapes for the histogram
-kernel (2^24 indices over 4096 cells), the tile flatten (2048 tiles), the
-calibration kernels and the byte planes, launched bare (the launcher's C
-call, uncounted): the median of 3 measurements of CUDA events around 5
-launches (``headline.events_ms``).
+says so; the terminal law without and with finals), or the headline's
+and the probes' shapes for the histogram kernel (2^24 indices over 4096
+cells), the tile flatten (2048 tiles), the calibration kernels and the
+byte planes, launched bare (the launcher's C call, uncounted): the median
+of 3 measurements of CUDA events around 5 launches
+(``headline.events_ms``).
 NAME picks cases (default: all). Prints the card's name and power limit,
 then one JSON line {name: ms a chunk}. Imports neither jax nor the JAX
 package.
@@ -74,8 +75,10 @@ def cases():
         ce.month_loop_launcher, *cs.month_chunk_args(
             gauss, smt.FixedPercentWithdrawal(0.4), MONTHS, CHUNK, CHUNK,
             TARGET, seed=0))
-    out["law"] = (ce.law_launcher, *cs.law_chunk_args(
-        hist, MONTHS, CHUNK, CHUNK, TARGET, seed=0, keep_finals=False))
+    for name, keep_finals in (("law", False), ("law_with_finals", True)):
+        out[name] = (ce.law_launcher, *cs.law_chunk_args(
+            hist, MONTHS, CHUNK, CHUNK, TARGET, seed=0,
+            keep_finals=keep_finals))
     for variant, strategy in (("plain", none),
                               ("keep_fold", smt.FixedPercentWithdrawal(0.4)),
                               ("prefix", smt.VariablePercentWithdrawal(
@@ -115,7 +118,7 @@ def main(argv=None):
     for name, (launcher, ops, kw) in cases().items():
         if names and name not in names:
             continue
-        if "keep_finals" in kw and name != "law":
+        if "keep_finals" in kw and not name.startswith("law"):
             kw = dict(kw, keep_finals=False)
         launch, _ = launcher(*ops, **kw)
         times[name] = headline.events_ms(lambda _: launch(), k=5, reps=3)

@@ -234,10 +234,10 @@ def chunk_cases(n_periods, chunk=CHUNK, device="cuda"):
                     hb=spec.n_bins + 2, with_hist=with_hist,
                     keep_finals=False)
 
-    law = (torch.as_tensor(tlaw.fit_terminal_law(hist, none, n_periods,
-                                                 V0).operand(), device=dev),)
+    law_host = tlaw.fit_terminal_law(hist, none, n_periods, V0).operand()
+    law = (torch.as_tensor(law_host, device=dev),)
     law_kw = dict(seed_base=base ^ ce.LAW_STREAM_XOR,
-                  inv_zmax=1.0 / tlaw.LAW_ZMAX)
+                  inv_zmax=1.0 / tlaw.LAW_ZMAX, law_host=law_host)
     table, draw = ce.draw_operands(hist, dev)
     month = (table, torch.ones((n_periods,), dtype=torch.float32,
                                device=dev))

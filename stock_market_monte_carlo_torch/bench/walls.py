@@ -1,0 +1,63 @@
+"""Walls of the main paths' ``simulate_stats`` calls at 100M paths x 360
+months on one CUDA card, for comparing two checkouts of the port in turns:
+run it from each checkout's root in one call (parent, change, change,
+parent), with this file copied into the other checkout where it lacks it.
+
+    python3 -m stock_market_monte_carlo_torch.bench.walls [NAME ...] \\
+        [--reps N]
+
+Each path is ``headline.time_row``: one warm-up call at the full shape,
+then N calls (default 15), each timed with the host clock around the call
+and a ``torch.cuda.synchronize()`` (seed 7, target 2000, the default 4096
+histogram cells). NAME picks paths (default: all): ``law`` (the historical
+terminal law, the headline's row), ``law_statsonly`` (no histogram),
+``historical``, ``gaussian_icdf`` and ``clt``. Prints the card's name and
+power limit, then one JSON line {name: {"median_s", "rep_times_s"}}.
+Imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import stock_market_monte_carlo_torch as smt
+from stock_market_monte_carlo_torch.bench import headline
+
+N_PATHS = 100_000_000
+N_PERIODS = 360
+PATHS = {
+    "law": ("historical", dict(terminal_law=True)),
+    "law_statsonly": ("historical", dict(terminal_law=True,
+                                         histogram=False)),
+    "historical": ("historical", {}),
+    "gaussian_icdf": ("gaussian", {}),
+    "clt": ("gaussian", dict(gaussian_sampler="clt")),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("names", nargs="*")
+    ap.add_argument("--reps", type=int, default=15)
+    args = ap.parse_args(argv)
+    unknown = set(args.names) - set(PATHS)
+    if unknown:
+        ap.error(f"unknown paths {sorted(unknown)}; known: {list(PATHS)}")
+    headline._require_card()
+    print(headline.card_line(), flush=True)
+    models = {"historical": smt.HistoricalBootstrap.from_csv(),
+              "gaussian": smt.GaussianReturns()}
+    out = {}
+    for name, (kind, opts) in PATHS.items():
+        if args.names and name not in args.names:
+            continue
+        med, times, _ = headline.time_row(
+            models[kind], smt.EngineOptions(**opts), N_PATHS, N_PERIODS,
+            args.reps)
+        out[name] = dict(median_s=med, rep_times_s=times)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -420,12 +420,14 @@ def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
 
         _validate_terminal_law(model, strategy, options)
         fit = tlaw.fit_terminal_law(model, strategy, n_periods, v0f)
-        law = torch.as_tensor(fit.operand(), device=dev)
+        law_host = fit.operand()
+        law = torch.as_tensor(law_host, device=dev)
 
         def fn(base, offset, **kw):
             return cuda_engine.law_chunk(
                 law, seed_base=base ^ cuda_engine.LAW_STREAM_XOR,
-                tile0=offset // KEY_TILE, inv_zmax=1.0 / tlaw.LAW_ZMAX, **kw)
+                tile0=offset // KEY_TILE, inv_zmax=1.0 / tlaw.LAW_ZMAX,
+                law_host=law_host, **kw)
         return fn
 
     keep_np = (_keep_factors_np(strategy, n_periods)

@@ -46,7 +46,7 @@ _ARGTYPES = {
                         _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_run_info": (_i, _i, _i, _i, _i, _i, _i, _vp),
     "smmc_law": (_vp, _i, _u, _u, _i, _f, _f, _f, _f, _f, _f, _i,
-                 _vp, _vp, _vp, _i, _vp),
+                 _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,
                  _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_clt_probe": (_i, _i, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f,

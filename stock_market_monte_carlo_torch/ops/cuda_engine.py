@@ -90,6 +90,12 @@ _BLOCKS_PER_SM = 8
 HISTORICAL_LANE_PATHS = 8
 HISTORICAL_ITEM_PATHS = 32 * HISTORICAL_LANE_PATHS
 _HISTORICAL_BLOCKS_PER_SM = 16
+# the terminal law's block pass (csrc/terminal_law.cu kUnitPaths): 256
+# threads of 4 paths, a fixed part of one RNG tile (1 % faster than 2 and 5
+# % than 1, as fast as 8, in turns, PERF.md); its grid, at most 8 blocks a
+# SM, the resident ones: its finish reads a row a block
+LAW_LANE_PATHS = 4
+LAW_UNIT_PATHS = _BLOCK * LAW_LANE_PATHS
 
 STRATEGY_CODES = {"none": 0, "fixed_percent": 1, "variable_percent": 1,
                   "fixed_amount": 2}
@@ -620,11 +626,12 @@ def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
 
 def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
                     shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
-                    keep_finals):
+                    keep_finals, law_host=None):
     """Plain PyTorch version of ``csrc/terminal_law.cu``: one word per
     path, u23 -> sqrt(2)*erfinv(2u-1) -> Clenshaw over the law operand
     [scale, c_0 .. c_{D-1}] -> scale * exp(...). ``seed_base`` is the law
-    stream's base (already XOR-ed with LAW_STREAM_XOR)."""
+    stream's base (already XOR-ed with LAW_STREAM_XOR); ``law_host`` is
+    the kernel's and unused here."""
     dev = law.device
     ntiles = n_paths // TILE_PATHS
     tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
@@ -727,7 +734,7 @@ def _prepare(entry, args, dev, valid, *, lo, log_lo, inv_w, hb, with_hist,
     tail = (_ptr(finals), _ptr(partials), _ptr(hist), n_blocks,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
 
-    def launch():
+    def launch(held=(partials, hist, finals)):  # for the kernel
         _raise_on(fn(*args, *tail), entry)
 
     def outputs():
@@ -862,21 +869,112 @@ def _run_info(index, draw, strategy, k_chunks, dir_cols, n_periods, hb,
                       "window", "blocks_per_sm"), info))
 
 
+def law_operand_host(law, law_host):
+    """The law operand as the kernel takes it: ``law_host``, the host copy
+    of the device operand ``law``, as a ctypes array of LAW_OP_LEN floats
+    (passed by value in the kernel's parameters). Raises ValueError for
+    any other length of either, before anything is launched; the kernel
+    has the length as a constant."""
+    from stock_market_monte_carlo_torch.ops.terminal_law import LAW_OP_LEN
+
+    if law.numel() != LAW_OP_LEN:
+        raise ValueError(f"law has {law.numel()} elements, expected "
+                         f"{LAW_OP_LEN}")
+    if law_host is None:
+        raise ValueError("the terminal-law kernel needs law_host, a host "
+                         "copy of the law operand")
+    host = np.asarray(law_host, np.float32)
+    if host.shape != (LAW_OP_LEN,):
+        raise ValueError(f"law_host has shape {host.shape}, expected "
+                         f"({LAW_OP_LEN},)")
+    return (ctypes.c_float * LAW_OP_LEN)(*host.tolist())
+
+
 def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
                  shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
-                 keep_finals):
+                 keep_finals, law_host=None, blocks_per_sm=_BLOCKS_PER_SM):
     """Checked inputs of one terminal-law chunk on a CUDA device ->
-    ``(launch, outputs)``, as ``month_loop_launcher``."""
+    ``(launch, outputs)``, as ``month_loop_launcher``. The kernel takes
+    the operand's values from ``law_host`` (``law_operand_host``) and
+    finishes the chunk itself: its last block writes the stats row and the
+    histogram (``law_stats_twin``), so ``outputs()`` launches nothing but
+    on the spec route (``in_kernel_hist`` false with a histogram), where
+    the histogram kernel counts the finals. ``blocks_per_sm`` caps the
+    grid (``_launch_geometry``); the results do not depend on it."""
+    from stock_market_monte_carlo_torch.ops import histogram
+    from stock_market_monte_carlo_torch.ops._build import load_library
+
+    operand = law_operand_host(law, law_host)
     dev = law.device
     _check_chunk(dev, "terminal-law", valid, n_paths)
     _check(law, "law", dev)
-    args = (_ptr(law), law.numel() - 1, int(seed_base) & MASK32,
+    fn = load_library().smmc_law
+    n_blocks = _launch_geometry(_sm_count(dev), valid, LAW_UNIT_PATHS,
+                                blocks_per_sm)
+    binned = in_kernel_hist(hb, with_hist)
+    spec_route = with_hist and not binned
+    partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
+    # the in-place cells, then the launch's ticket: zeroed here, left zero
+    # by the kernel; the histogram, then the stats row (the cells and the
+    # histogram at the allocations' aligned start)
+    cells = hb if binned else 0
+    work = torch.zeros((cells + 1,), dtype=torch.int32, device=dev)
+    hist_cells = 0 if spec_route else hb
+    out = torch.empty((hist_cells + 9,), dtype=torch.float32, device=dev)
+    hist, stats = out[:hist_cells], out[hist_cells:]
+    finals = (torch.empty((valid,), dtype=torch.float32, device=dev)
+              if keep_finals or spec_route else None)
+    args = (operand, law.numel() - 1, int(seed_base) & MASK32,
             int(tile0) & MASK32, valid,
             _f32(np.float32(1.0) / np.float32(v0)), _f32(target),
-            _f32(shift), _f32(inv_zmax), _f32(log_lo), _f32(inv_w), hb)
-    return _prepare("smmc_law", args, dev, valid, lo=lo, log_lo=log_lo,
-                    inv_w=inv_w, hb=hb, with_hist=with_hist,
-                    keep_finals=keep_finals)
+            _f32(shift), _f32(inv_zmax), _f32(log_lo), _f32(inv_w), hb,
+            _ptr(finals), _ptr(partials), _ptr(work) if binned else None,
+            _ptr(work[cells:]), _ptr(stats),
+            None if spec_route else _ptr(hist), n_blocks,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+
+    def launch(held=(partials, work, out, finals)):  # for the kernel
+        _raise_on(fn(*args), "smmc_law")
+
+    def outputs():
+        if spec_route:
+            return stats, histogram.histogram_counts(
+                finals, hb, mode="spec", lo=lo, log_lo=log_lo,
+                inv_w=inv_w).to(torch.float32), (
+                    finals if keep_finals else None)
+        return stats, hist, (finals if keep_finals else None)
+
+    return launch, outputs
+
+
+def law_stats_twin(partials, valid):
+    """CPU twin of the terminal-law kernel's finish: the float64[9] stats
+    row (before the kernel's cast to float32) of its blocks' (n_blocks, 8)
+    float64 rows [s1, s2, s3, s4, min, max, count_below, withdrawn]. Each
+    column as a warp of the kernel reduces it: lane l takes rows l, l + 32,
+    ... in order from 0 (+inf for the min, -inf for the max), then the 32
+    lanes' results are taken in lane order. ``_reduce_partials`` is the
+    same row in torch's order."""
+    rows = torch.as_tensor(partials, dtype=torch.float64)
+    n = rows.shape[0]
+    ident = torch.tensor([0.0, 0.0, 0.0, 0.0, float("inf"), float("-inf"),
+                          0.0, 0.0], dtype=torch.float64)
+    lanes = torch.cat([rows, ident.expand(-n % 32, 8)]).reshape(-1, 32, 8)
+
+    def step(acc, v):
+        return torch.cat([acc[..., :4] + v[..., :4],
+                          torch.fmin(acc[..., 4:5], v[..., 4:5]),
+                          torch.fmax(acc[..., 5:6], v[..., 5:6]),
+                          acc[..., 6:] + v[..., 6:]], -1)
+
+    acc = ident.expand(32, 8)
+    for v in lanes:
+        acc = step(acc, v)
+    tot = acc[0]
+    for v in acc[1:]:
+        tot = step(tot, v)
+    return torch.cat([torch.tensor([float(valid)], dtype=torch.float64),
+                      tot])
 
 
 def _launch_counted(name, launcher):
@@ -911,8 +1009,10 @@ def month_loop_chunk(table, keep, **kw):
 def law_chunk(law, **kw):
     """One chunk of the terminal-law sampler. ``law``: float32
     (LAW_OP_LEN,) operand [scale, c_0 .. c_{D-1}]; keywords as
-    ``law_chunk_plain`` (``seed_base`` is the law stream's base). Same
-    outputs as ``month_loop_chunk`` (withdrawn row 0)."""
+    ``law_chunk_plain`` (``seed_base`` is the law stream's base), on a
+    CUDA device with ``law_host``, a host copy of ``law`` (numpy), whose
+    values the kernel takes by value. Same outputs as
+    ``month_loop_chunk`` (withdrawn row 0)."""
     if law.device.type == "cpu":
         return law_chunk_plain(law, **kw)
     return _launch_counted("law", law_launcher(law, **kw))

@@ -5,7 +5,10 @@ table needs the opt-in above 48 KB), odd histogram sizes and no
 histogram; the Gaussian month loop under every strategy; the CLT kernel's
 three variants over one and two 128-month blocks; the two band kernels
 under both draws and every percent strategy, odd bin and threshold
-counts, one and two months. The historical month loop's warp items at
+counts, one and two months. The terminal law's two instances at a
+partial tile, under a warp of paths, across the tiles' wrap past 2^32 and
+at 1024 blocks, its chunks back to back on two streams, and its
+operand-length guard. The historical month loop's warp items at
 partial items and three grids, the CLT at three grids, and the CLT's
 finish against its CPU twin (``clt.finals_twin``) bit for bit. Also the
 wrappers' input checks and launch counters, the launch counts of the
@@ -108,29 +111,120 @@ def test_month_loop_kernel_matches_plain(cuda, table_name, strategy, hb,
                                  ce.month_loop_chunk_plain(table, keep, **kw))
 
 
-@pytest.mark.parametrize("keep_finals", [True, False])
-@pytest.mark.parametrize("hb", [4096, 102])
-def test_law_kernel_matches_plain(cuda, keep_finals, hb):
+# terminal-law chunks: (valid, n_paths, tile0) of a partial last tile, of
+# fewer paths than a warp, of tiles that wrap past 2^32, and of a grid of
+# 1024 blocks (the finish's rows several batches a lane)
+LAW_CASES = {"partial_tile": (3 * 8192 + 17, 4 * 8192, 5),
+             "under_a_warp": (19, 4 * 8192, 5),
+             "wrap": (3 * 8192 + 17, 4 * 8192, (1 << 32) - 2),
+             "many_blocks": ((1 << 20) - 5, 1 << 20, 7)}
+
+
+def _law_args(cuda, valid=3 * 8192 + 17, n_paths=4 * 8192, tile0=5,
+              hb=4096, with_hist=True, keep_finals=True):
+    """(law,), kwargs of one terminal-law chunk."""
     from stock_market_monte_carlo_torch.ops.terminal_law import (
         LAW_ZMAX,
         fit_terminal_law,
     )
 
-    fit = fit_terminal_law(smt.GaussianReturns(), smt.NoWithdrawal(), 120,
-                           1000.0)
-    law = torch.as_tensor(fit.operand(), device=cuda)
-    kw = dict(seed_base=0x80000001, tile0=5, valid=3 * 8192 + 17,
-              n_paths=4 * 8192, v0=1000.0, target=1500.0, shift=1.8,
+    op = fit_terminal_law(smt.GaussianReturns(), smt.NoWithdrawal(), 120,
+                          1000.0).operand()
+    kw = dict(seed_base=0x80000001, tile0=tile0, valid=valid,
+              n_paths=n_paths, v0=1000.0, target=1500.0, shift=1.8,
               inv_zmax=1.0 / LAW_ZMAX, lo=200.0,
               log_lo=float(np.log(200.0)),
               inv_w=float(np.float32((hb - 2) / np.log(80.0))), hb=hb,
-              with_hist=True, keep_finals=True)
-    p_out = ce.law_chunk_plain(law, **kw)
-    k_out = ce.law_chunk(law, **dict(kw, keep_finals=keep_finals))
-    if not keep_finals:
-        assert k_out[2] is None
-        k_out = (k_out[0], k_out[1], p_out[2])
-    _assert_kernel_matches_plain(k_out, p_out, finals_rel=1e-6)
+              with_hist=with_hist, keep_finals=keep_finals, law_host=op)
+    return (torch.as_tensor(op, device=cuda),), kw
+
+
+def _assert_law_matches_plain(k_out, p_out):
+    """The law kernel against its plain version: path count, count below,
+    min, max and finals bit for bit, the withdrawn row 0; power sums
+    within 1e-6 (float64 sums in another order); histogram mass exact,
+    cells within 2."""
+    torch.cuda.synchronize()
+    sk, sp = k_out[0].cpu().numpy(), p_out[0].cpu().numpy()
+    np.testing.assert_array_equal(sk[[0, 5, 6, 7, 8]], sp[[0, 5, 6, 7, 8]])
+    assert sk[8] == 0.0
+    np.testing.assert_allclose(sk[1:5], sp[1:5], rtol=1e-6,
+                               atol=1e-6 * np.abs(sp[2]))
+    hk, hp = k_out[1].cpu().numpy(), p_out[1].cpu().numpy()
+    assert hk.sum() == hp.sum()
+    assert np.abs(hk - hp).max() <= 2
+    if k_out[2] is not None:
+        assert torch.equal(k_out[2], p_out[2])
+
+
+@pytest.mark.parametrize("case", sorted(LAW_CASES))
+@pytest.mark.parametrize("keep_finals", [True, False])
+@pytest.mark.parametrize("hb,with_hist", [(4096, True), (128, True),
+                                          (102, True), (4160, True),
+                                          (4096, False)])
+def test_law_kernel_matches_plain(cuda, case, keep_finals, hb, with_hist):
+    """Both instances (with and without finals) at a partial last tile,
+    under a warp of paths, across the tiles' wrap past 2^32 and at 1024
+    blocks, binned in place (4096 cells, the limit, and 128) and by the
+    histogram kernel (102 and 4160 cells: the spec route), and without a
+    histogram."""
+    ops, kw = _law_args(cuda, *LAW_CASES[case], hb, with_hist)
+    p_out = ce.law_chunk_plain(*ops, **kw)
+    k_out = ce.law_chunk(*ops, **dict(kw, keep_finals=keep_finals))
+    assert (k_out[2] is None) == (not keep_finals)
+    if not with_hist:
+        assert not k_out[1].any()
+    _assert_law_matches_plain(k_out, p_out)
+
+
+def test_law_chunks_back_to_back(cuda):
+    """Chunks queued back to back, on the default stream and on a side
+    stream at once, each equal bit for bit to the same chunk launched
+    alone (the launch's own ticket and cells); a bare launch repeated on
+    its buffers gives the same outputs (the kernel leaves them zero)."""
+    cases = [_law_args(cuda, *case, hb) for case in LAW_CASES.values()
+             for hb in (4096, 128)]
+    alone = []
+    for ops, kw in cases:
+        out = ce.law_chunk(*ops, **kw)
+        torch.cuda.synchronize()
+        alone.append([t.clone() for t in out])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    queued = [ce.law_chunk(*ops, **kw) for ops, kw in cases]
+    with torch.cuda.stream(side):
+        queued_side = [ce.law_chunk(*ops, **kw) for ops, kw in cases]
+    torch.cuda.synchronize()
+    for want, got, got_side in zip(alone, queued, queued_side):
+        for a, b, c in zip(want, got, got_side):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    ops, kw = cases[0]
+    launch, outputs = ce.law_launcher(*ops, **kw)
+    launch()
+    first = [t.clone() for t in outputs()]
+    launch()
+    for a, b in zip(first, outputs()):
+        assert torch.equal(a, b)
+    for a, b in zip(first, alone[0]):
+        assert torch.equal(a, b)
+
+
+def test_law_operand_length_refused_before_launch(cuda):
+    """An operand of another length than LAW_OP_LEN, a host copy of
+    another length, or none, raise before any launch."""
+    ops, kw = _law_args(cuda)
+    ce.reset_launch_counts()
+    with pytest.raises(ValueError, match="49"):
+        ce.law_chunk(ops[0][:48], **dict(kw, law_host=kw["law_host"][:48]))
+    with pytest.raises(ValueError, match="49"):
+        ce.law_chunk(torch.cat([ops[0], ops[0][:1]]), **kw)
+    with pytest.raises(ValueError, match="law_host"):
+        ce.law_chunk(*ops, **dict(kw, law_host=kw["law_host"][:48]))
+    with pytest.raises(ValueError, match="law_host"):
+        ce.law_chunk(*ops, **dict(kw, law_host=None))
+    assert ce.LAUNCHES["law"] == 0
+    ce.law_chunk(*ops, **kw)
+    assert ce.LAUNCHES["law"] == 1
 
 
 @pytest.mark.parametrize("strategy", ["none", "fixed_percent",
@@ -1268,14 +1362,14 @@ def test_counted_wrappers_do_not_synchronise(cuda):
     table = torch.as_tensor(flat, device=cuda)
     keep = torch.ones((24,), dtype=torch.float32, device=cuda)
     month_kw = dict(_month_kw("none", n, 24, 4096, True), keep_finals=False)
-    law = torch.as_tensor(fit_terminal_law(
-        smt.GaussianReturns(), smt.NoWithdrawal(), 120, 1000.0).operand(),
-        device=cuda)
+    law_host = fit_terminal_law(smt.GaussianReturns(), smt.NoWithdrawal(),
+                                120, 1000.0).operand()
+    law = torch.as_tensor(law_host, device=cuda)
     law_kw = dict(seed_base=0x80000001, tile0=5, valid=3 * 8192 + 17,
                   n_paths=4 * 8192, v0=1000.0, target=1500.0, shift=1.8,
                   inv_zmax=1.0 / LAW_ZMAX, lo=200.0,
                   log_lo=float(np.log(200.0)), inv_w=1000.0, hb=4096,
-                  with_hist=True, keep_finals=False)
+                  with_hist=True, keep_finals=False, law_host=law_host)
     sobol_cases = [_draw_args(cuda, "sobol_historical", "fixed_percent",
                               index_offset=offset, keep_finals=False)
                    for offset in (0, 777)]
