@@ -26,7 +26,14 @@ ptxas resources and launch plans, its instances against the plain version
 and at the main path's first and ragged last chunk); and the month loop's
 historical and reference instances' registers and spills. The band
 histogram also at an odd number of cells too many for a window of more
-than two months, and its launch plan (months a window, windows).
+than two months, and its launch plan (months a window, windows). Then the
+long runs: the bare launchers holding their outputs after their outputs
+closure is dropped; the historical, Gaussian ICDF and CLT samplers at 1e9
+x 360 against their exact laws (``bench/validation.py``); and the scale
+and fault drill (``bench/fault_drill.py``): a checkpointed 1e9 x 360 run
+killed with SIGKILL in a child process, resumed and held to an
+uninterrupted one bit for bit, the terminal law at 1e10 x 360, the month
+loop at 1e9 x 360, and the cost of a checkpoint.
 
     python3 chip_smoke.py
 
@@ -69,6 +76,8 @@ CLT_REL = 1e-5
 # a mean, std or withdrawn total over ~1e6 finals whose errors do not line up
 MOMENT_REL = 1e-6
 MAIN_PATHS = 100_000_000
+# the long runs' paths: the samplers against their laws, the fault drill
+LONG_PATHS = 1_000_000_000
 MAIN_MONTHS = 360
 CHUNK = 1 << 24
 # paths of the kernel-against-plain checks at the main paths' months
@@ -1666,6 +1675,62 @@ def main():
               for key, args in timed_args.items()}
     say(7, f"[{card}] share of the bound [at {roofline.SCALAR_OPS_PER_S!r}"
            f"/s, at the measured {rate!r}/s]: {json.dumps(shares)}")
+
+    # 8. the bare launchers hold their outputs (ROADMAP queue 3, F4): a
+    # launch after its outputs closure was dropped and an allocation of
+    # each output's size writes its own outputs, as a kept closure's did
+    from stock_market_monte_carlo_torch.bench import held_outputs
+
+    for case in held_outputs.CASES:
+        ok, detail = held_outputs.check(case)
+        check(ok, f"held outputs of {case}: {detail}")
+        say(8, f"{case}: launch holds its outputs: {json.dumps(detail)}")
+
+    # 9. the samplers against their exact laws at 1e9 x 360, each counted
+    # on its own (its warm-up chunk included): quantiles within 4 standard
+    # errors and half a cell (the CLT's beside its predicted block
+    # deviation), the count below the law's 1e-4 quantile within 4
+    # binomial standard errors (not the CLT's)
+    from stock_market_monte_carlo_torch.bench import validation
+
+    for name, key in (("historical", "month_loop"),
+                      ("icdf", "month_loop_gaussian"), ("clt", "clt")):
+        ce.reset_launch_counts()
+        rec = validation.validate(name, "cuda", LONG_PATHS, MAIN_MONTHS)
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        check(counts[key] > 0 and all(v == 0 for k, v in counts.items()
+                                      if k != key),
+              f"validation {name}: launches {counts}")
+        check(rec["ok"], f"validation {name}: {json.dumps(rec)}")
+        say(9, f"[{card}] validation {name}: launches {counts[key]}; "
+               f"{json.dumps(rec)}")
+
+    # 10. the scale and fault drill: the SIGKILLed checkpointed 1e9 x 360
+    # month loop resumed bit for bit against a control; the law at 1e10 x
+    # 360 (5 seed segments) and the month loop at 1e9 x 360; the cost of a
+    # checkpoint, 3 pairs in turns. Each part counted on its own.
+    from stock_market_monte_carlo_torch.bench import fault_drill
+
+    sizes = fault_drill.FULL
+    for part, fn, on_path in (
+            ("fault", lambda: fault_drill.fault("cuda", sizes, False),
+             ("month_loop",)),
+            ("scale", lambda: fault_drill.scale("cuda", sizes),
+             ("law", "month_loop")),
+            ("checkpoint_cost",
+             lambda: fault_drill.checkpoint_cost("cuda", sizes),
+             ("law", "month_loop"))):
+        ce.reset_launch_counts()
+        rec = fn()
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        check(all(counts[k] > 0 for k in on_path)
+              and all(v == 0 for k, v in counts.items() if k not in on_path),
+              f"fault drill {part}: launches {counts}")
+        check(rec.get("ok", True), f"fault drill {part}: {json.dumps(rec)}")
+        say(10, f"[{card}] fault drill {part}: launches "
+                f"{ {k: counts[k] for k in on_path} }; {json.dumps(rec)}")
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],

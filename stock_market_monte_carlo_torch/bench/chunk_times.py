@@ -10,8 +10,9 @@ Each case is one 2^24-path chunk at 360 months with the operands that
 seed 0, target 2000, 4096 histogram cells, no withdrawal unless the name
 says so; the terminal law without and with finals), or the headline's
 and the probes' shapes for the histogram kernel (2^24 indices over 4096
-cells), the tile flatten (2048 tiles), the calibration kernels and the
-byte planes, launched bare (the launcher's C call, uncounted): the median
+cells), the tile flatten (2048 tiles), the calibration kernels, the
+byte planes of both experiments and the counts below a tile (K=32),
+launched bare (the launcher's C call, uncounted): the median
 of 3 measurements of CUDA events around 5 launches
 (``headline.events_ms``).
 NAME picks cases (default: all). Prints the card's name and power limit,
@@ -107,6 +108,12 @@ def cases():
         seed=cs.GRID_SEED, n_tiles=CHUNK // ce.TILE_PATHS, device=dev))
     out["byte_planes"] = (bp.byte_planes_launcher, (bp.BYTES_SEEDS,),
                           dict(device=dev))
+    out["byte_planes_crossword"] = (bp.byte_planes_launcher,
+                                    (bp.CROSSWORD_SEEDS,), dict(device=dev))
+    rng = np.random.default_rng(0)
+    out["counts_below_tile"] = (bk.counts_below_tile_launcher, tuple(
+        torch.as_tensor(rng.lognormal(size=shape).astype(np.float32),
+                        device=dev) for shape in ((64, 128), (32, 128))), {})
     return out
 
 

@@ -104,21 +104,6 @@ def _chunk_month_hist(model, strategy, root_key, scramble_key, v0, offset,
                           ).reshape(t + 1, cells)
 
 
-def _to_host(counts):
-    """(host counts, event or None): a CUDA tensor's copy into pinned host
-    memory, queued on the current stream right behind the kernel that made
-    it, and the event to wait on before reading it; a CPU tensor as it is.
-    Waiting on that event waits for this chunk only, where ``.cpu()``
-    would wait for every kernel queued before it (the next chunk's too)."""
-    if counts.device.type != "cuda":
-        return counts, None
-    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
-    host.copy_(counts, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record(torch.cuda.current_stream(counts.device))
-    return host, copied
-
-
 def band_grid(model, strategy, n_periods: int, initial_capital: float):
     """(centers, scales) of the z-grid, (T+1,) each: month t's log centre
     log(v0) + t*mu_l and log scale sigma_l*sqrt(t); a percent strategy
@@ -381,7 +366,7 @@ def simulate_bands(
     while remaining > 0:
         valid = min(remaining, b)
         this_b = b if n_paths > b else eng._round_up(valid, eng.KEY_TILE)
-        counts = _to_host(run_chunk(offset, valid, this_b))
+        counts = eng.pinned_copy(run_chunk(offset, valid, this_b))
         if pending is not None:
             block, n = absorb_pending()
             total += block

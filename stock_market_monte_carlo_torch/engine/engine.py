@@ -28,8 +28,11 @@ reference stream (``ops/rng.py``), plain torch on the device, as the JAX
 package runs them as XLA. Bands are ``engine/bands.py``, replicated RQMC
 ``engine/rqmc.py``.
 
+``simulate_stats(checkpoint_path=...)`` saves the merged totals after
+every chunk (``engine/checkpoint.py``) and resumes a killed run from its
+next chunk, bit for bit; under a checkpoint the absorb is not deferred.
 Out of this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: checkpoints and meshes.
+item that ports them: meshes.
 """
 
 from __future__ import annotations
@@ -469,8 +472,37 @@ def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
     return fn
 
 
-def _to_host(out):
-    """A chunk's (stats, hist[, finals]) tensors as numpy arrays."""
+def pinned_copy(x):
+    """(host tensor, event or None): a CUDA tensor's copy into pinned host
+    memory, queued on the current stream right behind the kernel that made
+    it, and the event to wait on before reading it; a CPU tensor as it is.
+    Waiting on that event waits for this chunk only, where ``.cpu()``
+    would wait for every kernel queued before it (the next chunk's too)."""
+    if x.device.type != "cuda":
+        return x, None
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(x.device))
+    return host, copied
+
+
+def _fetch(out):
+    """A chunk's (stats, hist, finals-or-None) on their way to the host:
+    the stats row and histogram copied behind the chunk's kernel
+    (``pinned_copy``), the event after both, and the finals as they
+    are."""
+    stats, _ = pinned_copy(out[0])
+    hist, copied = pinned_copy(out[1])
+    return (stats, hist, out[2]), copied
+
+
+def _to_host(fetched):
+    """A fetched chunk's tensors as numpy arrays, once its copies are
+    done; kept finals through ``.cpu()``."""
+    out, copied = fetched
+    if copied is not None:
+        copied.synchronize()
     return tuple(None if x is None else x.cpu().numpy() for x in out)
 
 
@@ -497,16 +529,20 @@ def simulate_stats(
     are partitioned into seed segments, each drawing its own stream
     (segment 0 under the plain seed), merged by the same float64 host
     merges that combine chunks; no chunk straddles a segment boundary.
+
+    ``checkpoint_path`` saves the merged totals after every chunk and, when
+    the file holds a checkpoint of the same run, resumes from it: the
+    totals are then those of an uninterrupted run, bit for bit. A
+    checkpoint of another run raises ValueError ("different run"); one
+    written on the CPU resumes on the card and the other way round (both
+    draw the same stream), one written by the JAX package does not (its
+    float32 chunk sums run in another order).
     """
     t_start = time.perf_counter()
     if mesh is not None:
         raise NotImplementedError(
             "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
             "multi-GPU over torch.distributed)"
-        )
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path is not ported yet (ROADMAP queue 1 item 8)"
         )
     _check_model(model)
     dev = _resolve_device(options)
@@ -521,6 +557,11 @@ def simulate_stats(
         )
     keep_finals = (options.keep_final_values
                    if keep_final_values is None else keep_final_values)
+    if checkpoint_path is not None and keep_finals:
+        raise ValueError(
+            "checkpoint_path is not supported with keep_final_values "
+            "(per-path buffers are not checkpointed)"
+        )
     if keep_finals and 4 * n_paths > 8 << 30:
         raise ValueError(
             f"keep_final_values at n_paths={n_paths} would materialize "
@@ -548,7 +589,7 @@ def simulate_stats(
     total_stats = red.zero_packed_stats()
     total_hist = np.zeros(spec.n_bins + 2, np.float64)
     finals_parts = []
-    pending = None  # (out, paths_done_after, valid)
+    pending = None  # (out, paths_done_after, valid, offset_after)
     deferred = []   # (stats, hist, paths_done_after, valid)
     done = 0
     offset = 0
@@ -557,7 +598,45 @@ def simulate_stats(
     segmented = n_paths > seg_paths and not model.is_quasi
     seg = 0
     base = _segment_base(seed, 0)
-    defer_absorb = stream is None and progress is None and not keep_finals
+    defer_absorb = (stream is None and progress is None
+                    and checkpoint_path is None and not keep_finals)
+    fingerprint = None
+    if checkpoint_path is not None:
+        from stock_market_monte_carlo_torch.engine import checkpoint as ckpt
+
+        # the stream tag: the port (its chunk sums run in another order than
+        # the JAX package's, so their checkpoints never mix), the effective
+        # sampler, and the histogram and segment tags (a checkpoint of a
+        # histogram run must not resume into a run without one, nor across
+        # seed_segment_paths)
+        hist_tag = "" if options.histogram else "/nohist"
+        seg_tag = f"/seg{seg_paths}" if segmented else ""
+        fingerprint = ckpt.config_fingerprint(
+            model, strategy, n_paths, n_periods, initial_capital, seed,
+            target_amount, spec,
+            f"torch/streams3/{_effective_sampler(model, strategy, options)}"
+            f"{hist_tag}{seg_tag}",
+        )
+        state = ckpt.load(checkpoint_path, fingerprint)
+        if state is not None:
+            total_stats, total_hist = state.stats, state.hist
+            done = state.paths_done
+            offset = state.next_offset
+            remaining = n_paths - done
+            if segmented:
+                # every chunk of a segment but its last is full, so the
+                # offset in the segment follows from the paths done
+                seg, offset = divmod(done, seg_paths)
+                base = _segment_base(seed, seg)
+            if progress is not None:
+                progress(done, n_paths)
+
+    def _checkpoint(next_offset):
+        if checkpoint_path is not None:
+            ckpt.save(checkpoint_path, ckpt.CheckpointState(
+                fingerprint=fingerprint, next_offset=int(next_offset),
+                paths_done=int(done), stats=total_stats, hist=total_hist,
+            ))
 
     def _flush_deferred():
         # one stacked fetch per output kind, then the sequential f64
@@ -610,23 +689,26 @@ def simulate_stats(
             if len(deferred) >= _DEFER_FLUSH_CHUNKS:
                 _flush_deferred()
             continue
-        # overlap: fetch chunk k-1 while chunk k runs on the device
+        # overlap: absorb chunk k-1 (its copies queued behind its kernel)
+        # while chunk k runs on the device
         if pending is not None:
             total_stats, total_hist, done = _absorb(
                 (_to_host(pending[0]),) + pending[1:], total_stats,
                 total_hist, finals_parts, keep_finals, stat_scale, shift_c,
             )
+            _checkpoint(pending[3])
             _report()
-        pending = (out, done + this_valid, this_valid)
+        pending = (_fetch(out), done + this_valid, this_valid, offset + b)
         offset += b
         remaining -= this_valid
 
     _flush_deferred()
-    if pending is not None:
+    if pending is not None:  # None when a checkpoint was already complete
         total_stats, total_hist, done = _absorb(
             (_to_host(pending[0]),) + pending[1:], total_stats, total_hist,
             finals_parts, keep_finals, stat_scale, shift_c,
         )
+        _checkpoint(pending[3])
     _report()
 
     finals = None

@@ -421,7 +421,7 @@ def _launcher(mode, table, keep, coef_a, coef_b, *, draw, n_table, a, b,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_bands
 
-    def launch(buf=buf, guess=guess):  # holds them for the launch
+    def launch(held=(buf, guess, out)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_bands")
 
     def counts():
@@ -543,7 +543,7 @@ def counts_below_tile_launcher(tl, thr):
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_counts_below_tile
 
-    def launch():
+    def launch(held=(out,)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_counts_below_tile")
 
     return launch, lambda: out

@@ -68,7 +68,7 @@ def byte_planes_launcher(seeds, device="cuda"):
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_byte_planes
 
-    def launch(seeds_t=seeds_t):  # holds the seeds for the launch
+    def launch(held=(seeds_t, out)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_byte_planes")
 
     return launch, lambda: out

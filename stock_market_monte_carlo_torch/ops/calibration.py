@@ -125,7 +125,7 @@ def grid_overhead_launcher(variant, group, *, seed, n_tiles, tile0=0,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_grid_overhead
 
-    def launch():
+    def launch(held=(finals, partials)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_grid_overhead")
 
     return launch, lambda: (finals, partials)
@@ -215,7 +215,7 @@ def calib_launcher(n_ops, *, n_periods, n_paths, seed, device="cuda"):
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_calib
 
-    def launch():
+    def launch(held=(out,)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_calib")
 
     return launch, lambda: out
@@ -316,7 +316,7 @@ def op_toy_launcher(op, n_tiles=TOY_TILES, device="cuda"):
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_op_toy
 
-    def launch(q=q):  # holds Q for the launch
+    def launch(held=(q, out)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_op_toy")
 
     return launch, lambda: out

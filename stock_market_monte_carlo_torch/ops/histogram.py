@@ -177,7 +177,7 @@ def histogram_launcher(x, hb, *, mode="index", lo=None, log_lo=None,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_histogram
 
-    def launch():
+    def launch(held=(hist,)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_histogram")
 
     return launch, lambda: hist
@@ -225,7 +225,7 @@ def flatten_tile_launcher(x):
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_flatten_tile
 
-    def launch():
+    def launch(held=(out,)):  # for the kernel
         ce._raise_on(fn(*args), "smmc_flatten_tile")
 
     return launch, lambda: out

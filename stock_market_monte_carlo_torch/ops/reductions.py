@@ -5,7 +5,9 @@ The host parts of ``stock_market_monte_carlo_tpu.ops.reductions``. A chunk
 reduces on the device to one packed row (n, power sums of V/v0 about a
 shift, min, max, count below the target, withdrawn) and a fixed log-spaced
 histogram; the host merges rows exactly in float64 and derives the moments
-and quantiles here.
+and quantiles here. ``packed_stats``, ``merge_packed_stats``,
+``welford_combine`` and ``exact_quantiles`` take torch tensors on any
+device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 # Order of scalar moment fields in the packed stats vector.
 STAT_FIELDS = (
@@ -21,6 +24,38 @@ STAT_FIELDS = (
     "min", "max", "count_below", "sum_withdrawn",
 )
 N_STATS = len(STAT_FIELDS)
+# the most elements torch.quantile takes
+_QUANTILE_MAX = 1 << 24
+
+
+def packed_stats(finals, target, withdrawn_total) -> torch.Tensor:
+    """Reduce a tensor of final values to the packed stats vector, on its
+    device: (N_STATS,) float32 in ``STAT_FIELDS`` order. ``target`` is the
+    count-below threshold (+inf counts nothing); ``withdrawn_total`` a
+    per-path total-withdrawn tensor or None."""
+    f = torch.as_tensor(finals).to(torch.float32)
+    f2 = f * f
+    withdrawn = (torch.sum(torch.as_tensor(withdrawn_total).to(
+        device=f.device, dtype=torch.float32))
+        if withdrawn_total is not None else f.new_zeros(()))
+    return torch.stack([
+        f.new_full((), float(f.numel())),
+        torch.sum(f),
+        torch.sum(f2),
+        torch.sum(f2 * f),
+        torch.sum(f2 * f2),
+        torch.min(f),
+        torch.max(f),
+        torch.sum((f < target).to(torch.float32)),
+        withdrawn,
+    ])
+
+
+def merge_packed_stats(a, b) -> torch.Tensor:
+    """Exact merge of two packed stats vectors (any partition sizes)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return torch.cat([a[:5] + b[:5], torch.minimum(a[5], b[5])[None],
+                      torch.maximum(a[6], b[6])[None], a[7:] + b[7:]])
 
 
 def zero_packed_stats():
@@ -70,6 +105,18 @@ class MomentSummary:
             count_below=int(round(float(s[7]))) if target_enabled else None,
             total_withdrawn=float(s[8]),
         )
+
+
+def welford_combine(state_a, state_b):
+    """Combine (n, mean, M2) partitions exactly (Chan et al. 1979)."""
+    na, ma, m2a = (torch.as_tensor(x) for x in state_a)
+    nb, mb, m2b = (torch.as_tensor(x) for x in state_b)
+    n = na + nb
+    delta = mb - ma
+    safe_n = torch.where(n > 0, n, torch.ones_like(n))
+    mean = ma + delta * (nb / safe_n)
+    m2 = m2a + m2b + delta * delta * (na * nb / safe_n)
+    return n, mean, m2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +275,22 @@ def cdf_band_quantiles(counts_below: np.ndarray,
             w = float(np.clip((zq - za) / (zb - za), 0.0, 1.0))
         out.append(L[j - 1] + w * (L[j] - L[j - 1]))
     return np.asarray(out)
+
+
+def exact_quantiles(finals, qs) -> np.ndarray:
+    """Exact quantiles (linear interpolation between order statistics) of a
+    float32 tensor on its device, by ``torch.quantile``, or by a sort and
+    the same float32 interpolation past the size ``torch.quantile``
+    takes."""
+    f = torch.as_tensor(finals).to(torch.float32).reshape(-1)
+    q = torch.as_tensor(np.asarray(qs, np.float32), device=f.device)
+    if f.numel() <= _QUANTILE_MAX:
+        return torch.quantile(f, q).cpu().numpy()
+    ranks = q * (f.numel() - 1)
+    below = ranks.to(torch.int64)
+    above = ranks.ceil().to(torch.int64)
+    s = torch.sort(f).values
+    return torch.lerp(s[below], s[above], ranks - below).cpu().numpy()
 
 
 def default_histogram_spec(initial_capital: float, n_periods: int,

@@ -31,7 +31,11 @@ the Sobol draws at 1866 months with 64-bit positions, and the counted
 wrappers queueing chunks without a host synchronisation. The experiment
 probes: the op-class toys, the CLT's ablation and tile-grouping instances
 and the counter stream's byte planes against their plain versions, their
-launch counters and the toys' SASS.
+launch counters and the toys' SASS. The long runs: every bare launcher
+holding its outputs after its outputs closure is dropped (ROADMAP queue
+3, F4), a checkpoint written on the CPU resumed on the card, and the
+stats loop waiting for one chunk at a time under a progress callback and
+a checkpoint.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -44,6 +48,7 @@ import pytest
 import torch
 
 import stock_market_monte_carlo_torch as smt
+from stock_market_monte_carlo_torch.bench import held_outputs
 from stock_market_monte_carlo_torch.data.loader import (
     HOSTILE_CSV,
     SYNTHETIC_CSV,
@@ -1571,3 +1576,111 @@ def test_op_toy_sass(cuda):
         assert v["per_element_pass"] >= 0.4, op
     prod = cal.clt_production_sass()
     assert sorted(prod) == [0, 1, 2] and min(prod.values()) > 100
+
+
+# ---------------------------------------------------------------------------
+# Long runs: bare launches that hold their outputs (ROADMAP queue 3, F4),
+# and checkpoints written on the CPU resumed on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", held_outputs.CASES)
+def test_launch_holds_its_outputs(cuda, case):
+    """With its outputs closure dropped and a tensor of each output's size
+    allocated, a bare launch writes its own outputs, as a launch that kept
+    the closure did, and leaves the new tensors as they were."""
+    ok, detail = held_outputs.check(case)
+    assert ok, detail
+
+
+class _Stop(Exception):
+    pass
+
+
+RESUME_SAMPLERS = {
+    "historical": (smt.HistoricalBootstrap.from_csv, {}),
+    "law": (smt.HistoricalBootstrap.from_csv, dict(terminal_law=True)),
+    "icdf": (smt.GaussianReturns, {}),
+    "clt": (smt.GaussianReturns, dict(gaussian_sampler="clt")),
+}
+
+
+@pytest.mark.parametrize("sampler", sorted(RESUME_SAMPLERS))
+def test_cpu_checkpoint_resumes_on_the_card(cuda, tmp_path, sampler):
+    """Two chunks checkpointed on the CPU, the rest on the card, against an
+    uninterrupted card run. The historical draw is bit for bit on both
+    devices, so its counts, min and max are exact; the card's log, log1p
+    and exp differ from the CPU's in the last bit (ROADMAP queue 3), so
+    the histograms are held as kernel against plain (cells within 2) and
+    the other samplers' finals within CLT_KERNEL_REL; the power sums
+    within 1e-6 (the CLT's within CLT_KERNEL_REL)."""
+    make, extra = RESUME_SAMPLERS[sampler]
+    model = make()
+    n, t = 5 * 8192 + 321, 24
+    kw = dict(seed=5, target_amount=1100.0)
+    path = str(tmp_path / "run.npz")
+    calls = []
+
+    def stop(done, total):
+        calls.append(done)
+        if len(calls) == 2:
+            raise _Stop()
+
+    with pytest.raises(_Stop):
+        smt.simulate_stats(model, n, t, checkpoint_path=path, progress=stop,
+                           options=smt.EngineOptions(device="cpu",
+                                                     chunk_paths=8192,
+                                                     **extra), **kw)
+    opts = smt.EngineOptions(chunk_paths=8192, **extra)
+    resumed = smt.simulate_stats(model, n, t, checkpoint_path=path,
+                                 options=opts, **kw)
+    control = smt.simulate_stats(model, n, t, options=opts, **kw)
+    got, want = resumed.moments, control.moments
+    assert got.n == want.n == n
+    hg, hw = resumed.histogram_counts, control.histogram_counts
+    assert hg.sum() == hw.sum() == n
+    assert np.abs(hg - hw).max() <= 2
+    if sampler == "historical":
+        assert (got.count_below, got.min, got.max) == (
+            want.count_below, want.min, want.max)
+    else:
+        assert got.min == pytest.approx(want.min, rel=CLT_KERNEL_REL)
+        assert got.max == pytest.approx(want.max, rel=CLT_KERNEL_REL)
+        # only finals within CLT_KERNEL_REL of the target can move
+        assert abs(got.count_below - want.count_below) <= np.abs(
+            hg - hw).sum() + 2
+    rel = CLT_KERNEL_REL if sampler == "clt" else 1e-6
+    assert got.mean == pytest.approx(want.mean, rel=rel)
+    assert got.std == pytest.approx(want.std, rel=rel)
+
+
+@pytest.mark.parametrize("consumer", ["progress", "checkpoint"])
+def test_simulate_stats_waits_for_one_chunk_at_a_time(cuda, tmp_path,
+                                                      consumer):
+    """With a per-chunk consumer (a progress callback, a checkpoint) the
+    stats loop absorbs chunk i while chunk i+1 runs and waits for chunk
+    i's copies alone (``engine.pinned_copy``); torch's sync debug mode
+    "error" refuses a .cpu() of the stream, and is on from the first
+    absorbed chunk to the last."""
+    model = smt.HistoricalBootstrap.from_csv()
+    n = 5 * 8192 + 77
+    seen = []
+
+    def progress(done, total):
+        seen.append(done)
+        torch.cuda.set_sync_debug_mode("error" if done < total
+                                       else "default")
+
+    kw = dict(seed=4, target_amount=1000.0,
+              options=smt.EngineOptions(chunk_paths=8192))
+    if consumer == "checkpoint":
+        kw["checkpoint_path"] = str(tmp_path / "run.npz")
+    try:
+        got = smt.simulate_stats(model, n, 24, progress=progress, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seen == [8192, 2 * 8192, 3 * 8192, 4 * 8192, 5 * 8192, n]
+    want = smt.simulate_stats(model, n, 24, seed=4, target_amount=1000.0,
+                              options=smt.EngineOptions(chunk_paths=8192))
+    assert got.moments == want.moments
+    np.testing.assert_array_equal(got.histogram_counts, want.histogram_counts)

@@ -58,7 +58,16 @@ def test_bench_modules_leave_jax_out():
             "stock_market_monte_carlo_torch.ops.calibration, "
             "stock_market_monte_carlo_torch.ops.clt, "
             "stock_market_monte_carlo_torch.ops.byte_planes, "
+            "stock_market_monte_carlo_torch.ops.analytic, "
+            "stock_market_monte_carlo_torch.ops.reductions, "
+            "stock_market_monte_carlo_torch.engine.checkpoint, "
+            "stock_market_monte_carlo_torch.engine.progress, "
+            "stock_market_monte_carlo_torch.bench.validation, "
+            "stock_market_monte_carlo_torch.bench.fault_drill, "
+            "stock_market_monte_carlo_torch.bench.held_outputs, "
             "stock_market_monte_carlo_torch.data.loader; "
+            "from stock_market_monte_carlo_torch.ops import analytic; "
+            "analytic.clt_tail_deviation(1e-5, 0.5, 10 / 12, 12); "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith("
             "'stock_market_monte_carlo_tpu')))")
