@@ -33,7 +33,13 @@ x 360 against their exact laws (``bench/validation.py``); and the scale
 and fault drill (``bench/fault_drill.py``): a checkpointed 1e9 x 360 run
 killed with SIGKILL in a child process, resumed and held to an
 uninterrupted one bit for bit, the terminal law at 1e10 x 360, the month
-loop at 1e9 x 360, and the cost of a checkpoint.
+loop at 1e9 x 360, and the cost of a checkpoint. Last, the paths mesh
+(``parallel/mesh.py``) at 100M x 360: a 1-rank NCCL mesh in this process
+and a 2-rank gloo mesh of two child processes that share the card, each
+equal to the single-device runs bit for bit (the historical month loop
+and the law; the children also bands in hist mode and replicated RQMC),
+a checkpoint of the 2-rank run resumed on one device, and the headline's
+``--mesh 2`` refusing on one card.
 
     python3 chip_smoke.py
 
@@ -47,11 +53,15 @@ Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import math
+import os
 import re
+import shutil
 import statistics
+import tempfile
 import time
 
 import numpy as np
@@ -197,6 +207,20 @@ CLT_TIME_REL = 0.02
 # at ~1e6 words (sd ~1e-3)
 BYTE_MEAN_TOL = 0.5
 BYTE_CORR_MAX = 0.01
+BAND_QS = (0.05, 0.5, 0.95)
+# the paths mesh (phase 11): two gloo ranks on the one card; the timeout of
+# their start, runs and collectives; RQMC's chunk there (a replicate of
+# 2^24 paths is one 2^23-path chunk a rank, as on one device at 2^23); the
+# checkpointed run stops after this many dispatches and resumes on one
+# device at half the chunk (and at the same chunk, bit for bit)
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600.0
+MESH_RQMC_CHUNK = RQMC_PATHS // 2
+MESH_STOP_AFTER = 2
+RESUME_CHUNK = CHUNK // 2
+# the 1-rank NCCL mesh's walls against the single device's: medians of
+# this many runs, in turns
+MESH_REPS = 3
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -529,6 +553,292 @@ def wall_median(fn, reps=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     return statistics.median(times), times
+
+
+# ---------------------------------------------------------------------------
+# The paths mesh (phase 11).
+# ---------------------------------------------------------------------------
+
+
+class _Stopped(Exception):
+    pass
+
+
+def moments_row(res):
+    """A result's moments as one float64 row, for bit-for-bit checks."""
+    m = res.moments
+    return np.array([m.n, m.mean, m.var, m.std, m.min, m.max, m.skew,
+                     m.kurtosis, m.count_below, m.total_withdrawn],
+                    np.float64)
+
+
+def same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def main_path_run(model, key, mesh=None, chunk_paths=CHUNK, **kw):
+    """Phase 5's run of the historical month loop or the law (seed 0,
+    target 2000, 2^24-path chunks) of ``model``, over ``mesh``."""
+    import stock_market_monte_carlo_torch as smt
+
+    return smt.simulate_stats(
+        model, MAIN_PATHS, MAIN_MONTHS, target_amount=2000.0,
+        options=smt.EngineOptions(terminal_law=key == "law",
+                                  chunk_paths=chunk_paths),
+        mesh=mesh, **kw)
+
+
+def walls_of(fn, reps=MESH_REPS):
+    """Walls of ``reps`` calls of ``fn``: host clock around each call and a
+    synchronize."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def mesh_rank(mesh, checkpoint):
+    """One rank of phase 11's 2-rank gloo mesh on the card (a child
+    process of ``parallel/launch.py``): the historical month loop and the
+    law at 100M x 360, historical bands in hist mode at 100M x 360 and the
+    Sobol Gaussian RQMC at 8 x 2^24 x 360, each counted on its own (its
+    first call; then MESH_REPS timed calls); then the checkpointed month
+    loop, stopped by its progress callback on every rank after
+    MESH_STOP_AFTER dispatches."""
+    import stock_market_monte_carlo_torch as smt
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+
+    hist = smt.HistoricalBootstrap.from_csv()
+    out = {}
+
+    def counted(part, fn):
+        ce.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{part}/launches"] = json.dumps(ce.LAUNCHES)
+        out[f"{part}/walls_s"] = walls_of(fn)
+        return res
+
+    for key in ("month_loop", "law"):
+        res = counted(key, lambda: main_path_run(hist, key, mesh))
+        out[f"{key}/moments"] = moments_row(res)
+        out[f"{key}/hist"] = res.histogram_counts
+    bands = counted("bands_hist", lambda: smt.simulate_bands(
+        hist, MAIN_PATHS, MAIN_MONTHS, quantile_levels=BAND_QS,
+        sample_paths=32, band_mode="hist", n_bins=BAND_BINS, mesh=mesh))
+    out.update({"bands_hist/values": bands.values,
+                "bands_hist/month_hist": bands.month_hist,
+                "bands_hist/sample_paths": bands.sample_paths})
+    est = counted("month_loop_sobol_gaussian", lambda: smt.rqmc_estimate(
+        smt.SobolGaussianReturns.create(MAIN_MONTHS), RQMC_PATHS,
+        MAIN_MONTHS, replicates=RQMC_REPLICATES, confidence=0.99,
+        options=smt.EngineOptions(chunk_paths=MESH_RQMC_CHUNK), mesh=mesh))
+    out["month_loop_sobol_gaussian/replicate_means"] = est.replicate_means
+    calls = []
+
+    def stop(done, total):
+        calls.append(done)
+        if len(calls) == MESH_STOP_AFTER:
+            raise _Stopped()
+
+    try:
+        main_path_run(hist, "month_loop", mesh, checkpoint_path=checkpoint,
+                      progress=stop)
+    except _Stopped:
+        pass
+    else:
+        raise RuntimeError("the checkpointed mesh run was not stopped")
+    out["checkpoint/calls"] = np.array(calls)
+    return out
+
+
+def mesh_phase(card, main_results, band_results):
+    """Phase 11: the paths mesh at 100M x 360 (see the module docstring).
+    Returns the record it prints."""
+    import torch.distributed as dist
+
+    import stock_market_monte_carlo_torch as smt
+    from stock_market_monte_carlo_torch.bench import headline
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+    from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+    from stock_market_monte_carlo_torch.parallel.mesh import PathsMesh
+
+    n_chunks = -(-MAIN_PATHS // CHUNK)
+    dispatches = -(-MAIN_PATHS // (CHUNK * MESH_RANKS))
+    hist = smt.HistoricalBootstrap.from_csv()
+    record = {}
+
+    # 11a. a 1-rank NCCL mesh in this process (paths_mesh(1) is the
+    # single-device path, so the mesh is built here): the same launches,
+    # plus one all-gather of the stacked rows a flush
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = PathsMesh(group=None, rank=0, size=1, backend="nccl",
+                             device=torch.device(
+                                 "cuda", torch.cuda.current_device()))
+            for key in ("month_loop", "law"):
+                ce.reset_launch_counts()
+                res = main_path_run(hist, key, mesh)
+                torch.cuda.synchronize()
+                counts = dict(ce.LAUNCHES)
+                want = dict({k: 0 for k in counts}, **{key: n_chunks})
+                check(counts == want, f"NCCL mesh {key}: launches {counts}")
+                base = main_results[key]
+                check(same_bits(moments_row(res), moments_row(base))
+                      and same_bits(res.histogram_counts,
+                                    base.histogram_counts),
+                      f"NCCL mesh {key}: {res.moments} vs {base.moments}")
+                # the 9 packed sums, through a stream callback on both
+                ups = {}
+                for arm, m in (("single", None), ("mesh", mesh)):
+                    updates = []
+                    main_path_run(hist, key, m, stream=updates.append)
+                    ups[arm] = updates[-1].stats
+                check(same_bits(ups["single"], ups["mesh"]),
+                      f"NCCL mesh {key}: packed sums {ups}")
+                walls = {"single": [], "mesh": []}
+                for rep in range(MESH_REPS):
+                    for arm in (("single", "mesh") if rep % 2 == 0
+                                else ("mesh", "single")):
+                        m = mesh if arm == "mesh" else None
+                        walls[arm] += walls_of(
+                            lambda: main_path_run(hist, key, m), 1)
+                med = {arm: statistics.median(w) for arm, w in walls.items()}
+                rec = dict(backend="nccl", world_size=1, launches=counts[key],
+                           walls_s=walls, median_s=med,
+                           mesh_minus_single_s=med["mesh"] - med["single"])
+                record[f"nccl1_{key}"] = rec
+                say(11, f"[{card}] 1-rank NCCL mesh {key} 100M x 360: "
+                        f"{counts[key]} launches; moments, 9 packed sums and "
+                        f"{base.histogram_counts.size} cells == single "
+                        f"device; {json.dumps(rec)}")
+        finally:
+            dist.destroy_process_group()
+
+    # 11b and 11c. two gloo ranks, child processes sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.npz")
+        t = time.perf_counter()
+        ranks = run_ranks(MESH_RANKS, "chip_smoke:mesh_rank",
+                          dict(checkpoint=path), backend="gloo",
+                          device="cuda", timeout=MESH_TIMEOUT_S)
+        children_s = time.perf_counter() - t
+        sobol = smt.SobolGaussianReturns.create(MAIN_MONTHS)
+        single_rqmc = smt.rqmc_estimate(
+            sobol, RQMC_PATHS, MAIN_MONTHS, replicates=RQMC_REPLICATES,
+            confidence=0.99,
+            options=smt.EngineOptions(chunk_paths=MESH_RQMC_CHUNK))
+        expected = {"month_loop": dispatches, "law": dispatches,
+                    "bands_hist": dispatches,
+                    "month_loop_sobol_gaussian": RQMC_REPLICATES}
+        bands = band_results["bands_hist"]
+        for rank, r in enumerate(ranks):
+            for part, n in expected.items():
+                counts = json.loads(str(r[f"{part}/launches"]))
+                want = dict({k: 0 for k in counts}, **{part: n})
+                check(counts == want,
+                      f"gloo rank {rank} {part}: launches {counts}")
+            for key in ("month_loop", "law"):
+                base = main_results[key]
+                check(same_bits(r[f"{key}/moments"], moments_row(base))
+                      and same_bits(r[f"{key}/hist"], base.histogram_counts),
+                      f"gloo rank {rank} {key}: {r[f'{key}/moments']} vs "
+                      f"{moments_row(base)}")
+            check(same_bits(r["bands_hist/values"], bands.values)
+                  and same_bits(r["bands_hist/month_hist"], bands.month_hist)
+                  and same_bits(r["bands_hist/sample_paths"],
+                                bands.sample_paths),
+                  f"gloo rank {rank} bands: values {r['bands_hist/values']}"
+                  f" vs {bands.values}")
+            check(same_bits(r["month_loop_sobol_gaussian/replicate_means"],
+                            single_rqmc.replicate_means),
+                  f"gloo rank {rank} rqmc: "
+                  f"{r['month_loop_sobol_gaussian/replicate_means']} vs "
+                  f"{single_rqmc.replicate_means}")
+            check(list(r["checkpoint/calls"]) == [
+                CHUNK * MESH_RANKS * (i + 1) for i in range(MESH_STOP_AFTER)],
+                f"gloo rank {rank} checkpoint: reports {r['checkpoint/calls']}")
+        walls = {part: [r[f"{part}/walls_s"].tolist() for r in ranks]
+                 for part in expected}
+        medians = {part: [statistics.median(w) for w in v]
+                   for part, v in walls.items()}
+        record["gloo2"] = dict(backend="gloo", world_size=MESH_RANKS,
+                               launches_a_rank=expected, walls_s=walls,
+                               median_s=medians, children_wall_s=children_s)
+        say(11, f"[{card}] 2-rank gloo mesh on one card (two child "
+                f"processes): month loop, law, bands (hist) 100M x 360 and "
+                f"RQMC {RQMC_REPLICATES} x {RQMC_PATHS} x {MAIN_MONTHS} == "
+                f"the single device bit for bit on both ranks; launches a "
+                f"rank {expected}; {json.dumps(record['gloo2'])}")
+
+        # 11c. the 2-rank run's checkpoint resumed on one device: at half
+        # the chunk (counts and cells exact, moments within MOMENT_REL) and
+        # at the same chunk (bit for bit)
+        base = main_results["month_loop"]
+        resumed = {}
+        for chunk in (RESUME_CHUNK, CHUNK):
+            copy = os.path.join(tmp, f"resume{chunk}.npz")
+            shutil.copy(path, copy)
+            ce.reset_launch_counts()
+            resumed[chunk] = main_path_run(hist, "month_loop",
+                                           chunk_paths=chunk,
+                                           checkpoint_path=copy)
+            torch.cuda.synchronize()
+            left = -(-(MAIN_PATHS - MESH_STOP_AFTER * MESH_RANKS * CHUNK)
+                     // chunk)
+            check(ce.LAUNCHES["month_loop"] == left,
+                  f"resume at {chunk}: launches {ce.LAUNCHES}")
+        half, same = resumed[RESUME_CHUNK], resumed[CHUNK]
+        m, b = half.moments, base.moments
+        check((m.n, m.min, m.max, m.count_below) == (b.n, b.min, b.max,
+                                                     b.count_below)
+              and np.array_equal(half.histogram_counts,
+                                 base.histogram_counts)
+              and rel(m.mean, b.mean) <= MOMENT_REL
+              and rel(m.std, b.std) <= MOMENT_REL,
+              f"resume at {RESUME_CHUNK}: {m} vs {b}")
+        check(same_bits(moments_row(same), moments_row(base))
+              and same_bits(same.histogram_counts, base.histogram_counts),
+              f"resume at {CHUNK}: {same.moments} vs {b}")
+        record["resume"] = dict(
+            stopped_after_paths=MESH_STOP_AFTER * MESH_RANKS * CHUNK,
+            half_chunk_mean_rel=rel(m.mean, b.mean),
+            half_chunk_std_rel=rel(m.std, b.std))
+        say(11, f"2-rank checkpoint after {MESH_STOP_AFTER} dispatches "
+                f"resumed on one device: at {RESUME_CHUNK}-path chunks "
+                f"counts and cells exact, mean rel "
+                f"{record['resume']['half_chunk_mean_rel']!r}, std rel "
+                f"{record['resume']['half_chunk_std_rel']!r}; at {CHUNK} "
+                f"bit for bit")
+
+    # 11d. the headline's --mesh 2 on one card refuses before any launch,
+    # naming the card count (on more cards, outside torchrun, the world)
+    ce.reset_launch_counts()
+    try:
+        headline.main([str(MAIN_PATHS), str(MAIN_MONTHS), "--mesh",
+                       str(MESH_RANKS)])
+    except (RuntimeError, ValueError) as e:
+        refusal = str(e)
+    else:
+        fail("headline --mesh 2 ran on one card")
+    cards = torch.cuda.device_count()
+    named = (f"this machine has {cards}" if cards < MESH_RANKS
+             else "WORLD_SIZE is 1")
+    check(sum(ce.LAUNCHES.values()) == 0 and named in refusal,
+          f"headline --mesh 2: {refusal!r}, launches {ce.LAUNCHES}")
+    say(11, f"headline --mesh {MESH_RANKS} on {cards} card(s) refuses "
+            f"before any launch: {refusal}")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -1252,7 +1562,7 @@ def main():
         "bands_cdf": ("Gaussian bands (cdf)", gauss,
                       dict(band_mode="cdf", n_thresholds=BAND_THRESHOLDS)),
     }
-    qs = (0.05, 0.5, 0.95)
+    qs = BAND_QS
 
     def exact_marginals(model):
         if model.kind == "gaussian":
@@ -1268,9 +1578,10 @@ def main():
         return smt.simulate_bands(model, MAIN_PATHS, MAIN_MONTHS,
                                   quantile_levels=qs, sample_paths=32, **kw)
 
+    band_results = {}
     for key, (label, model, kw) in band_paths.items():
         ce.reset_launch_counts()
-        res = band_run(key)
+        res = band_results[key] = band_run(key)
         torch.cuda.synchronize()
         counts = dict(ce.LAUNCHES)
         launches[key] = counts[key]
@@ -1731,6 +2042,9 @@ def main():
         check(rec.get("ok", True), f"fault drill {part}: {json.dumps(rec)}")
         say(10, f"[{card}] fault drill {part}: launches "
                 f"{ {k: counts[k] for k in on_path} }; {json.dumps(rec)}")
+
+    # 11. the paths mesh at 100M x 360
+    mesh_phase(card, main_results, band_results)
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],

@@ -15,10 +15,11 @@ the CLT Gaussian sampler (``EngineOptions(gaussian_sampler="clt" |
 "clt-prefix")``) or, with ``EngineOptions(terminal_law=True)``, the
 terminal law, chosen as the JAX package chooses it, with seed segments
 past ``seed_segment_paths``; ``simulate_bands`` (hist, cdf and analytic
-modes); ``simulate_paths`` / ``run(keep_trajectories=...)``; and
-replicated-RQMC intervals (``rqmc_estimate``). What is not ported
-(checkpoints, meshes) raises ``NotImplementedError`` naming its ROADMAP
-item.
+modes); ``simulate_paths`` / ``run(keep_trajectories=...)``;
+replicated-RQMC intervals (``rqmc_estimate``); checkpoints
+(``simulate_stats(checkpoint_path=...)``); and paths meshes over
+``torch.distributed`` (``parallel.paths_mesh``: every entry point but
+``simulate_paths`` takes ``mesh=``).
 """
 
 from stock_market_monte_carlo_torch.config import (

@@ -72,10 +72,13 @@ def _sync(device):
 @contextlib.contextmanager
 def _one_cpu_thread(device):
     """On the CPU, torch on one thread while the drill's runs compare
-    across processes: the plain version's bin log (MKL VML under ATen's
-    parallel_for) was seen to round an edge value differently in about
-    one fresh process in 60 under CPU load (ROADMAP queue 3, F5). The
-    kernels on the card are not affected."""
+    across processes: the plain version's bin log (then ``torch.log``,
+    MKL VML under ATen's parallel_for) was seen to round an edge value
+    differently in about one fresh process in 60 under CPU load (ROADMAP
+    queue 3, F5). The bin's log no longer depends on the threads
+    (``cuda_engine.log_f32``), but no run of ``bench/bin_drift.py`` has
+    reproduced the fault on the old code to show it gone, so the pin
+    stays. The kernels on the card are not affected."""
     import torch
 
     n = torch.get_num_threads()

@@ -5,7 +5,7 @@ kernels' device times, the dispatch floor and the calibrated integer
 rate.
 
     python -m stock_market_monte_carlo_torch.bench.headline \\
-        [n_paths] [n_periods] [--device cuda|cpu]
+        [n_paths] [n_periods] [--device cuda|cpu] [--mesh N]
 
 Rows (``simulate_stats``, seed 7, ``target_amount=2000``, one warm-up at
 the full run shape, then the median of the reps with every rep kept): the
@@ -31,13 +31,26 @@ one card), unit, vs_baseline (over the RTX 3070's 1e8 paths in 0.13 s),
 the device and a few device times. The default device is the card; with
 no card it fails, it does not fall back to the CPU. ``--device cpu`` runs
 the rows on the plain PyTorch versions and skips the device times.
+
+``--mesh N`` runs every row over a paths mesh of N ranks (``parallel/
+mesh.py``), as the JAX package's ``bench.py --mesh N`` does: start it
+under ``torchrun --nproc-per-node N`` (which sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``); the
+group runs NCCL on the cards, one a rank, and gloo with ``--device cpu``.
+N must be the world size; on the cards it refuses before any launch when
+the machine has fewer than N. Rank 0 prints the record and the last line,
+with paths/s per chip (the wall's rate over N); the other ranks print
+nothing, and the device times are skipped. ``--mesh 1`` is the
+single-device run.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -69,6 +82,9 @@ MEAN_REL_BAR = 1e-3
 LAST_LINE_MAX = 2000
 FULL_RUN_PATHS = 100_000_000
 BIG_RUN_PATHS = 1_000_000_000
+# the process group's timeout under --mesh: a rank that dies fails the
+# others' collectives after this long
+MESH_TIMEOUT_S = 600
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +186,11 @@ def analytic_means(models, n_periods):
             "gaussian": V0 * a ** n_periods}
 
 
-def time_row(model, options, n_paths, n_periods, reps):
+def time_row(model, options, n_paths, n_periods, reps, mesh=None):
     """(median s, every rep's s, the last result) of ``simulate_stats``
     after one warm-up call at the full run shape."""
     dev = torch.device(options.device)
-    kw = dict(target_amount=TARGET, options=options)
+    kw = dict(target_amount=TARGET, options=options, mesh=mesh)
     smt.simulate_stats(model, n_paths, n_periods, seed=WARM_SEED, **kw)
     times, res = [], None
     for _ in range(reps):
@@ -186,21 +202,24 @@ def time_row(model, options, n_paths, n_periods, reps):
     return statistics.median(times), times, res
 
 
-def run_rows(n_paths, n_periods, device):
-    """{row name: its record} of every row on ``device``."""
+def run_rows(n_paths, n_periods, device, mesh=None):
+    """{row name: its record} of every row on ``device`` (over ``mesh``;
+    paths/s per chip)."""
     models = {"historical": smt.HistoricalBootstrap.from_csv(),
               "gaussian": smt.GaussianReturns()}
     analytic = analytic_means(models, n_periods)
+    n_chips = 1 if mesh is None else mesh.size
     out = {}
     for name, kind, opts, reps, n in _rows(n_paths):
         options = smt.EngineOptions(device=device, **opts)
-        med, times, res = time_row(models[kind], options, n, n_periods, reps)
+        med, times, res = time_row(models[kind], options, n, n_periods, reps,
+                                   mesh)
         err = abs(res.mean / analytic[kind] - 1.0)
         sem = res.std / math.sqrt(n) / analytic[kind]
         bar = max(MEAN_REL_BAR, 6.0 * sem)
         out[name] = dict(
             n_paths=n, elapsed_s=med, rep_times_s=times,
-            paths_per_sec=n / med, mean=res.mean, std=res.std,
+            paths_per_sec=n / med / n_chips, mean=res.mean, std=res.std,
             analytic_mean=analytic[kind], mean_rel_err=err, mean_bar=bar,
             mean_ok=bool(math.isfinite(res.mean) and err <= bar))
     return out
@@ -377,31 +396,77 @@ def _parse(argv):
     p.add_argument("n_paths", nargs="?", type=int, default=FULL_RUN_PATHS)
     p.add_argument("n_periods", nargs="?", type=int, default=360)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--mesh", type=int, default=None)
+    p.add_argument("--mesh", type=int, default=None,
+                   help="ranks of a paths mesh, under torchrun")
     args = p.parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
-            "multi-GPU over torch.distributed)")
-    return args.n_paths, args.n_periods, args.device
+    return args.n_paths, args.n_periods, args.device, args.mesh
+
+
+def open_mesh(n, device):
+    """The paths mesh of ``--mesh n`` under torchrun: None for no mesh or
+    one rank; else the world's n ranks over NCCL on the cards or gloo on
+    the CPU. Refuses before any launch when the machine has fewer than n
+    cards (on the cards) or the world is not n ranks."""
+    import torch.distributed as dist
+
+    from stock_market_monte_carlo_torch.parallel.mesh import paths_mesh
+
+    if n is None or n == 1:
+        return None
+    if n < 1:
+        raise ValueError(f"--mesh must be >= 1, got {n}")
+    if device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n:
+            raise RuntimeError(
+                f"--mesh {n} runs a rank on each of {n} cards; this machine "
+                f"has {cards}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise ValueError(
+            f"--mesh {n} runs under torchrun --nproc-per-node {n}, one "
+            f"process a rank; this process's WORLD_SIZE is {world}")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo", init_method="env://",
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    return paths_mesh(n, device=None if device == "cuda" else "cpu")
 
 
 def main(argv=None):
-    """Run the headline; print the full record, then the compact line.
-    Returns (record, compact)."""
-    n_paths, n_periods, device = _parse(sys.argv[1:] if argv is None
-                                        else argv)
+    """Run the headline; print the full record, then the compact line (on
+    rank 0 of a mesh). Returns (record, compact)."""
+    import torch.distributed as dist
+
+    n_paths, n_periods, device, mesh_n = _parse(sys.argv[1:] if argv is None
+                                                else argv)
+    own_group = not dist.is_initialized()
+    mesh = open_mesh(mesh_n, device)
+    try:
+        return _run(n_paths, n_periods, device, mesh)
+    finally:
+        if mesh is not None and own_group:
+            dist.destroy_process_group()
+
+
+def _run(n_paths, n_periods, device, mesh):
     on_card = device == "cuda"
+    n_chips = 1 if mesh is None else mesh.size
     if on_card:
-        dev = _require_card()
-        kind, count = torch.cuda.get_device_name(dev), 1
+        dev = _require_card() if mesh is None else mesh.device
+        kind, count = torch.cuda.get_device_name(dev), n_chips
         card = card_line()
     else:
         kind, count, card = "cpu", 0, None
-    rows = run_rows(n_paths, n_periods, device)
-    dt = (device_times(n_periods) if on_card else
-          {"skipped": "device times need a CUDA device; this run used the "
-                      "CPU"})
+    rows = run_rows(n_paths, n_periods, device, mesh)
+    if mesh is not None:
+        dt = {"skipped": f"device times are measured on one card; this run "
+                         f"used a {n_chips}-rank mesh"}
+    elif on_card:
+        dt = device_times(n_periods)
+    else:
+        dt = {"skipped": "device times need a CUDA device; this run used "
+                         "the CPU"}
 
     def rate(name):
         return rows[name]["paths_per_sec"]
@@ -443,7 +508,7 @@ def main(argv=None):
         "gaussian_month_loop_paths_per_sec_per_chip": gauss_best,
         "vs_baseline_gaussian_month_loop_best":
             gauss_best / BASELINE_PATHS_PER_S,
-        "n_chips": 1,
+        "n_chips": n_chips,
         "backend": device,
         "historical_mean": rows["historical_month_loop"]["mean"],
         "gaussian_mean": rows["gaussian_icdf"]["mean"],
@@ -475,8 +540,9 @@ def main(argv=None):
     line = json.dumps(compact)
     if len(line) >= LAST_LINE_MAX:
         raise RuntimeError(f"the last line has {len(line)} characters")
-    print(json.dumps(record))
-    print(line, flush=True)
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(record))
+        print(line, flush=True)
     return record, compact
 
 

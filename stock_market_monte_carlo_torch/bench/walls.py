@@ -11,15 +11,22 @@ then N calls (default 15), each timed with the host clock around the call
 and a ``torch.cuda.synchronize()`` (seed 7, target 2000, the default 4096
 histogram cells). NAME picks paths (default: all): ``law`` (the historical
 terminal law, the headline's row), ``law_statsonly`` (no histogram),
-``historical``, ``gaussian_icdf`` and ``clt``. Prints the card's name and
-power limit, then one JSON line {name: {"median_s", "rep_times_s"}}.
-Imports neither jax nor the JAX package.
+``historical``, ``gaussian_icdf`` and ``clt``; and ``simulate_bands`` as
+``chip_smoke.py`` phase 5b runs it (3 levels, 32 sample paths, timed
+alike): ``bands_hist`` (historical, 1024 bins) and ``bands_cdf``
+(Gaussian, 32 thresholds). Prints the card's name and power limit, then
+one JSON line {name: {"median_s", "rep_times_s"}}. Imports neither jax
+nor the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
+import time
+
+import torch
 
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.bench import headline
@@ -34,6 +41,28 @@ PATHS = {
     "gaussian_icdf": ("gaussian", {}),
     "clt": ("gaussian", dict(gaussian_sampler="clt")),
 }
+BANDS = {
+    "bands_hist": ("historical", dict(band_mode="hist", n_bins=1024)),
+    "bands_cdf": ("gaussian", dict(band_mode="cdf", n_thresholds=32)),
+}
+
+
+def time_bands(model, kw, reps):
+    """(median s, every rep's s) of ``simulate_bands`` after one warm-up
+    call, the host clock around each call and a synchronize."""
+    def call():
+        smt.simulate_bands(model, N_PATHS, N_PERIODS,
+                           quantile_levels=(0.05, 0.5, 0.95),
+                           sample_paths=32, **kw)
+    call()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), times
 
 
 def main(argv=None):
@@ -41,9 +70,10 @@ def main(argv=None):
     ap.add_argument("names", nargs="*")
     ap.add_argument("--reps", type=int, default=15)
     args = ap.parse_args(argv)
-    unknown = set(args.names) - set(PATHS)
+    unknown = set(args.names) - set(PATHS) - set(BANDS)
     if unknown:
-        ap.error(f"unknown paths {sorted(unknown)}; known: {list(PATHS)}")
+        ap.error(f"unknown paths {sorted(unknown)}; known: "
+                 f"{list(PATHS) + list(BANDS)}")
     headline._require_card()
     print(headline.card_line(), flush=True)
     models = {"historical": smt.HistoricalBootstrap.from_csv(),
@@ -55,6 +85,11 @@ def main(argv=None):
         med, times, _ = headline.time_row(
             models[kind], smt.EngineOptions(**opts), N_PATHS, N_PERIODS,
             args.reps)
+        out[name] = dict(median_s=med, rep_times_s=times)
+    for name, (kind, kw) in BANDS.items():
+        if args.names and name not in args.names:
+            continue
+        med, times = time_bands(models[kind], kw, args.reps)
         out[name] = dict(median_s=med, rep_times_s=times)
     print(json.dumps(out))
 

@@ -24,6 +24,12 @@ The kernels emit months 1..T; month 0 (every path at v0) is added on the
 host. Sample paths come from ``engine.simulate_paths``. The JAX package's
 power-of-two bucketing of small runs (which saves Mosaic compiles and
 changes no result) is left out.
+
+Under a paths mesh (``parallel/mesh.py``) each rank runs its shard of
+each dispatch, as ``engine.simulate_stats`` does, and the ranks' counts
+are summed as int64 (exact) before the host merge, so every rank's bands
+equal a single-device run's. Every rank draws the sample paths itself;
+the analytic mode ignores the mesh.
 """
 
 from __future__ import annotations
@@ -203,13 +209,10 @@ def simulate_bands(
     n_paths)`` is called after every absorbed chunk. Runs on
     ``options.device``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
-            "multi-GPU over torch.distributed)"
-        )
     eng._check_model(model)
-    eng._validate_run(model, n_paths, options.chunk_paths, n_periods)
+    n_dev = eng._check_mesh(mesh)
+    rank = 0 if mesh is None else mesh.rank
+    eng._validate_run(model, n_paths, options.chunk_paths * n_dev, n_periods)
     months = np.arange(n_periods + 1)
     # fixed-amount withdrawals shift values additively, which a log-z grid
     # cannot bracket: they bin linearly on [0, hi_t]
@@ -231,6 +234,7 @@ def simulate_bands(
             "infinite-path bands, or the default month-loop engine"
         )
     dev = eng._resolve_device(options)
+    eng._check_mesh(mesh, dev)
     qs = tuple(quantile_levels)
     k = min(sample_paths, n_paths)
 
@@ -353,20 +357,44 @@ def simulate_bands(
                                      centers_t, inv_scales, this_b,
                                      n_periods, n_bins, linear)
 
+    if use_kernels:
+        rows = n_periods
+        cells = n_thresholds if use_cdf else n_bins + 2
+    else:
+        rows, cells = n_periods + 1, n_bins + 2
+
+    def summed(counts, at_launch):
+        # the ranks' counts summed as int64 where the mesh's backend
+        # exchanges (NCCL: on the card; gloo: the host copies)
+        if mesh is None or mesh.exchanges_on_device != at_launch:
+            return counts
+        return mesh.sum(counts.to(torch.int64))
+
+    def run_dispatch(offset, valids, this_b):
+        # this rank's shard; one with no valid path launches nothing
+        valid = valids[rank]
+        counts = (run_chunk(offset + this_b * rank, valid, this_b) if valid
+                  else torch.zeros((rows, cells), dtype=torch.int64,
+                                   device=dev))
+        return eng.pinned_copy(summed(counts, True))
+
     def absorb_pending():
         (counts, copied), valid = pending
         if copied is not None:
             copied.synchronize()
-        return absorb(counts, valid), valid
+        return absorb(summed(counts, False), valid), valid
 
     done, offset, remaining = 0, 0, n_paths
+    per_dispatch = b * n_dev
     # (host counts, their copy's event or None, valid): absorbed after the
-    # next chunk's launch, so the card runs it meanwhile
+    # next dispatch's launch, so the card runs it meanwhile
     pending = None
     while remaining > 0:
-        valid = min(remaining, b)
-        this_b = b if n_paths > b else eng._round_up(valid, eng.KEY_TILE)
-        counts = eng.pinned_copy(run_chunk(offset, valid, this_b))
+        valid = min(remaining, per_dispatch)
+        this_b = (b if n_paths > per_dispatch else eng._round_up(
+            eng._round_up(valid, n_dev) // n_dev, eng.KEY_TILE))
+        counts = run_dispatch(offset, eng._shard_valids(valid, this_b, n_dev),
+                              this_b)
         if pending is not None:
             block, n = absorb_pending()
             total += block
@@ -374,7 +402,7 @@ def simulate_bands(
             if progress is not None:
                 progress(done, n_paths)
         pending = (counts, valid)
-        offset += this_b
+        offset += this_b * n_dev
         remaining -= valid
     block, n = absorb_pending()
     total += block

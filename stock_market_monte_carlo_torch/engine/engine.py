@@ -31,8 +31,15 @@ package runs them as XLA. Bands are ``engine/bands.py``, replicated RQMC
 ``simulate_stats(checkpoint_path=...)`` saves the merged totals after
 every chunk (``engine/checkpoint.py``) and resumes a killed run from its
 next chunk, bit for bit; under a checkpoint the absorb is not deferred.
-Out of this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: meshes.
+
+Under a paths mesh (``parallel/mesh.py``: a ``torch.distributed`` process
+group, every rank calling with the same arguments) a dispatch covers
+``chunk_paths`` paths on each rank: rank i runs the chunk at ``offset +
+b*i``. The ranks all-gather their chunk rows (stats row and histogram) and
+every rank merges them in rank order, which is global chunk order, so a
+mesh run's totals, histogram and finals equal a single-device run's at the
+same ``chunk_paths`` bit for bit, and checkpoints resume across
+topologies.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from stock_market_monte_carlo_torch.ops import cuda_engine
 from stock_market_monte_carlo_torch.ops import reductions as red
 from stock_market_monte_carlo_torch.ops import sobol
 from stock_market_monte_carlo_torch.ops import threefry
+from stock_market_monte_carlo_torch.parallel.mesh import PathsMesh
 
 KEY_TILE = cuda_engine.TILE_PATHS
 
@@ -487,23 +495,85 @@ def pinned_copy(x):
     return host, copied
 
 
-def _fetch(out):
-    """A chunk's (stats, hist, finals-or-None) on their way to the host:
-    the stats row and histogram copied behind the chunk's kernel
-    (``pinned_copy``), the event after both, and the finals as they
-    are."""
-    stats, _ = pinned_copy(out[0])
-    hist, copied = pinned_copy(out[1])
-    return (stats, hist, out[2]), copied
+def _check_mesh(mesh, dev=None) -> int:
+    """The mesh's rank count, 1 without a mesh. Raises for an object that
+    is no ``PathsMesh``, in a process outside the mesh, and for a device
+    ``dev`` that is not the mesh's: a mesh never moves work to another
+    device."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, PathsMesh):
+        raise TypeError(
+            f"mesh must be a PathsMesh (parallel.paths_mesh), got "
+            f"{type(mesh).__name__}")
+    mesh.check_member()
+    if dev is not None:
+        mesh.check_device(dev)
+    return mesh.size
 
 
-def _to_host(fetched):
-    """A fetched chunk's tensors as numpy arrays, once its copies are
-    done; kept finals through ``.cpu()``."""
-    out, copied = fetched
+def _shard_valids(total_valid: int, b: int, n_dev: int):
+    """Valid paths of each rank's ``b``-path shard of a dispatch of
+    ``total_valid`` paths: clip(total_valid - b*i, 0, b)."""
+    return [min(max(total_valid - b * i, 0), b) for i in range(n_dev)]
+
+
+def _identity_out(dev, hb, keep_finals):
+    """The outputs of a shard with no valid path, made without a launch:
+    the merge's identity row (n 0, sums +0.0, min +inf, max -inf, count and
+    withdrawn 0), zero cells and no finals (an empty tensor of them where
+    the run keeps finals)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    stats = torch.cat([torch.zeros((5,), **f32),
+                       torch.full((1,), float("inf"), **f32),
+                       torch.full((1,), float("-inf"), **f32),
+                       torch.zeros((2,), **f32)])
+    return (stats, torch.zeros((hb,), **f32),
+            torch.empty((0,), **f32) if keep_finals else None)
+
+
+def _gathered(mesh, x, at_launch: bool):
+    """``x`` stacked over the mesh's ranks in rank order, where this step
+    is the one at which the mesh's backend exchanges (NCCL: tensors on the
+    card, right after the launch; gloo: the host copies, once they are
+    done); else ``x`` as it is."""
+    if mesh is None or mesh.exchanges_on_device != at_launch:
+        return x
+    return mesh.gather(x)
+
+
+def _fetch(row, finals, mesh, b):
+    """A dispatch's chunk row (stats and histogram, ``_pack``) and finals
+    on their way to the host: gathered on the card under NCCL, the row
+    copied behind the chunk's kernel (``pinned_copy``) and the event after
+    the copy. A mesh pads each rank's finals to the shard's ``b`` paths."""
+    if mesh is not None and finals is not None:
+        finals = torch.nn.functional.pad(finals, (0, b - finals.numel()))
+    row = _gathered(mesh, row, True)
+    if finals is not None:
+        finals = _gathered(mesh, finals, True)
+    host, copied = pinned_copy(row)
+    return (host, finals), copied
+
+
+def _to_host(fetched, mesh, n_dev):
+    """A fetched dispatch as numpy arrays once its copies are done,
+    gathered on the host under gloo: the (n_dev, 9 + hb) rows in rank order
+    and the (n_dev, paths) finals or None."""
+    (host, finals), copied = fetched
     if copied is not None:
         copied.synchronize()
-    return tuple(None if x is None else x.cpu().numpy() for x in out)
+    rows = _gathered(mesh, host, False).numpy().reshape(n_dev, -1)
+    if finals is not None:
+        finals = _gathered(mesh, finals.cpu(), False).numpy().reshape(
+            n_dev, -1)
+    return rows, finals
+
+
+def _pack(out):
+    """A chunk's stats row and histogram as one float32 row: one copy and
+    one collective a chunk."""
+    return torch.cat([out[0], out[1]])
 
 
 def simulate_stats(
@@ -524,29 +594,38 @@ def simulate_stats(
     """Fused simulate+reduce: O(1) host traffic regardless of n_paths.
 
     ``progress(done, n_paths)`` and ``stream(StreamUpdate)`` are called
-    after every absorbed chunk; ``keep_final_values`` collects per-path
-    finals on the host. Runs larger than ``options.seed_segment_paths``
-    are partitioned into seed segments, each drawing its own stream
-    (segment 0 under the plain seed), merged by the same float64 host
-    merges that combine chunks; no chunk straddles a segment boundary.
+    after every absorbed dispatch (one chunk, or one chunk a rank under a
+    mesh); ``keep_final_values`` collects per-path finals on the host. Runs
+    larger than ``options.seed_segment_paths`` are partitioned into seed
+    segments, each drawing its own stream (segment 0 under the plain seed),
+    merged by the same float64 host merges that combine chunks; no dispatch
+    straddles a segment boundary.
 
-    ``checkpoint_path`` saves the merged totals after every chunk and, when
-    the file holds a checkpoint of the same run, resumes from it: the
-    totals are then those of an uninterrupted run, bit for bit. A
-    checkpoint of another run raises ValueError ("different run"); one
-    written on the CPU resumes on the card and the other way round (both
-    draw the same stream), one written by the JAX package does not (its
-    float32 chunk sums run in another order).
+    ``mesh`` (``parallel.paths_mesh``): every rank of the mesh calls with
+    the same arguments, runs its shard of each dispatch on the mesh's
+    device (which must be ``options.device``) and returns the same result,
+    equal to a single-device run at the same ``chunk_paths`` bit for bit
+    (a run of at most ``chunk_paths * size`` paths buckets its shards
+    smaller: its sums then differ in the last bits). The callbacks fire on
+    every rank.
+
+    ``checkpoint_path`` saves the merged totals after every dispatch (rank
+    0 writes under a mesh; every rank loads) and, when the file holds a
+    checkpoint of the same run, resumes from it: the totals are then those
+    of an uninterrupted run, bit for bit at the same ``chunk_paths``, on
+    any number of ranks. A checkpoint of another run raises ValueError
+    ("different run"); one written on the CPU resumes on the card and the
+    other way round (both draw the same stream), one written by the JAX
+    package does not (its float32 chunk sums run in another order).
     """
     t_start = time.perf_counter()
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
-            "multi-GPU over torch.distributed)"
-        )
     _check_model(model)
     dev = _resolve_device(options)
-    _validate_run(model, n_paths, options.chunk_paths, n_periods,
+    n_dev = _check_mesh(mesh, dev)
+    rank = 0 if mesh is None else mesh.rank
+    chunk_b = options.chunk_paths
+    per_dispatch = chunk_b * n_dev
+    _validate_run(model, n_paths, per_dispatch, n_periods,
                   draws_bootstrap=not options.terminal_law,
                   seg_paths=options.seed_segment_paths)
     v0f = float(initial_capital)
@@ -571,14 +650,14 @@ def simulate_stats(
     spec = make_histogram_spec(
         model, strategy, n_periods, initial_capital, options.histogram_bins
     )
-    chunk_b = options.chunk_paths
     fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed)
     shift_c = analytic_moment_shift(model, strategy, n_periods)
+    hb = spec.n_bins + 2
     common = dict(
         v0=v0f, target=np.inf if target_amount is None else target_amount,
         shift=shift_c, lo=spec.lo, log_lo=spec.log_lo,
         inv_w=1.0 / spec.width,
-        hb=spec.n_bins + 2, with_hist=options.histogram,
+        hb=hb, with_hist=options.histogram,
         keep_finals=keep_finals,
     )
     # restores absolute units of the v0-normalized device power sums
@@ -589,8 +668,8 @@ def simulate_stats(
     total_stats = red.zero_packed_stats()
     total_hist = np.zeros(spec.n_bins + 2, np.float64)
     finals_parts = []
-    pending = None  # (out, paths_done_after, valid, offset_after)
-    deferred = []   # (stats, hist, paths_done_after, valid)
+    pending = None  # (fetched, shard valids, offset_after)
+    deferred = []   # (packed row, shard valids)
     done = 0
     offset = 0
     remaining = n_paths
@@ -608,7 +687,8 @@ def simulate_stats(
         # the JAX package's, so their checkpoints never mix), the effective
         # sampler, and the histogram and segment tags (a checkpoint of a
         # histogram run must not resume into a run without one, nor across
-        # seed_segment_paths)
+        # seed_segment_paths). Neither the chunk size nor the ranks: every
+        # chunk row is merged in global chunk order on any topology
         hist_tag = "" if options.histogram else "/nohist"
         seg_tag = f"/seg{seg_paths}" if segmented else ""
         fingerprint = ckpt.config_fingerprint(
@@ -624,33 +704,54 @@ def simulate_stats(
             offset = state.next_offset
             remaining = n_paths - done
             if segmented:
-                # every chunk of a segment but its last is full, so the
+                # every dispatch of a segment but its last is full, so the
                 # offset in the segment follows from the paths done
                 seg, offset = divmod(done, seg_paths)
                 base = _segment_base(seed, seg)
-            if progress is not None:
-                progress(done, n_paths)
+        if mesh is not None:
+            # the first collective: every rank must resume at one point
+            here = torch.tensor([done, offset], dtype=torch.int64)
+            if mesh.exchanges_on_device:
+                here = here.to(mesh.device)
+            seen = mesh.gather(here).cpu()
+            if not bool((seen == seen[0]).all()):
+                raise RuntimeError(
+                    f"the mesh's ranks loaded different checkpoints from "
+                    f"{checkpoint_path!r} ((paths done, next offset) by "
+                    f"rank: {seen.tolist()}); every rank must read the same "
+                    "file")
+        if state is not None and progress is not None:
+            progress(done, n_paths)
 
     def _checkpoint(next_offset):
-        if checkpoint_path is not None:
+        if checkpoint_path is not None and rank == 0:
             ckpt.save(checkpoint_path, ckpt.CheckpointState(
                 fingerprint=fingerprint, next_offset=int(next_offset),
                 paths_done=int(done), stats=total_stats, hist=total_hist,
             ))
 
-    def _flush_deferred():
-        # one stacked fetch per output kind, then the sequential f64
-        # merges in chunk order
+    def _absorb_dispatch(rows, finals, valids):
+        # the ranks' rows in rank order: global chunk order
         nonlocal total_stats, total_hist, done
+        for i, valid in enumerate(valids):
+            total_stats, total_hist, done = _absorb(
+                ((rows[i, :9], rows[i, 9:],
+                  None if finals is None else finals[i]),
+                 done + valid, valid), total_stats, total_hist,
+                finals_parts, keep_finals, stat_scale, shift_c,
+            )
+
+    def _flush_deferred():
+        # one stacked fetch (and one collective under a mesh), then the
+        # sequential f64 merges in chunk order
         if not deferred:
             return
-        s_all = torch.stack([d[0] for d in deferred]).cpu().numpy()
-        h_all = torch.stack([d[1] for d in deferred]).cpu().numpy()
-        for i, (_, _, done_after, valid) in enumerate(deferred):
-            total_stats, total_hist, done = _absorb(
-                ((s_all[i], h_all[i]), done_after, valid), total_stats,
-                total_hist, finals_parts, keep_finals, stat_scale, shift_c,
-            )
+        rows = _gathered(mesh, torch.stack([d[0] for d in deferred]),
+                         True).cpu()
+        rows = _gathered(mesh, rows, False).numpy().reshape(
+            n_dev, len(deferred), -1)
+        for j, (_, valids) in enumerate(deferred):
+            _absorb_dispatch(rows[:, j], None, valids)
         deferred.clear()
 
     def _report():
@@ -663,6 +764,11 @@ def simulate_stats(
                 elapsed_s=time.perf_counter() - t_start,
             ))
 
+    def _absorb_pending():
+        fetched, valids, offset_after = pending
+        _absorb_dispatch(*_to_host(fetched, mesh, n_dev), valids)
+        _checkpoint(offset_after)
+
     while remaining > 0:
         cap = remaining
         if segmented:
@@ -673,42 +779,34 @@ def simulate_stats(
                 offset = 0
                 base = _segment_base(seed, seg)
             cap = min(remaining, (seg + 1) * seg_paths - done_v)
-        this_valid = min(cap, chunk_b)
-        if n_paths > chunk_b:
+        this_valid = min(cap, per_dispatch)
+        if n_paths > per_dispatch:
             b = chunk_b
         else:
             # bucket small runs to a power of two of at least one tile
-            b = _round_up(this_valid, KEY_TILE)
+            b = _round_up(_round_up(this_valid, n_dev) // n_dev, KEY_TILE)
             b = min(chunk_b, 1 << (b - 1).bit_length())
-        out = fn(base, offset, valid=this_valid, n_paths=b, **common)
+        valids = _shard_valids(this_valid, b, n_dev)
+        out = (fn(base, offset + b * rank, valid=valids[rank], n_paths=b,
+                  **common)
+               if valids[rank] else _identity_out(dev, hb, keep_finals))
+        offset += b * n_dev
+        remaining -= this_valid
         if defer_absorb:
-            deferred.append((out[0], out[1], done + this_valid, this_valid))
-            done += this_valid
-            offset += b
-            remaining -= this_valid
+            deferred.append((_pack(out), valids))
             if len(deferred) >= _DEFER_FLUSH_CHUNKS:
                 _flush_deferred()
             continue
-        # overlap: absorb chunk k-1 (its copies queued behind its kernel)
-        # while chunk k runs on the device
+        # overlap: absorb dispatch k-1 (its copies queued behind its
+        # kernel) while dispatch k runs on the device
         if pending is not None:
-            total_stats, total_hist, done = _absorb(
-                (_to_host(pending[0]),) + pending[1:], total_stats,
-                total_hist, finals_parts, keep_finals, stat_scale, shift_c,
-            )
-            _checkpoint(pending[3])
+            _absorb_pending()
             _report()
-        pending = (_fetch(out), done + this_valid, this_valid, offset + b)
-        offset += b
-        remaining -= this_valid
+        pending = (_fetch(_pack(out), out[2], mesh, b), valids, offset)
 
     _flush_deferred()
     if pending is not None:  # None when a checkpoint was already complete
-        total_stats, total_hist, done = _absorb(
-            (_to_host(pending[0]),) + pending[1:], total_stats, total_hist,
-            finals_parts, keep_finals, stat_scale, shift_c,
-        )
-        _checkpoint(pending[3])
+        _absorb_pending()
     _report()
 
     finals = None

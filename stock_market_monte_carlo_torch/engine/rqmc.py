@@ -92,14 +92,9 @@ def rqmc_estimate(
     digital shifts of the same sequence positions, for pseudo-random
     models independent batches. ``statistic``: "mean" (E[V_T]), "std", or
     "prob_below" (needs ``target_amount``). Costs replicates * n_paths
-    paths."""
+    paths. ``mesh`` shards each replicate's run (``simulate_stats``)."""
     from stock_market_monte_carlo_torch.engine.engine import simulate_stats
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh runs are not ported yet (ROADMAP queue 1 item 13: "
-            "multi-GPU over torch.distributed)"
-        )
     if replicates < 2:
         raise ValueError("replicates must be >= 2 for an interval")
     if statistic not in ("mean", "std", "prob_below"):
@@ -112,7 +107,8 @@ def rqmc_estimate(
     vals = np.empty(replicates, np.float64)
     for r in range(replicates):
         res = simulate_stats(model, n_paths, n_periods, initial_capital,
-                             seed + r, strategy, target_amount, options)
+                             seed + r, strategy, target_amount, options,
+                             mesh)
         if statistic == "mean":
             vals[r] = res.moments.mean
         elif statistic == "std":

@@ -69,6 +69,9 @@ LAW_STREAM_XOR = 0x1A37     # disjoint stream family from the month loop
 
 _SQRT2 = float(np.float32(1.4142135623730951))
 _U23 = float(2.0**-23)
+# the CPU bin log's series: log m = 2 atanh(s) = 2 s sum z^k / (2k+1), z =
+# s^2 <= 0.0295 for m in [sqrt(1/2), sqrt(2)): 11 terms leave < 1e-17
+_LOG_SERIES = tuple(1.0 / (2 * k + 1) for k in range(11))
 _ERFINV_P0 = 2.81022636e-08
 _ERFINV_P = (3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
              0.00021858087, -0.00125372503, -0.00417768164,
@@ -256,13 +259,38 @@ def _sliced_rotation_draw(table2d, n_valid, n, tail_n, w_bits):
     return torch.gather(comb, -1, w_col)
 
 
+def log_f32(x):
+    """float32 log of a float32 tensor: ``torch.log`` on the card (the
+    kernels' ``logf`` bit for bit); on the CPU the float64 log of the
+    argument rounded to float32, from IEEE adds, multiplies and divides
+    only (frexp, then the atanh series), so each value's log is the same
+    on any number of threads, in any slicing and under any load. CPU
+    ``torch.log`` runs vector-math code inside the thread pool, where one
+    fresh process in about 60 under heavy load binned a few edge values
+    apart (ROADMAP queue 3, F5)."""
+    if x.device.type != "cpu":
+        return torch.log(x)
+    m, e = torch.frexp(x.double())        # x = m 2^e, m in [1/2, 1)
+    low = m < 0.7071067811865476
+    m = torch.where(low, m * 2.0, m)
+    e = torch.where(low, e - 1, e)
+    s = (m - 1.0) / (m + 1.0)
+    z = s * s
+    p = torch.full_like(z, _LOG_SERIES[-1])
+    for c in reversed(_LOG_SERIES[:-1]):
+        p = p * z + c
+    out = (e.double() * 0.6931471805599453 + 2.0 * s * p).float()
+    return torch.where(torch.isinf(x), x, out)
+
+
 def _kernel_bin_indices(values, mask, log_lo, inv_w, hb):
     """Log-space bin index (pallas_engine._kernel_bin_indices): interior
     bins clip to [1, hb-1], values with log below log_lo map to 0, masked
     paths to hb. The float is clamped before the integer cast, so huge
     values land in hb-1 as JAX's clip puts them; +inf lands there too,
-    where JAX's overflowing cast puts it in cell 1."""
-    logv = torch.log(torch.clamp_min(values, 1e-37))
+    where JAX's overflowing cast puts it in cell 1. The log is
+    ``log_f32``."""
+    logv = log_f32(torch.clamp_min(values, 1e-37))
     x = torch.floor((logv - log_lo) * inv_w)
     bins = torch.clamp(x, 0.0, float(hb - 2)).to(torch.int64) + 1
     bins = torch.where(logv < log_lo, 0, bins)

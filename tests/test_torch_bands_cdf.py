@@ -168,7 +168,9 @@ def test_band_rejections_match_jax(label):
 
 
 def test_band_mesh_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    """Band meshes are ported (ROADMAP queue 1 item 13, tests/
+    test_torch_mesh.py); a mesh that is no ``PathsMesh`` raises."""
+    with pytest.raises(TypeError, match="parallel.paths_mesh"):
         smt.simulate_bands(from_reference(_HIST), 8192, 4, mesh=object(),
                            options=smt.EngineOptions(**CPU))
 

@@ -4,9 +4,14 @@ resumed from its checkpoint equals an uninterrupted one bit for bit (the
 historical and Gaussian ICDF month loops, the terminal law, a run over
 seed segments); a completed checkpoint short-circuits; a checkpoint of
 another run refuses, including one the JAX package wrote for the same
-arguments."""
+arguments. Across topologies: a checkpoint of a 2-rank gloo mesh run
+resumes on one device and one of a single-device run on a 3-rank mesh
+(spawned ranks, ``parallel/launch.py``), bit for bit at the same
+``chunk_paths`` and with exact counts and cells and the moments within
+1e-6 at another."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -15,6 +20,7 @@ import torch
 import stock_market_monte_carlo_torch as smt
 import stock_market_monte_carlo_tpu as smmc
 from stock_market_monte_carlo_torch.engine import checkpoint as ckpt
+from stock_market_monte_carlo_torch.parallel.launch import run_ranks
 from stock_market_monte_carlo_tpu.config import EngineOptions as JaxOptions
 
 TILE = 8192
@@ -207,3 +213,85 @@ def test_jax_checkpoint_refuses(tmp_path, monkeypatch, prng):
         smt.simulate_stats(HIST, TILE, 12, seed=1,
                            options=smt.EngineOptions(**CPU),
                            checkpoint_path=path)
+
+
+# ---------------------------------------------------------------------------
+# Across topologies (tests/test_checkpoint.py::
+# test_checkpoint_cross_topology_resume)
+# ---------------------------------------------------------------------------
+
+TOPO_N = 8 * TILE + 777
+TOPO_T = 6
+TOPO_KW = dict(seed=3, target_amount=1200.0)
+MOMENT_REL = 1e-6
+
+
+def _mesh_run(world, **kw):
+    """Each rank's ``test_torch_mesh.checkpointed_run`` (seed 3, target
+    1200, as TOPO_KW)."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    return run_ranks(world, "test_torch_mesh:checkpointed_run",
+                     dict(kw, n=TOPO_N, t=TOPO_T), device="cpu",
+                     timeout=240.0, threads=1, path=(tests,))
+
+
+def _single(path=None, chunk=TILE):
+    return smt.simulate_stats(
+        HIST, TOPO_N, TOPO_T, options=smt.EngineOptions(device="cpu",
+                                                        chunk_paths=chunk),
+        checkpoint_path=path, **TOPO_KW)
+
+
+def _assert_resumed(moments, hist, fresh, exact):
+    """The resumed run against an uninterrupted one: bit for bit at the
+    same chunk size; counts, extrema and cells exact at another, the
+    moments within MOMENT_REL."""
+    m = fresh.moments
+    np.testing.assert_array_equal(hist, fresh.histogram_counts)
+    got = dict(zip(("n", "mean", "var", "std", "min", "max", "skew",
+                    "kurtosis", "count_below", "total_withdrawn"), moments))
+    assert (got["n"], got["min"], got["max"], got["count_below"]) == (
+        m.n, m.min, m.max, m.count_below)
+    if exact:
+        assert (got["mean"], got["var"], got["skew"], got["kurtosis"]) == (
+            m.mean, m.var, m.skew, m.kurtosis)
+    np.testing.assert_allclose([got["mean"], got["std"]], [m.mean, m.std],
+                               rtol=MOMENT_REL)
+
+
+@pytest.mark.parametrize("chunk", [TILE, 2 * TILE])
+def test_mesh_checkpoint_resumes_on_one_device(tmp_path, chunk):
+    path = str(tmp_path / "mesh.npz")
+    ranks = _mesh_run(2, path=path, chunk=TILE, stop_after=2)
+    # one report a dispatch of 2 chunks, on both ranks
+    assert [list(r["calls"]) for r in ranks] == [[2 * TILE, 4 * TILE]] * 2
+    assert "moments" not in ranks[0]
+    resumed = _single(path, chunk)
+    fresh = _single()
+    _assert_resumed(_moments_of(resumed), resumed.histogram_counts, fresh,
+                    exact=chunk == TILE)
+    if chunk == TILE:
+        _assert_identical(resumed, fresh)
+
+
+@pytest.mark.parametrize("chunk", [TILE, 2 * TILE])
+def test_checkpoint_resumes_on_a_mesh(tmp_path, chunk):
+    path = str(tmp_path / "single.npz")
+    calls = _interrupted(HIST, TOPO_N, TOPO_T, path, 2,
+                         options=smt.EngineOptions(device="cpu",
+                                                   chunk_paths=TILE),
+                         **TOPO_KW)
+    assert calls == [TILE, 2 * TILE]
+    ranks = _mesh_run(3, path=path, chunk=chunk)
+    fresh = _single()
+    for r in ranks:
+        # the resumed paths reported first, then a dispatch of 3 chunks
+        assert r["calls"][0] == 2 * TILE and r["calls"][-1] == TOPO_N
+        _assert_resumed(r["moments"], r["hist"], fresh, exact=chunk == TILE)
+
+
+def _moments_of(res):
+    m = res.moments
+    return np.array([m.n, m.mean, m.var, m.std, m.min, m.max, m.skew,
+                     m.kurtosis, m.count_below, m.total_withdrawn],
+                    np.float64)

@@ -286,8 +286,6 @@ def _out_of_slice_calls():
     hist = smt.HistoricalBootstrap.from_csv()
     cpu = smt.EngineOptions(device="cpu")
     return {
-        # checkpoints are ported; resuming across topologies waits for
-        # the mesh (item 13)
         "checkpoint": lambda: smt.simulate_stats(
             hist, 8192, 12, options=cpu, checkpoint_path="x.npz",
             mesh=object()),
@@ -300,7 +298,10 @@ def _out_of_slice_calls():
 
 @pytest.mark.parametrize("case", sorted(_out_of_slice_calls()))
 def test_out_of_slice_raises_with_roadmap_item(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    """Meshes are ported (ROADMAP queue 1 item 13, tests/
+    test_torch_mesh.py): a mesh that is no ``PathsMesh`` now raises, before
+    any work, naming the helper that makes one."""
+    with pytest.raises(TypeError, match="parallel.paths_mesh"):
         _out_of_slice_calls()[case]()
 
 

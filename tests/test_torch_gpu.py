@@ -35,7 +35,11 @@ launch counters and the toys' SASS. The long runs: every bare launcher
 holding its outputs after its outputs closure is dropped (ROADMAP queue
 3, F4), a checkpoint written on the CPU resumed on the card, and the
 stats loop waiting for one chunk at a time under a progress callback and
-a checkpoint.
+a checkpoint. The paths mesh on the card: a 1-rank NCCL mesh in this
+process and a 2-rank gloo mesh of two child processes sharing the card,
+every case of tests/test_torch_mesh.py equal to the single-device run bit
+for bit; an NCCL mesh on the CPU and a mesh on another device than
+``options.device`` refuse.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -1684,3 +1688,66 @@ def test_simulate_stats_waits_for_one_chunk_at_a_time(cuda, tmp_path,
                               options=smt.EngineOptions(chunk_paths=8192))
     assert got.moments == want.moments
     np.testing.assert_array_equal(got.histogram_counts, want.histogram_counts)
+
+
+# ---------------------------------------------------------------------------
+# The paths mesh on the card (tests/test_torch_mesh.py's cases)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_cases():
+    import test_torch_mesh as tm
+
+    return tm, sorted(tm.CASES)
+
+
+def test_nccl_mesh_equals_single_device(cuda, tmp_path):
+    """A 1-rank NCCL mesh (``paths_mesh(1)`` is the single-device path, so
+    the test builds it): every case bit for bit against the single device;
+    the mesh refuses another device than its own, and NCCL refuses the
+    CPU."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stock_market_monte_carlo_torch.parallel import PathsMesh
+
+    tm, names = _mesh_cases()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = PathsMesh(group=None, rank=0, size=1, backend="nccl",
+                         device=torch.device("cuda",
+                                             torch.cuda.current_device()))
+        got = tm.split_cases(tm.run_cases(mesh, names, device="cuda"))
+        with pytest.raises(ValueError, match="runs rank 0 on cuda"):
+            smt.simulate_stats(smt.HistoricalBootstrap.from_csv(), 8192, 12,
+                               options=smt.EngineOptions(device="cpu"),
+                               mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
+    for name in names:
+        tm.check_case(name, [got[name]], want[name])
+    with pytest.raises(ValueError, match="NCCL paths mesh runs on the cards"):
+        PathsMesh(group=None, rank=0, size=1, backend="nccl",
+                  device=torch.device("cpu"))
+
+
+def test_gloo_mesh_on_one_card(cuda):
+    """Two gloo ranks in child processes, both on the card (the kernels run
+    there, the exchange goes through the host): every case bit for bit
+    against the single device."""
+    import os
+
+    from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+
+    tm, names = _mesh_cases()
+    tests = os.path.dirname(os.path.abspath(__file__))
+    ranks = [tm.split_cases(r) for r in run_ranks(
+        2, "test_torch_mesh:run_cases", dict(names=names, device="cuda"),
+        device="cuda", timeout=600.0, path=(tests,))]
+    want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
+    for name in names:
+        tm.check_case(name, [r[name] for r in ranks], want[name])

@@ -138,3 +138,55 @@ def test_launch_geometry_takes_20000_cells():
     assert ce._launch_geometry(132, 8192 + 777, 256, 8) == 36
     assert not ce.in_kernel_hist(20002, True)
     assert not hasattr(ce, "MAX_HIST_CELLS")
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP queue 3, F5: the plain bin's log on the CPU does not depend on the
+# thread count or the slicing.
+# ---------------------------------------------------------------------------
+
+F5_SIZES = (1, 15, 32767, 32768, 32769, 49152, 1 << 20)
+F5_SLICE = 1001
+F5_HB = 4096
+
+
+def _f5_inputs(n):
+    """Lognormal finals around 1000 with the edge cases up front: zero,
+    below the 1e-37 floor, +inf, the float32 top, exactly 1."""
+    rng = np.random.default_rng(n)
+    vals = np.exp(rng.normal(np.log(1000.0), 1.5, n)).astype(np.float32)
+    head = np.float32([0.0, 1e-38, np.inf, 3e38, 1.0])[:n]
+    vals[:head.size] = head
+    return torch.from_numpy(vals), torch.from_numpy(np.arange(n) % 17 != 9)
+
+
+def _f5_bins(vals, mask):
+    return ce._kernel_bin_indices(vals, mask, ce._f32(np.log(50.0)),
+                                  ce._f32(410.3), F5_HB)
+
+
+@pytest.mark.parametrize("n", F5_SIZES)
+def test_plain_bins_ignore_threads_and_slicing(n):
+    vals, mask = _f5_inputs(n)
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = _f5_bins(vals, mask)
+        torch.set_num_threads(6)
+        six = _f5_bins(vals, mask)
+        sliced = torch.cat([_f5_bins(vals[i:i + F5_SLICE],
+                                     mask[i:i + F5_SLICE])
+                            for i in range(0, n, F5_SLICE)])
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(one, six)
+    assert torch.equal(one, sliced)
+
+
+def test_cpu_log_is_the_rounded_float64_log():
+    """``log_f32`` on the CPU is float64's log rounded to float32 (numpy's
+    as the reference), +inf at +inf."""
+    vals, _ = _f5_inputs(1 << 20)
+    vals = torch.clamp_min(vals, 1e-37)
+    want = np.log(vals.numpy().astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(ce.log_f32(vals).numpy(), want)
