@@ -605,7 +605,7 @@ def walls_of(fn, reps=MESH_REPS):
 
 def mesh_rank(mesh, checkpoint):
     """One rank of phase 11's 2-rank gloo mesh on the card (a child
-    process of ``parallel/launch.py``): the historical month loop and the
+    process of ``parallel/_ranks.py``): the historical month loop and the
     law at 100M x 360, historical bands in hist mode at 100M x 360 and the
     Sobol Gaussian RQMC at 8 x 2^24 x 360, each counted on its own (its
     first call; then MESH_REPS timed calls); then the checkpointed month
@@ -666,7 +666,7 @@ def mesh_phase(card, main_results, band_results):
     import stock_market_monte_carlo_torch as smt
     from stock_market_monte_carlo_torch.bench import headline
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
-    from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+    from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
     from stock_market_monte_carlo_torch.parallel.mesh import PathsMesh
 
     n_chunks = -(-MAIN_PATHS // CHUNK)

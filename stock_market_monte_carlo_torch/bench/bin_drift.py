@@ -14,13 +14,8 @@ when either is not bit-equal to the reference's.
         [--procs 60] [--hogs 6]
 
 Prints one ``[bin_drift]`` JSON line: processes, hogs, how many differed
-(histogram, sums), and for each that did the paths whose cell moved;
-then, in this process with no load, where torch's CPU log runs (the share
-of the CPU time that threads other than the caller take during 2^18
-elements of ``torch.log`` in slices of 1024 to 32768) and how the bin's
-``log_f32`` compares with ``torch.log`` on 2^20 lognormal finals (logs
-and 4096-cell bins that differ). Exit status 1 when any process differed.
-CPU only.
+(histogram, sums), and for each that did the paths whose cell moved.
+Exit status 1 when any process differed. CPU only.
 """
 
 from __future__ import annotations
@@ -67,64 +62,6 @@ def _run_child(repo, threads=None):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def _thread_ticks():
-    """{thread id: user + system clock ticks} of this process's threads."""
-    out = {}
-    for tid in os.listdir("/proc/self/task"):
-        with open(f"/proc/self/task/{tid}/stat") as f:
-            fields = f.read().rsplit(")", 1)[1].split()
-        out[tid] = int(fields[11]) + int(fields[12])
-    return out
-
-
-def pool_share(sizes=(1024, 4096, 32768), total=1 << 18, calls=400):
-    """{slice: share of the CPU time spent by threads other than the
-    caller} while ``torch.log`` runs ``calls`` times over ``total``
-    float32 elements in slices of that size, at torch's default
-    threads."""
-    import threading
-
-    import torch
-
-    x = torch.rand(total) + 0.5
-    torch.log(x)
-    me = str(threading.get_native_id())
-    out = {}
-    for n in sizes:
-        parts = list(x.split(n))
-        a = _thread_ticks()
-        for _ in range(calls):
-            for part in parts:
-                torch.log(part)
-        b = _thread_ticks()
-        spent = {t: b[t] - a.get(t, 0) for t in b}
-        busy = sum(spent.values())
-        out[str(n)] = (busy - spent[me]) / busy if busy else 0.0
-    return out
-
-
-def log_agreement(n=1 << 20, hb=4096):
-    """``log_f32`` against ``torch.log`` on ``n`` lognormal finals around
-    1000 (sigma 1.5): logs that differ, and cells of a 4096-cell bin (the
-    unit tests' log_lo = log 50, inv_w = 410.3) that differ."""
-    import torch
-
-    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
-
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(np.exp(rng.normal(np.log(1000.0), 1.5, n))
-                         .astype(np.float32))
-    mask = torch.ones(n, dtype=torch.bool)
-    lo, inv_w = ce._f32(np.log(50.0)), ce._f32(410.3)
-    ours = ce._kernel_bin_indices(x, mask, lo, inv_w, hb)
-    logv = torch.log(x)
-    x_bins = torch.floor((logv - lo) * inv_w)
-    theirs = torch.clamp(x_bins, 0.0, float(hb - 2)).to(torch.int64) + 1
-    theirs = torch.where(logv < lo, 0, theirs)
-    return dict(n=n, logs_differ=int((ce.log_f32(x) != logv).sum()),
-                bins_differ=int((ours != theirs).sum()))
-
-
 def measure(procs, hogs):
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -165,7 +102,6 @@ def main(argv=None):
         child()
         return None
     rec = measure(args.procs, args.hogs)
-    rec.update(pool_share=pool_share(), log_vs_torch=log_agreement())
     print(f"[bin_drift] {json.dumps(rec)}", flush=True)
     return rec
 

@@ -32,7 +32,6 @@ part; exits 1 when a check fails.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import signal
@@ -67,27 +66,6 @@ def _sync(device):
         import torch
 
         torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def _one_cpu_thread(device):
-    """On the CPU, torch on one thread while the drill's runs compare
-    across processes: the plain version's bin log (then ``torch.log``,
-    MKL VML under ATen's parallel_for) was seen to round an edge value
-    differently in about one fresh process in 60 under CPU load (ROADMAP
-    queue 3, F5). The bin's log no longer depends on the threads
-    (``cuda_engine.log_f32``), but no run of ``bench/bin_drift.py`` has
-    reproduced the fault on the old code to show it gone, so the pin
-    stays. The kernels on the card are not affected."""
-    import torch
-
-    n = torch.get_num_threads()
-    if device == "cpu":
-        torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _timed(device, fn):
@@ -160,10 +138,9 @@ def child(device, sizes, path):
         if not sys.stdin.readline():      # the parent is gone
             os._exit(3)
 
-    with _one_cpu_thread(device):
-        smt.simulate_stats(*_drill_args(sizes), target_amount=TARGET,
-                           options=_options(device, sizes),
-                           checkpoint_path=path, progress=progress)
+    smt.simulate_stats(*_drill_args(sizes), target_amount=TARGET,
+                       options=_options(device, sizes),
+                       checkpoint_path=path, progress=progress)
     print("FINISHED", flush=True)
 
 
@@ -222,13 +199,12 @@ def fault(device, sizes, quick):
             state = ckpt.load(path, bytes(z["fingerprint"]).decode())
         opts = _options(device, sizes)
         resumed_up, control_up = [], []
-        with _one_cpu_thread(device):
-            resumed, resume_s, _ = _timed(device, lambda: smt.simulate_stats(
-                *_drill_args(sizes), target_amount=TARGET, options=opts,
-                checkpoint_path=path, stream=_final_update(resumed_up)))
-            control, control_s, _ = _timed(device, lambda: smt.simulate_stats(
-                *_drill_args(sizes), target_amount=TARGET, options=opts,
-                stream=_final_update(control_up)))
+        resumed, resume_s, _ = _timed(device, lambda: smt.simulate_stats(
+            *_drill_args(sizes), target_amount=TARGET, options=opts,
+            checkpoint_path=path, stream=_final_update(resumed_up)))
+        control, control_s, _ = _timed(device, lambda: smt.simulate_stats(
+            *_drill_args(sizes), target_amount=TARGET, options=opts,
+            stream=_final_update(control_up)))
     stats_equal = bool(np.array_equal(
         resumed_up[0].stats.view(np.uint64),
         control_up[0].stats.view(np.uint64)))

@@ -542,38 +542,52 @@ def _gathered(mesh, x, at_launch: bool):
     return mesh.gather(x)
 
 
-def _fetch(row, finals, mesh, b):
-    """A dispatch's chunk row (stats and histogram, ``_pack``) and finals
-    on their way to the host: gathered on the card under NCCL, the row
-    copied behind the chunk's kernel (``pinned_copy``) and the event after
-    the copy. A mesh pads each rank's finals to the shard's ``b`` paths."""
+def _fetch(parts, finals, mesh, b):
+    """A dispatch's chunk parts (``_parts``) and finals on their way to the
+    host: gathered on the card under NCCL, each part copied behind the
+    chunk's kernel (``pinned_copy``) and the event after the last copy. A
+    mesh pads each rank's finals to the shard's ``b`` paths."""
     if mesh is not None and finals is not None:
         finals = torch.nn.functional.pad(finals, (0, b - finals.numel()))
-    row = _gathered(mesh, row, True)
+    copies = [pinned_copy(_gathered(mesh, p, True)) for p in parts]
     if finals is not None:
         finals = _gathered(mesh, finals, True)
-    host, copied = pinned_copy(row)
-    return (host, finals), copied
+    return ([host for host, _ in copies], finals), copies[-1][1]
 
 
 def _to_host(fetched, mesh, n_dev):
     """A fetched dispatch as numpy arrays once its copies are done,
-    gathered on the host under gloo: the (n_dev, 9 + hb) rows in rank order
-    and the (n_dev, paths) finals or None."""
-    (host, finals), copied = fetched
+    gathered on the host under gloo: the (n_dev, 9) stats rows and
+    (n_dev, hb) histograms in rank order (``_split``) and the (n_dev,
+    paths) finals or None."""
+    (parts, finals), copied = fetched
     if copied is not None:
         copied.synchronize()
-    rows = _gathered(mesh, host, False).numpy().reshape(n_dev, -1)
+    stats, hist = _split(
+        [_gathered(mesh, p, False).numpy().reshape(n_dev, -1)
+         for p in parts])
     if finals is not None:
         finals = _gathered(mesh, finals.cpu(), False).numpy().reshape(
             n_dev, -1)
-    return rows, finals
+    return stats, hist, finals
 
 
-def _pack(out):
-    """A chunk's stats row and histogram as one float32 row: one copy and
-    one collective a chunk."""
-    return torch.cat([out[0], out[1]])
+def _parts(out, mesh):
+    """What of a chunk travels to the host, chunk by chunk: its stats row
+    and histogram as they are on one device; under a mesh packed into one
+    float32 row, so a dispatch takes one collective."""
+    if mesh is None:
+        return out[0], out[1]
+    return (torch.cat([out[0], out[1]]),)
+
+
+def _split(parts):
+    """(stats rows, histograms) of host parts from ``_parts`` whose last
+    axis is a chunk's: the pair as it is, or the packed rows cut after the
+    9 stats."""
+    if len(parts) == 2:
+        return parts[0], parts[1]
+    return parts[0][..., :9], parts[0][..., 9:]
 
 
 def simulate_stats(
@@ -669,7 +683,7 @@ def simulate_stats(
     total_hist = np.zeros(spec.n_bins + 2, np.float64)
     finals_parts = []
     pending = None  # (fetched, shard valids, offset_after)
-    deferred = []   # (packed row, shard valids)
+    deferred = []   # ((stats row, histogram), shard valids)
     done = 0
     offset = 0
     remaining = n_paths
@@ -730,28 +744,28 @@ def simulate_stats(
                 paths_done=int(done), stats=total_stats, hist=total_hist,
             ))
 
-    def _absorb_dispatch(rows, finals, valids):
+    def _absorb_dispatch(stats, hist, finals, valids):
         # the ranks' rows in rank order: global chunk order
         nonlocal total_stats, total_hist, done
         for i, valid in enumerate(valids):
             total_stats, total_hist, done = _absorb(
-                ((rows[i, :9], rows[i, 9:],
-                  None if finals is None else finals[i]),
+                ((stats[i], hist[i], None if finals is None else finals[i]),
                  done + valid, valid), total_stats, total_hist,
                 finals_parts, keep_finals, stat_scale, shift_c,
             )
 
     def _flush_deferred():
-        # one stacked fetch (and one collective under a mesh), then the
+        # the deferred chunks' stats rows and histograms packed by one
+        # cat, one fetch (and one collective under a mesh), then the
         # sequential f64 merges in chunk order
         if not deferred:
             return
-        rows = _gathered(mesh, torch.stack([d[0] for d in deferred]),
-                         True).cpu()
+        rows = torch.cat([t for parts, _ in deferred for t in parts])
+        rows = _gathered(mesh, rows.view(len(deferred), -1), True).cpu()
         rows = _gathered(mesh, rows, False).numpy().reshape(
             n_dev, len(deferred), -1)
         for j, (_, valids) in enumerate(deferred):
-            _absorb_dispatch(rows[:, j], None, valids)
+            _absorb_dispatch(rows[:, j, :9], rows[:, j, 9:], None, valids)
         deferred.clear()
 
     def _report():
@@ -793,7 +807,7 @@ def simulate_stats(
         offset += b * n_dev
         remaining -= this_valid
         if defer_absorb:
-            deferred.append((_pack(out), valids))
+            deferred.append((out[:2], valids))
             if len(deferred) >= _DEFER_FLUSH_CHUNKS:
                 _flush_deferred()
             continue
@@ -802,7 +816,8 @@ def simulate_stats(
         if pending is not None:
             _absorb_pending()
             _report()
-        pending = (_fetch(_pack(out), out[2], mesh, b), valids, offset)
+        pending = (_fetch(_parts(out, mesh), out[2], mesh, b), valids,
+                   offset)
 
     _flush_deferred()
     if pending is not None:  # None when a checkpoint was already complete

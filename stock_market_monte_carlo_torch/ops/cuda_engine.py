@@ -267,7 +267,8 @@ def log_f32(x):
     on any number of threads, in any slicing and under any load. CPU
     ``torch.log`` runs vector-math code inside the thread pool, where one
     fresh process in about 60 under heavy load binned a few edge values
-    apart (ROADMAP queue 3, F5)."""
+    apart (ROADMAP queue 3, F5). Outside (0, inf) it gives ``torch.log``'s
+    values: -inf at 0, +inf at +inf, NaN below 0 and at NaN."""
     if x.device.type != "cpu":
         return torch.log(x)
     m, e = torch.frexp(x.double())        # x = m 2^e, m in [1/2, 1)
@@ -280,7 +281,9 @@ def log_f32(x):
     for c in reversed(_LOG_SERIES[:-1]):
         p = p * z + c
     out = (e.double() * 0.6931471805599453 + 2.0 * s * p).float()
-    return torch.where(torch.isinf(x), x, out)
+    out = torch.where(x == torch.inf, x, out)
+    out = torch.where(x == 0, -torch.inf, out)
+    return torch.where(x < 0, torch.nan, out)
 
 
 def _kernel_bin_indices(values, mask, log_lo, inv_w, hb):

@@ -6,12 +6,11 @@ seed segments); a completed checkpoint short-circuits; a checkpoint of
 another run refuses, including one the JAX package wrote for the same
 arguments. Across topologies: a checkpoint of a 2-rank gloo mesh run
 resumes on one device and one of a single-device run on a 3-rank mesh
-(spawned ranks, ``parallel/launch.py``), bit for bit at the same
+(spawned ranks, ``parallel/_ranks.py``), bit for bit at the same
 ``chunk_paths`` and with exact counts and cells and the moments within
 1e-6 at another."""
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
@@ -20,7 +19,7 @@ import torch
 import stock_market_monte_carlo_torch as smt
 import stock_market_monte_carlo_tpu as smmc
 from stock_market_monte_carlo_torch.engine import checkpoint as ckpt
-from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
 from stock_market_monte_carlo_tpu.config import EngineOptions as JaxOptions
 
 TILE = 8192
@@ -229,10 +228,9 @@ MOMENT_REL = 1e-6
 def _mesh_run(world, **kw):
     """Each rank's ``test_torch_mesh.checkpointed_run`` (seed 3, target
     1200, as TOPO_KW)."""
-    tests = os.path.dirname(os.path.abspath(__file__))
     return run_ranks(world, "test_torch_mesh:checkpointed_run",
                      dict(kw, n=TOPO_N, t=TOPO_T), device="cpu",
-                     timeout=240.0, threads=1, path=(tests,))
+                     timeout=240.0)
 
 
 def _single(path=None, chunk=TILE):

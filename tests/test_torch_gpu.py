@@ -1739,15 +1739,12 @@ def test_gloo_mesh_on_one_card(cuda):
     """Two gloo ranks in child processes, both on the card (the kernels run
     there, the exchange goes through the host): every case bit for bit
     against the single device."""
-    import os
-
-    from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+    from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
 
     tm, names = _mesh_cases()
-    tests = os.path.dirname(os.path.abspath(__file__))
     ranks = [tm.split_cases(r) for r in run_ranks(
         2, "test_torch_mesh:run_cases", dict(names=names, device="cuda"),
-        device="cuda", timeout=600.0, path=(tests,))]
+        device="cuda", timeout=600.0)]
     want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
     for name in names:
         tm.check_case(name, [r[name] for r in ranks], want[name])

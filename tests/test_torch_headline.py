@@ -72,7 +72,7 @@ def test_bench_modules_leave_jax_out():
             "stock_market_monte_carlo_torch.engine.checkpoint, "
             "stock_market_monte_carlo_torch.engine.progress, "
             "stock_market_monte_carlo_torch.parallel.mesh, "
-            "stock_market_monte_carlo_torch.parallel.launch, "
+            "stock_market_monte_carlo_torch.parallel._ranks, "
             "stock_market_monte_carlo_torch.bench.bin_drift, "
             "stock_market_monte_carlo_torch.bench.validation, "
             "stock_market_monte_carlo_torch.bench.fault_drill, "

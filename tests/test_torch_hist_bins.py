@@ -190,3 +190,12 @@ def test_cpu_log_is_the_rounded_float64_log():
     vals = torch.clamp_min(vals, 1e-37)
     want = np.log(vals.numpy().astype(np.float64)).astype(np.float32)
     np.testing.assert_array_equal(ce.log_f32(vals).numpy(), want)
+
+
+@pytest.mark.parametrize("x", [0.0, -0.0, -1.0, 1.0, float("inf"),
+                               float("-inf"), float("nan")])
+def test_cpu_log_outside_the_series(x):
+    """Where the series does not apply (0, below 0, the infinities, NaN)
+    and at 1, ``log_f32`` gives ``torch.log``'s value."""
+    t = torch.tensor([x], dtype=torch.float32)
+    np.testing.assert_array_equal(ce.log_f32(t).numpy(), torch.log(t).numpy())

@@ -1,6 +1,6 @@
 """The port's samplers under a paths mesh on the CPU, modelled on
 tests/test_pallas_mesh.py and tests/test_multihost.py: 2-rank and 3-rank
-gloo groups of spawned processes (``parallel/launch.py``, a ``file://``
+gloo groups of spawned processes (``parallel/_ranks.py``, a ``file://``
 store) run every case once per module; every rank must equal every other
 rank, and the single-process port run at the same ``chunk_paths``, bit for
 bit: the 9 packed sums, the moments, every cell and the finals. At 3 ranks
@@ -15,14 +15,12 @@ comparison is of the merge, and 5 ranks of the default thread count
 beside the other test workers would oversubscribe the cores.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
 
 import stock_market_monte_carlo_torch as smt
-from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
 
 TILE = 8192
 # a ragged tail whose last dispatch leaves a shard empty at 2 and 3 ranks
@@ -137,8 +135,9 @@ SMALL_RUN_SUMS = ("moments", "packed")
 
 
 def run_cases(mesh, names, device="cpu"):
-    """A rank's results on ``device``: ``{case/key: array}``. Also run on
-    the card by tests/test_torch_gpu.py."""
+    """A rank's results on ``device``: ``{case/key: array}``, on one torch
+    thread. Also run on the card by tests/test_torch_gpu.py."""
+    torch.set_num_threads(1)
     return {f"{name}/{k}": v for name in names
             for k, v in CASES[name](mesh, device).items()}
 
@@ -152,7 +151,8 @@ def checkpointed_run(mesh, path, n, chunk, stop_after=0, t=T, seed=3):
     by a progress callback that raises on every rank at its
     ``stop_after``-th report (the checkpoint then holds that many
     dispatches); else run to its end (resumed where ``path`` holds a
-    checkpoint). For tests/test_torch_checkpoint.py."""
+    checkpoint). On one torch thread, for tests/test_torch_checkpoint.py."""
+    torch.set_num_threads(1)
     calls = []
 
     def progress(done, total):
@@ -186,12 +186,11 @@ def ranks():
     per world; the two worlds start together."""
     import concurrent.futures
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with concurrent.futures.ThreadPoolExecutor(len(WORLDS)) as pool:
         futures = {w: pool.submit(
             run_ranks, w, "test_torch_mesh:run_cases",
-            dict(names=sorted(CASES)), device="cpu", timeout=RANK_TIMEOUT,
-            threads=1, path=(here,)) for w in WORLDS}
+            dict(names=sorted(CASES)), device="cpu", timeout=RANK_TIMEOUT)
+            for w in WORLDS}
         return {w: [split_cases(r) for r in f.result()]
                 for w, f in futures.items()}
 

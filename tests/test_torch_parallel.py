@@ -1,11 +1,10 @@
 """The port's paths mesh (``parallel/mesh.py``), the counterparts of
 tests/test_parallel.py: in a 1-rank gloo group in this process, and in a
-3-rank gloo group of spawned processes (``parallel/launch.py``). Also the
+3-rank gloo group of spawned processes (``parallel/_ranks.py``). Also the
 engine's refusals of a mesh that cannot run: an object that is no mesh, a
 process outside the mesh's ranks, a device other than the mesh's."""
 
 import datetime
-import os
 
 import numpy as np
 import pytest
@@ -18,7 +17,7 @@ from stock_market_monte_carlo_torch.parallel import (
     device_count,
     paths_mesh,
 )
-from stock_market_monte_carlo_torch.parallel.launch import run_ranks
+from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
 
 TILE = 8192
 CPU = smt.EngineOptions(device="cpu", chunk_paths=TILE)
@@ -103,7 +102,8 @@ def test_engine_refuses_what_no_mesh_can_run(call):
 
 def rank_checks(mesh):
     """A rank's view of test_parallel.py's cases on the full mesh and on
-    a 2-rank subgroup of it."""
+    a 2-rank subgroup of it, on one torch thread."""
+    torch.set_num_threads(1)
     out = dict(size=mesh.size, rank=mesh.rank, backend=mesh.backend,
                device_count=device_count())
     try:
@@ -132,9 +132,8 @@ def rank_checks(mesh):
 
 @pytest.fixture(scope="module")
 def ranks():
-    here = os.path.dirname(os.path.abspath(__file__))
     return run_ranks(WORLD, "test_torch_parallel:rank_checks", device="cpu",
-                     timeout=240.0, threads=1, path=(here,))
+                     timeout=240.0)
 
 
 def test_paths_mesh_all_devices(ranks):
