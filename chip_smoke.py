@@ -39,7 +39,16 @@ and a 2-rank gloo mesh of two child processes that share the card, each
 equal to the single-device runs bit for bit (the historical month loop
 and the law; the children also bands in hist mode and replicated RQMC),
 a checkpoint of the 2-rank run resumed on one device, and the headline's
-``--mesh 2`` refusing on one card.
+``--mesh 2`` refusing on one card. Last, the user surfaces (phase 12),
+through the CLI's ``main([...])`` on the card: ``benchmark-mc-gpu 1 360
+100000000`` and ``benchmark-mc-reduceblock 1 360 100000000
+--terminal-law``, each launching only its kernel and equal to a direct
+``run`` bit for bit; the device mean and vector add at 2^24; CSVs of
+``monte-carlo-historical`` read back as the run's trajectories; the
+native library built and held to its Python versions; ``benchmark-google``
+and ``benchmark-compare``; and the sweep (``bench/sweep.py``) at full
+size, which launches the ICDF and Sobol loops, the CLT, both band kernels
+and the law.
 
     python3 chip_smoke.py
 
@@ -221,6 +230,17 @@ RESUME_CHUNK = CHUNK // 2
 # the 1-rank NCCL mesh's walls against the single device's: medians of
 # this many runs, in turns
 MESH_REPS = 3
+# phase 12, the user surfaces: the reference's own GPU row (BASELINE.md,
+# 1e8 x 360 historical, mean/var only, on an RTX 3070), the CLI's sizes
+# and the sweep's kernels (launch counter -> what it is)
+RTX3070_S = 0.13
+CLI_PATHS, CLI_MONTHS = 100_000_000, 360
+CLI_VECTOR = 16_777_216
+CLI_CSV_PATHS, CLI_GOOGLE_PATHS = 8, 1_000_000
+SWEEP_KERNELS = {"month_loop_gaussian": "ICDF loop",
+                 "month_loop_sobol_gaussian": "Sobol loop",
+                 "clt": "CLT", "bands_hist": "band histogram",
+                 "bands_cdf": "band cdf", "law": "law kernel"}
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -839,6 +859,217 @@ def mesh_phase(card, main_results, band_results):
     say(11, f"headline --mesh {MESH_RANKS} on {cards} card(s) refuses "
             f"before any launch: {refusal}")
     return record
+
+
+# ---------------------------------------------------------------------------
+# The user surfaces (phase 12).
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded(names):
+    """Record every call of the package's entry points ``names`` made
+    inside the block: [(name, result), ...]."""
+    import stock_market_monte_carlo_torch as smt
+
+    calls, real = [], {n: getattr(smt, n) for n in names}
+
+    def wrap(name):
+        def fn(*a, **k):
+            res = real[name](*a, **k)
+            calls.append((name, res))
+            return res
+        return fn
+
+    for n in names:
+        setattr(smt, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(smt, n, f)
+
+
+def cli(argv):
+    """Stdout of ``smmc-torch <argv>`` run in process (its default device,
+    the card), echoed."""
+    from stock_market_monte_carlo_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    check(rc is None, f"smmc-torch {' '.join(argv)}: returned {rc!r}")
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    return text
+
+
+def counted(fn):
+    """(fn(), the launch counts of its run)."""
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+
+    ce.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ce.LAUNCHES)
+
+
+def surfaces_phase(card):
+    """Phase 12: the user's commands on the card, through the CLI's
+    ``main([...])`` (see the module docstring)."""
+    import stock_market_monte_carlo_torch as smt
+    from stock_market_monte_carlo_torch import native
+    from stock_market_monte_carlo_torch.bench import sweep
+    from stock_market_monte_carlo_torch.data import loader
+    from stock_market_monte_carlo_torch.ops import reductions, sobol
+    from stock_market_monte_carlo_torch.utils.io import read_data_file
+
+    hist_model = smt.HistoricalBootstrap.from_csv()
+    n_chunks = -(-CLI_PATHS // CHUNK)
+
+    # 12a. benchmark-mc-gpu and benchmark-mc-reduceblock --terminal-law:
+    # each launches only its kernel, and its result is a direct run's
+    # with the CLI's arguments bit for bit
+    for argv, key, opts in (
+            (["benchmark-mc-gpu", "1"], "month_loop", {}),
+            (["benchmark-mc-reduceblock", "1"], "law",
+             dict(terminal_law=True, histogram=False))):
+        argv = argv + [str(CLI_MONTHS), str(CLI_PATHS)]
+        if key == "law":
+            argv.append("--terminal-law")
+        with recorded(["run"]) as calls:
+            _, counts = counted(lambda: cli(argv))
+        check(counts == dict({k: 0 for k in counts}, **{key: n_chunks}),
+              f"smmc-torch {' '.join(argv)}: launches {counts}")
+        (_, res), = calls
+        direct = smt.run(hist_model, CLI_PATHS, CLI_MONTHS,
+                         initial_capital=1000.0, seed=0,
+                         target_amount=1000.0,
+                         options=smt.EngineOptions(**opts))
+        check(same_bits(moments_row(res), moments_row(direct)),
+              f"smmc-torch {argv[0]}: {moments_row(res)} against the direct "
+              f"run's {moments_row(direct)}")
+        if res.histogram_counts is not None or \
+                direct.histogram_counts is not None:
+            check(same_bits(res.histogram_counts, direct.histogram_counts),
+                  f"smmc-torch {argv[0]}: histogram differs")
+        say(12, f"[{card}] smmc-torch {' '.join(argv)}: {counts[key]} "
+                f"launches of {key}, == direct run (n, mean, var, std, min, "
+                f"max, skew, kurtosis, count_below, withdrawn: "
+                f"{moments_row(res).tolist()}); wall {res.elapsed_s!r} s "
+                f"(direct run {direct.elapsed_s!r} s; the reference's RTX "
+                f"3070 row {RTX3070_S} s)")
+
+    # 12b. the device mean and the vector add
+    (text, counts) = counted(lambda: cli(["benchmark-reduce-mean",
+                                          str(CLI_VECTOR)]))
+    rel_diff = float(text.split("rel_diff:")[1].split()[0])
+    check(rel_diff <= 1e-5 and sum(counts.values()) == 0,
+          f"benchmark-reduce-mean: rel_diff {rel_diff}, launches {counts}")
+    text, _ = counted(lambda: cli(["demo-vector-add", "--n",
+                                   str(CLI_VECTOR)]))
+    check(" OK " in text, f"demo-vector-add: {text!r}")
+    say(12, f"[{card}] benchmark-reduce-mean {CLI_VECTOR}: rel_diff "
+            f"{rel_diff!r}; demo-vector-add {CLI_VECTOR}: OK")
+
+    # 12c. monte-carlo-historical into a temporary directory: the CSVs
+    # read back are the run's trajectories at six significant digits
+    with tempfile.TemporaryDirectory() as tmp:
+        with recorded(["simulate_paths"]) as calls:
+            _, counts = counted(lambda: cli([
+                "monte-carlo-historical", "1000", str(CLI_MONTHS),
+                str(CLI_CSV_PATHS), "--out-dir", tmp]))
+        (_, traj), = calls
+        check(traj.shape == (CLI_CSV_PATHS, CLI_MONTHS + 1)
+              and np.isfinite(traj).all(), f"trajectories {traj.shape}")
+        for i in range(CLI_CSV_PATHS):
+            _, values = read_data_file(os.path.join(
+                tmp, f"historical_{i:05d}.csv"))
+            want = np.asarray([float(f"{v:g}") for v in traj[i]],
+                              np.float32)
+            check(same_bits(values, want),
+                  f"historical_{i:05d}.csv differs from the run's row")
+    say(12, f"[{card}] monte-carlo-historical 1000 {CLI_MONTHS} "
+            f"{CLI_CSV_PATHS}: the CSVs are the run's trajectories; kernel "
+            f"launches {sum(counts.values())} (threefry in torch)")
+
+    # 12d. the native library against its Python versions, built into a
+    # temporary directory and loaded through $SMMC_NATIVE_LIB, so that no
+    # library is left in the checkout to switch later runs' CSV reader
+    t = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    lib = native.build(os.path.join(tmp.name, native.LIBRARY.name))
+    env_lib = os.environ.get("SMMC_NATIVE_LIB")
+    os.environ["SMMC_NATIVE_LIB"] = str(lib)
+    native._LIB, native._LOAD_ATTEMPTED = None, False
+    check(native.available(), f"native library {lib} does not load")
+    got = native.native_read_returns(loader.SYNTHETIC_CSV)
+    native._LIB, native._LOAD_ATTEMPTED = None, True
+    python = loader.read_historical_returns(loader.SYNTHETIC_CSV)
+    native._LIB, native._LOAD_ATTEMPTED = None, False
+    check(same_bits(got, python), "native CSV reader != the Python reader")
+    rng = np.random.default_rng(0)
+    a, b = rng.normal(3, 2, 1000), rng.normal(5, 1, 2345)
+    sa = np.asarray([a.size, a.mean(), ((a - a.mean()) ** 2).sum()])
+    sb = np.asarray([b.size, b.mean(), ((b - b.mean()) ** 2).sum()])
+    merged = native.native_welford_merge(sa.copy(), sb)
+    n, mean, m2 = reductions.welford_combine(torch.as_tensor(sa),
+                                             torch.as_tensor(sb))
+    # the C++ merge adds m2a + (m2b + d^2 w), welford_combine
+    # (m2a + m2b) + d^2 w: the same within a few float64 ulps
+    python = np.asarray([float(n), float(mean), float(m2)])
+    check(merged[0] == python[0]
+          and np.allclose(merged, python, rtol=1e-12, atol=0),
+          f"native Welford {merged} != welford_combine {python}")
+    d = sobol.direction_numbers(7)
+    pts = native.native_sobol_points(d, 123457, 64)
+    words = sobol.sobol_bits_u32(d, 123457, 64, 7).numpy()
+    check(same_bits(pts, words.astype(np.float64) * 2.0**-32),
+          "native Sobol points != sobol_bits_u32 * 2^-32")
+    if env_lib is None:
+        del os.environ["SMMC_NATIVE_LIB"]
+    else:
+        os.environ["SMMC_NATIVE_LIB"] = env_lib
+    native._LIB, native._LOAD_ATTEMPTED = None, False
+    tmp.cleanup()
+    say(12, f"[{card}] native library built ({lib.name}, "
+            f"{time.perf_counter() - t:.1f} s): CSV reader and Sobol points "
+            f"== their Python versions, Welford merge within 1e-12")
+
+    # 12e. benchmark-google, then benchmark-compare of the file with itself
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "google.json")
+        _, counts = counted(lambda: cli([
+            "benchmark-google", str(CLI_MONTHS), str(CLI_GOOGLE_PATHS),
+            "--repetitions", "3", "--benchmark-out", out]))
+        reps = [b["real_time"] for b in json.load(open(out))["benchmarks"]
+                if b.get("run_type") == "iteration"]
+        text = cli(["benchmark-compare", out, out])
+    row = text.strip().splitlines()[1]
+    check(len(reps) == 3 and counts["month_loop"] == 4 and "*" not in row
+          and "1.00x" in row, f"benchmark-compare: {row!r}, reps {reps}")
+    say(12, f"[{card}] benchmark-google {CLI_MONTHS} {CLI_GOOGLE_PATHS}: "
+            f"reps {reps} s, {counts['month_loop']} month-loop launches; "
+            f"benchmark-compare: no significant difference ({row.split()[-1]})")
+
+    # 12f. the sweep at full size: every line parses, and it launches the
+    # ICDF and Sobol loops, the CLT, both band kernels and the law
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        records, counts = counted(lambda: sweep.main(["--device", "cuda"]))
+    wall = time.perf_counter() - t
+    lines = out.getvalue().strip().splitlines()
+    print(out.getvalue(), end="", flush=True)
+    check([json.loads(ln) for ln in lines] == records and len(records) == 9,
+          f"sweep: {len(lines)} lines")
+    check(all(counts[k] > 0 for k in SWEEP_KERNELS),
+          f"sweep: launches {counts}")
+    say(12, f"[{card}] sweep (full size) in {wall:.1f} s: {len(records)} "
+            f"lines parse; launches "
+            f"{ {SWEEP_KERNELS[k]: counts[k] for k in SWEEP_KERNELS} }; "
+            + "; ".join(f"{r['metric']} {r['value']!r} paths/s"
+                        for r in records))
 
 
 # ---------------------------------------------------------------------------
@@ -2045,6 +2276,10 @@ def main():
 
     # 11. the paths mesh at 100M x 360
     mesh_phase(card, main_results, band_results)
+
+    # 12. the user surfaces on the card: the CLI's commands, the native
+    # library and the sweep
+    surfaces_phase(card)
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],

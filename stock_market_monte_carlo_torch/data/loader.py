@@ -2,9 +2,10 @@
 
 Same contract as ``stock_market_monte_carlo_tpu.data.loader``: read the
 ``returns`` column (percent) of a ``Date,returns`` CSV, skipping empty and
-non-numeric rows. The vendored tables (the synthetic S&P 500 stand-in and
-the adversarial fixture) are the port's own copies, in this directory,
-byte for byte the JAX package's.
+non-numeric rows, through the native C++ reader where its library is
+built (``native/``), else in Python. The vendored tables (the synthetic
+S&P 500 stand-in and the adversarial fixture) are the port's own copies,
+in this directory, byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,8 +38,17 @@ def default_returns_path() -> str:
 
 def read_historical_returns(path: Optional[str] = None) -> np.ndarray:
     """The ``returns`` column of a monthly-returns CSV, float32."""
+    from stock_market_monte_carlo_torch.native import native_read_returns
+
     if path is None:
         path = default_returns_path()
+    try:
+        out = native_read_returns(path)
+    except IOError:
+        # the Python reader below raises the precise error
+        out = None
+    if out is not None and len(out):
+        return out
     values = []
     with open(path, newline="") as f:
         reader = csv.reader(f)

@@ -144,6 +144,12 @@ class HistogramSpec:
     def width(self):
         return (self.log_hi - self.log_lo) / self.n_bins
 
+    def edges(self) -> np.ndarray:
+        """Interior bin edges, length n_bins+1 (in value space)."""
+        return np.exp(
+            np.linspace(self.log_lo, self.log_hi, self.n_bins + 1)
+        )
+
 
 def prob_below_from_histogram(spec: HistogramSpec, counts: np.ndarray,
                               amount: float) -> float:

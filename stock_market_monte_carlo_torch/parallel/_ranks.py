@@ -13,7 +13,9 @@ card a rank), builds ``paths_mesh`` on ``device``, calls
 ``run_ranks`` returns those dicts in rank order. A rank that fails fails
 the call and ends the others; so does ``timeout``, which is the process
 group's timeout too, so a rank blocked in a collective whose peer died
-raises as well.
+raises as well. Each rank runs torch on one CPU thread, set before it
+imports its target: ranks spawned beside other busy processes (the test
+workers) would otherwise each start one thread per core.
 
 Gloo ranks may share one card (``device="cuda"``): the kernels run on the
 card in every rank and only the exchange goes through the host.
@@ -32,7 +34,10 @@ import numpy as np
 
 def _rank(rank, world, target, kwargs, store, backend, device, timeout,
           out_dir):
+    import torch
     import torch.distributed as dist
+
+    torch.set_num_threads(1)
 
     from stock_market_monte_carlo_torch.parallel.mesh import paths_mesh
 
@@ -55,7 +60,8 @@ def run_ranks(world, target, kwargs=None, *, device, backend="gloo",
     """[rank 0's dict, ..., rank world-1's dict] of ``target``
     (``"module:function"``) called as ``function(mesh, **kwargs)`` in
     ``world`` fresh processes, each on ``device`` (``"cuda"`` or
-    ``"cpu"``; an NCCL rank takes its own card)."""
+    ``"cpu"``; an NCCL rank takes its own card), on one torch thread
+    each."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.ops import analytic as an
 from stock_market_monte_carlo_torch.ops import reductions as red
 from stock_market_monte_carlo_tpu.ops import analytic as jan

@@ -23,6 +23,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.bench import roofline
 from stock_market_monte_carlo_torch.ops import bands as port_bands
 from stock_market_monte_carlo_torch.ops import calibration as cal

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.engine import bands as port_bands
 from stock_market_monte_carlo_torch.engine import engine as port_engine

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 import stock_market_monte_carlo_tpu as smmc
 from stock_market_monte_carlo_torch.engine import checkpoint as ckpt
@@ -230,7 +232,7 @@ def _mesh_run(world, **kw):
     1200, as TOPO_KW)."""
     return run_ranks(world, "test_torch_mesh:checkpointed_run",
                      dict(kw, n=TOPO_N, t=TOPO_T), device="cpu",
-                     timeout=240.0)
+                     timeout=60.0)
 
 
 def _single(path=None, chunk=TILE):

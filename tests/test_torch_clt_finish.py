@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 

@@ -39,7 +39,10 @@ a checkpoint. The paths mesh on the card: a 1-rank NCCL mesh in this
 process and a 2-rank gloo mesh of two child processes sharing the card,
 every case of tests/test_torch_mesh.py equal to the single-device run bit
 for bit; an NCCL mesh on the CPU and a mesh on another device than
-``options.device`` refuse.
+``options.device`` refuse. The user surfaces: the CLI's
+``benchmark-mc-gpu`` and ``benchmark-mc-reduceblock --terminal-law`` equal
+to direct runs, and the native library built with g++ equal to the
+Python reader.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -1748,3 +1751,63 @@ def test_gloo_mesh_on_one_card(cuda):
     want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
     for name in names:
         tm.check_case(name, [r[name] for r in ranks], want[name])
+
+
+# ---------------------------------------------------------------------------
+# The user surfaces on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("argv,key,opts", [
+    (["benchmark-mc-gpu", "1", "360", "20000000"], "month_loop", {}),
+    (["benchmark-mc-reduceblock", "1", "360", "20000000", "--terminal-law"],
+     "law", dict(terminal_law=True, histogram=False)),
+])
+def test_cli_runs_equal_direct_runs(cuda, capsys, monkeypatch, argv, key,
+                                    opts):
+    """The CLI on its default device launches only its kernel, and its
+    result is a direct ``run`` with the CLI's arguments bit for bit."""
+    from stock_market_monte_carlo_torch.cli.main import main
+
+    calls = []
+    real = smt.run
+    monkeypatch.setattr(smt, "run", lambda *a, **k: calls.append(
+        real(*a, **k)) or calls[-1])
+    ce.reset_launch_counts()
+    main(argv)
+    torch.cuda.synchronize()
+    counts = dict(ce.LAUNCHES)
+    assert counts == dict({k: 0 for k in counts}, **{key: 2})
+    (res,) = calls
+    direct = real(smt.HistoricalBootstrap.from_csv(), 20_000_000, 360,
+                  initial_capital=1000.0, seed=0, target_amount=1000.0,
+                  options=smt.EngineOptions(**opts))
+    assert res.moments == direct.moments
+    if direct.histogram_counts is not None:
+        np.testing.assert_array_equal(res.histogram_counts,
+                                      direct.histogram_counts)
+    out = capsys.readouterr().out
+    assert f"mean: {direct.mean:.2f} | std: {direct.std:.2f}" in out
+
+
+def test_native_build_matches_the_python_reader(cuda, tmp_path):
+    """``native.build()`` with the card machine's g++, loaded through
+    ``$SMMC_NATIVE_LIB``: the C++ reader equals the Python one."""
+    import os
+
+    from stock_market_monte_carlo_torch import native
+
+    lib = native.build(out=tmp_path / "libsmmc_native.so")
+    os.environ["SMMC_NATIVE_LIB"] = str(lib)
+    native._LIB, native._LOAD_ATTEMPTED = None, False
+    try:
+        assert native.available()
+        for path in (SYNTHETIC_CSV, HOSTILE_CSV):
+            got = native.native_read_returns(path)
+            native._LIB, native._LOAD_ATTEMPTED = None, True
+            want = read_historical_returns(path)
+            native._LIB, native._LOAD_ATTEMPTED = None, False
+            np.testing.assert_array_equal(got, want)
+    finally:
+        del os.environ["SMMC_NATIVE_LIB"]
+        native._LIB, native._LOAD_ATTEMPTED = None, False

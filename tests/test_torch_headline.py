@@ -1,6 +1,7 @@
 """The port's headline entry point (``bench/headline.py``) on the CPU: the
-rows through the plain versions at 40000 paths x 12 months, the compact
-last line, and the modules' independence from jax."""
+rows through the plain versions at 8192 paths x 12 months, the compact
+last line, and the independence from jax of the port's modules, its CLI
+and ``chip_smoke.py``."""
 
 import json
 import math
@@ -12,6 +13,8 @@ import sys
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.bench import headline
 
 ROWS = ("historical_terminal_law", "historical_terminal_law_statsonly",
@@ -21,7 +24,7 @@ ROWS = ("historical_terminal_law", "historical_terminal_law_statsonly",
 
 
 def test_headline_on_the_cpu(capsys):
-    record, compact = headline.main(["40000", "12", "--device", "cpu"])
+    record, compact = headline.main(["8192", "12", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines[-1]) < headline.LAST_LINE_MAX
     assert json.loads(lines[-1]) == compact
@@ -77,16 +80,37 @@ def test_bench_modules_leave_jax_out():
             "stock_market_monte_carlo_torch.bench.validation, "
             "stock_market_monte_carlo_torch.bench.fault_drill, "
             "stock_market_monte_carlo_torch.bench.held_outputs, "
-            "stock_market_monte_carlo_torch.data.loader; "
+            "stock_market_monte_carlo_torch.data.loader, "
+            "stock_market_monte_carlo_torch.data._synthetic, "
+            "stock_market_monte_carlo_torch.data.fetch, "
+            "stock_market_monte_carlo_torch.ops.normal, "
+            "stock_market_monte_carlo_torch.utils.io, "
+            "stock_market_monte_carlo_torch.utils.timing, "
+            "stock_market_monte_carlo_torch.native, "
+            "stock_market_monte_carlo_torch.bench.compare, "
+            "stock_market_monte_carlo_torch.bench.sweep, "
+            "stock_market_monte_carlo_torch.cli.main, "
+            "stock_market_monte_carlo_torch.cli.commands, "
+            "stock_market_monte_carlo_torch.viz.plots, "
+            "stock_market_monte_carlo_torch.viz.live, "
+            "stock_market_monte_carlo_torch.viz.live_fan, "
+            "stock_market_monte_carlo_torch.viz.gui, "
+            "stock_market_monte_carlo_torch.viz.demo, "
+            "chip_smoke; "
             "from stock_market_monte_carlo_torch.ops import analytic; "
             "analytic.clt_tail_deviation(1e-5, 0.5, 10 / 12, 12); "
+            "from stock_market_monte_carlo_torch.cli.main import main; "
+            "main(['--device', 'cpu', 'demo-vector-add', '--n', '8']); "
+            "main(['--device', 'cpu', 'benchmark-reduce-mean', '64']); "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith("
             "'stock_market_monte_carlo_tpu')))")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120, check=True, cwd=repo)
-    assert out.stdout.strip() == "[]"
+                         text=True, timeout=120, check=True, cwd=repo,
+                         env=env)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def _free_port():
@@ -115,7 +139,7 @@ def _headline_ranks(world, mesh, args=("16384", "12")):
     out = []
     try:
         for p in procs:
-            stdout, stderr = p.communicate(timeout=300)
+            stdout, stderr = p.communicate(timeout=60)
             out.append((p.returncode, stdout, stderr))
     finally:
         for p in procs:

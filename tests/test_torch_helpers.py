@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_tpu.data.loader import HOSTILE_CSV, SYNTHETIC_CSV
 from stock_market_monte_carlo_tpu.data.loader import read_historical_returns
 from stock_market_monte_carlo_tpu.ops import pallas_engine as pe

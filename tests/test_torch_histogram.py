@@ -25,6 +25,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.bench import probes, roofline
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 from stock_market_monte_carlo_torch.ops import histogram

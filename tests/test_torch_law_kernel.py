@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 from stock_market_monte_carlo_torch.ops import terminal_law as tlaw

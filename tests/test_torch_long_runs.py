@@ -13,6 +13,8 @@ import json
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.bench import fault_drill, held_outputs
 from stock_market_monte_carlo_torch.bench import validation
@@ -20,7 +22,7 @@ from stock_market_monte_carlo_torch.engine.progress import TerminalProgress
 
 
 def test_validation_on_the_cpu(capsys):
-    records = validation.main(["--device", "cpu", "--n", "65536",
+    records = validation.main(["--device", "cpu", "--n", "16384",
                                "--months", "12"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert [r["sampler"] for r in records] == list(validation.SAMPLERS)
@@ -30,7 +32,7 @@ def test_validation_on_the_cpu(capsys):
         assert line.startswith(f"[validation] {name}: ")
         assert json.loads(line.split(": ", 1)[1]) == rec
         assert rec["ok"], rec
-        assert rec["hist_mass"] == 65536
+        assert rec["hist_mass"] == 16384
         assert [q["p"] for q in rec["quantiles"]] == list(validation.PS)
         assert rec["count_held"] == (name != "clt")
     clt = records[-1]["quantiles"]
@@ -39,7 +41,9 @@ def test_validation_on_the_cpu(capsys):
     assert clt[0]["predicted"] > 0 > clt[-1]["predicted"]
 
 
-def test_fault_drill_quick_on_the_cpu(capsys):
+def test_fault_drill_quick_on_the_cpu(capsys, monkeypatch):
+    # the killed child runs torch on this worker's share of the cores
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch.get_num_threads()))
     records = fault_drill.main(["--device", "cpu", "--quick"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0] for ln in lines] == [

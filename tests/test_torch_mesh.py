@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.parallel._ranks import run_ranks
 
@@ -28,7 +30,7 @@ N = 4 * TILE + 777
 T = 6
 TARGET = 1200.0
 WORLDS = (2, 3)
-RANK_TIMEOUT = 240.0
+RANK_TIMEOUT = 60.0
 SUM_REL = 1e-6
 # the JAX package's smallest arith-stream mesh case
 # (tests/test_pallas_mesh.py::test_arith_historical_sliced_rotation_

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.data.loader import (
     HOSTILE_CSV,
     SYNTHETIC_CSV,

@@ -11,6 +11,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 from stock_market_monte_carlo_torch.parallel import (
     PathsMesh,
@@ -133,7 +135,7 @@ def rank_checks(mesh):
 @pytest.fixture(scope="module")
 def ranks():
     return run_ranks(WORLD, "test_torch_parallel:rank_checks", device="cpu",
-                     timeout=240.0)
+                     timeout=60.0)
 
 
 def test_paths_mesh_all_devices(ranks):

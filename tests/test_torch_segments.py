@@ -15,6 +15,8 @@ their relative bars.
 import numpy as np
 import pytest
 
+import torch_cpu_share  # noqa: F401
+
 import stock_market_monte_carlo_torch as smt
 import stock_market_monte_carlo_tpu as smmc
 from stock_market_monte_carlo_torch.engine import engine as port_engine

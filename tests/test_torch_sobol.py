@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.ops import normal as port_normal
 from stock_market_monte_carlo_torch.ops import sobol as ps
 from stock_market_monte_carlo_torch.ops import threefry

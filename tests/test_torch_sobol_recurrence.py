@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_share  # noqa: F401
+
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 from stock_market_monte_carlo_torch.ops import sobol
 from stock_market_monte_carlo_tpu.ops import sobol as js
