@@ -6,6 +6,8 @@ PyTorch port, on one CUDA card.
 For each path (``simulate_stats`` through the historical month loop, the
 terminal law, the Gaussian ICDF month loop, the Gaussian CLT and the Sobol
 Gaussian, Sobol historical and reference-parity historical month loops;
+the CLT prefix and the ICDF month loop under ``FixedPercentWithdrawal(0.4)``
+with the withdrawn total tracked;
 ``simulate_bands`` on the historical model in hist mode and on the
 Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
 ``torch.profiler`` (CPU and CUDA activity) over one call that ends in
@@ -53,9 +55,10 @@ def main():
                                                      N_PERIODS)
     reference = smt.HistoricalBootstrap(hist.returns_pct, rng="reference")
 
-    def stats(model, **opts):
+    def stats(model, strategy=smt.NoWithdrawal(), **opts):
         return lambda: smt.simulate_stats(model, N_PATHS, N_PERIODS,
                                           target_amount=2000.0,
+                                          strategy=strategy,
                                           options=smt.EngineOptions(**opts))
 
     def bands(model, **kw):
@@ -70,6 +73,11 @@ def main():
         "Sobol Gaussian month loop": stats(sobol_gauss),
         "Sobol historical month loop": stats(sobol_hist),
         "reference-parity month loop": stats(reference),
+        "Gaussian CLT prefix, 0.4 % a month": stats(
+            gauss, smt.FixedPercentWithdrawal(0.4),
+            gaussian_sampler="clt-prefix"),
+        "Gaussian ICDF month loop, 0.4 % a month": stats(
+            gauss, smt.FixedPercentWithdrawal(0.4)),
         "historical bands (hist)": bands(hist, band_mode="hist"),
         "Gaussian bands (cdf)": bands(gauss, band_mode="cdf"),
     }

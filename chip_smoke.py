@@ -121,6 +121,8 @@ KERNELS = {
                                  replaces=f"{_PE}:1097"),
     "law": dict(source=f"{_CSRC}/terminal_law.cu", replaces=f"{_PE}:1445"),
     "clt": dict(source=f"{_CSRC}/clt.cu", replaces=f"{_PE}:1048"),
+    # the same kernel's prefix variant (clt-prefix, its own main path)
+    "clt_prefix": dict(source=f"{_CSRC}/clt.cu", replaces=f"{_PE}:1048"),
     "bands_hist": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:249"),
     "bands_cdf": dict(source=f"{_CSRC}/bands.cu", replaces=f"{_PB}:494"),
     "grid_overhead": dict(source=f"{_CSRC}/calibration.cu",
@@ -161,6 +163,10 @@ KERNELS = {
 }
 # the record's entry of a kernel -> the launch counter it reads
 COUNTER_OF = {"histogram_index_rows": "histogram_index"}
+# a main path of phase 5 -> the launch counter of its kernel, where the
+# path's key is not the counter's
+PATH_COUNTER = {"clt_prefix": "clt",
+                "month_loop_gaussian_percent": "month_loop_gaussian"}
 # the histogram kernel's cell counts: in 48 KB of shared memory, past the
 # default 48 KB inside a block's opt-in 227 KB, past a block's shared
 # memory (the global-atomic cells)
@@ -205,11 +211,12 @@ HEADLINE_MEAN_REL = 1e-3
 # element by 2^-8 of itself, which Q spreads over the row
 MM_ROW_REL = 1e-3
 # SASS instructions (NOPs left out) of the production CLT kernels, variant
-# -> count, in the build of the commit that last changed clt.cu (the
-# wgmma product and the finish in the accumulators' layout):
+# -> count, in the builds of the commits that last changed each (plain and
+# keep-fold: the wgmma product and the finish in the accumulators' layout;
+# prefix: its finish along runs of months, on wgmma):
 # calibration.clt_production_sass, nvcc of CUDA 12.8 on the H100 machine;
 # the probe instances must leave them as they are
-CLT_SASS_PARENT = {0: 3270, 1: 3270, 2: 1872}
+CLT_SASS_PARENT = {0: 3270, 1: 3270, 2: 3561}
 # the production CLT's time in the probes' phase against phase 6's
 CLT_TIME_REL = 0.02
 # the byte planes: means within 127.5 +- 0.5, off-diagonal |corr| < 0.01
@@ -253,6 +260,12 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def clt_kernel_key(variant):
+    """The record's entry of a CLT variant: the prefix's own, the plain's
+    and the keep fold's "clt"."""
+    return "clt_prefix" if variant == "prefix" else "clt"
 
 
 def rel(a, b):
@@ -1192,7 +1205,8 @@ def main():
         for variant, sname in clt_cases.items():
             ops, kw = clt_chunk_args(variant, strategies[sname], n_periods,
                                      valid, n_paths, target, seed=5)
-            run_pair("clt", f"clt {variant} {valid}x{n_periods}",
+            run_pair(clt_kernel_key(variant),
+                     f"clt {variant} {valid}x{n_periods}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops, kw, CLT_REL)
     # the Sobol draws at 64-bit positions (index_offset 2^33 + 777, not a
     # multiple of the kernel's 8 or 16 paths a thread), under every strategy
@@ -1239,7 +1253,7 @@ def main():
             ops, kw = clt_chunk_args(
                 variant, strategies[clt_cases[variant]], MAIN_MONTHS, valid,
                 CHUNK, 2000.0, seed=0, tile0=tile0)
-            run_pair("clt",
+            run_pair(clt_kernel_key(variant),
                      f"clt {variant} main chunk tile0={tile0} valid={valid}",
                      clt.clt_chunk, clt.clt_chunk_plain, ops,
                      dict(kw, keep_finals=finals), CLT_REL, plain_kw=kw)
@@ -1249,9 +1263,11 @@ def main():
     # 4, 8 and 16 blocks a SM, binned in place (4096 cells) and by the
     # histogram kernel (102); bit for bit. The CLT at 2, 3 and 4 blocks a
     # SM: the same finals, counts and histogram. The CLT's finish against
-    # its twin (clt.finals_twin) bit for bit, where both sides' products
-    # are exact: the production variants at rows of products from 1e-6 to
-    # 8 (cs = 0), the nomm probe on the stream's rows.
+    # its twin (clt.finals_twin, clt.prefix_finish_twin) bit for bit, where
+    # both sides' products are exact: the production variants at rows of
+    # products from 1e-6 to 8 (cs = 0; the prefix under the variable
+    # schedule, and with keep 0 in one month, at 2, 3 and 4 blocks a SM),
+    # the nomm probe on the stream's rows.
     n_items = 0
     for valid in PARTIAL_ITEMS:
         for sname in ("none", "fixed_percent", "fixed_amount"):
@@ -1309,6 +1325,32 @@ def main():
         torch.cuda.synchronize()
         check(torch.equal(fk, twin), f"clt {variant}: finish differs from "
               f"its twin (max {float((fk - twin).abs().max())})")
+    keep0 = schedule.copy()
+    keep0[200] = 100.0
+    prefix_twins = 0
+    for label, sched in (("variable", schedule), ("keep 0", keep0)):
+        keep = torch.as_tensor(clt.keep_rows(
+            np.float32(1.0) - sched / np.float32(100.0), MAIN_MONTHS),
+            device=DEVICE)
+        kw = dict(_common(gauss, strategies["variable_percent"], MAIN_MONTHS,
+                          CHECK_PATHS, CHECK_PATHS, 2000.0, 0),
+                  variant="prefix", seed_base=0x11C7)
+        fw, ww = clt.prefix_finish_twin(clt.prefix_growth(
+            q, arow, zero, seed_base=0x11C7, tile0=0, rows=rows), keep,
+            1000.0)
+        wd = float((ww * np.float32(1.0 / 1000.0)).double().sum())
+        for bps in (2, 3, 4):
+            launch, outputs = clt.clt_launcher(q, arow, zero, keep, **kw,
+                                               blocks_per_sm=bps)
+            launch()
+            sk, _, fk = outputs()
+            torch.cuda.synchronize()
+            check(torch.equal(fk, fw), f"clt prefix {label} {bps} blocks a "
+                  f"SM: finish differs from its twin (max "
+                  f"{float((fk - fw).abs().max())})")
+            check(rel(float(sk[8]), wd) <= 1e-6, f"clt prefix {label} {bps}"
+                  f" blocks a SM: withdrawn {float(sk[8])} vs twin {wd}")
+            prefix_twins += 1
     from stock_market_monte_carlo_torch.bench import probes
 
     ops, kw = probes.clt_probe_case(CHECK_PATHS, DEVICE, probes.ABLATE_SEED)
@@ -1323,7 +1365,10 @@ def main():
           f"twin (max {float((fk - twin).abs().max())})")
     say("3a", f"clt finish == its twin bit for bit: plain and keep_fold "
               f"{CHECK_PATHS} x {MAIN_MONTHS} at products 1e-6 .. 8 (cs = 0), "
-              f"nomm probe {kw['valid']} x {probes.CLT_MONTHS}")
+              f"prefix the same rows under the variable schedule and with "
+              f"keep 0 in month 200 at 2, 3, 4 blocks a SM ({prefix_twins} "
+              f"launches; withdrawn within 1e-6), nomm probe {kw['valid']} x "
+              f"{probes.CLT_MONTHS}")
 
     # 3b. the band kernels against their plain versions, bit for bit: both
     # draws, with and without a percent strategy, at 2^20 x 360 and at the
@@ -1671,12 +1716,18 @@ def main():
     say(4, f"CLT golden on the card within {GOLDEN_CLT_REL} (max rel "
            f"{max(errs)!r}, total {total!r})")
 
-    # 5. the main paths, each counted on its own
+    # 5. the main paths, each counted on its own; the CLT prefix and the
+    # ICDF loop also under a fixed 0.4 % a month (the retirement planner's
+    # withdrawal, the withdrawn total tracked), whose mean is that of the
+    # keep-scaled growth
     g_hist = 1.0 + float(np.mean(hist_model.returns_pct.astype(np.float64))
                          ) / 100.0
     g_gauss = 1.0 + float(gauss.mean_pct) / 100.0
+    percent = smt.FixedPercentWithdrawal(0.4)
+    g_kept = g_gauss * float(_keep(percent, 1)[0])
     main_paths = {
-        # kernel key: (label, model, options, analytic mean)
+        # path key: (label, model, options, analytic mean growth); the key
+        # is the launch counter's but where PATH_COUNTER says otherwise
         "month_loop": ("historical month loop", hist_model, {}, g_hist),
         "law": ("terminal law", hist_model, dict(terminal_law=True), g_hist),
         "month_loop_gaussian": ("Gaussian ICDF month loop", gauss, {},
@@ -1689,12 +1740,20 @@ def main():
                                         sobol_hist, {}, g_hist),
         "month_loop_reference": ("reference-parity historical month loop",
                                  reference, {}, g_hist),
+        "clt_prefix": ("Gaussian CLT prefix, 0.4 % a month", gauss,
+                       dict(gaussian_sampler="clt-prefix"), g_kept),
+        "month_loop_gaussian_percent": (
+            "Gaussian ICDF month loop, 0.4 % a month", gauss, {}, g_kept),
     }
+    path_strategy = {"clt_prefix": percent,
+                     "month_loop_gaussian_percent": percent}
 
     def main_run(key):
         _, model, opts, _ = main_paths[key]
         return smt.simulate_stats(model, MAIN_PATHS, MAIN_MONTHS,
                                   target_amount=2000.0,
+                                  strategy=path_strategy.get(
+                                      key, smt.NoWithdrawal()),
                                   options=smt.EngineOptions(**opts))
 
     launches = {}
@@ -1704,8 +1763,9 @@ def main():
         res = main_results[key] = main_run(key)
         torch.cuda.synchronize()
         counts = dict(ce.LAUNCHES)
-        launches[key] = counts[key]
-        want = dict({k: 0 for k in counts}, **{key: n_chunks})
+        counter = PATH_COUNTER.get(key, key)
+        launches[key] = counts[counter]
+        want = dict({k: 0 for k in counts}, **{counter: n_chunks})
         check(counts == want, f"{label}: launches {counts}")
         check(res.moments.n == MAIN_PATHS, f"{label}: n {res.moments.n}")
         mass = float(res.histogram_counts.sum())
@@ -1714,7 +1774,8 @@ def main():
         dev = abs(res.mean / analytic - 1.0)
         check(np.isfinite(res.mean) and dev < 1e-3,
               f"{label}: mean {res.mean} vs analytic {analytic}")
-        say(5, f"{label} 100M x 360: {counts[key]} launches of {key}, mass "
+        say(5, f"{label} 100M x 360: {counts[counter]} launches of "
+               f"{counter}, mass "
                f"{MAIN_PATHS}, mean {res.mean!r} (analytic {analytic!r}, "
                f"rel dev {dev:.2e}), std {res.std!r}, count_below "
                f"{res.count_below}")
@@ -1901,6 +1962,12 @@ def main():
         wall, reps = walls[key] = wall_median(lambda: main_run(key))
         say(6, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
                f"{reps}")
+    prefix_wall = walls["clt_prefix"][0]
+    icdf_wall = walls["month_loop_gaussian_percent"][0]
+    say(6, f"[{card}] wall 100M x 360 GaussianReturns() under "
+           f"FixedPercentWithdrawal(0.4), withdrawn tracked: clt-prefix "
+           f"{prefix_wall!r} s, ICDF month loop {icdf_wall!r} s (ratio "
+           f"{prefix_wall / icdf_wall!r})")
     wall, reps = wall_median(big_hist_run)
     say(6, f"[{card}] wall 100M x 360 historical month loop, {BIG_BINS} "
            f"bins: median {wall!r} s of {reps} (4094 bins: "

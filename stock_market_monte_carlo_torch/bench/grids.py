@@ -10,7 +10,8 @@ each launcher's grid (``blocks_per_sm`` of
 One 2^24-path chunk at 360 months with ``chip_smoke.py``'s phase-6
 operands (its ``month_chunk_args``, ``clt_chunk_args`` and
 ``law_chunk_args``: seed 0, target 2000, 4096 histogram cells, no
-withdrawal; the CLT also under the keep fold). Each kernel runs its
+withdrawal; the CLT also under the keep fold and the prefix, at a fixed
+0.4 % a month). Each kernel runs its
 settings in order, then in reverse; each arm is the median of 3
 measurements of CUDA events around 5 bare launches
 (``headline.events_ms``). Prints the card's name and power limit, then one
@@ -47,7 +48,8 @@ def cases():
     out = {"month_loop": (ce.month_loop_launcher, ops, kw,
                           MONTH_LOOP_BLOCKS)}
     for variant, strategy in (("plain", none),
-                              ("keep_fold", smt.FixedPercentWithdrawal(0.4))):
+                              ("keep_fold", smt.FixedPercentWithdrawal(0.4)),
+                              ("prefix", smt.FixedPercentWithdrawal(0.4))):
         ops, kw = cs.clt_chunk_args(variant, strategy, MONTHS, CHUNK, CHUNK,
                                     TARGET, seed=0)
         out["clt" if variant == "plain" else f"clt_{variant}"] = (

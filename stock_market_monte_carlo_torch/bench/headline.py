@@ -186,11 +186,15 @@ def analytic_means(models, n_periods):
             "gaussian": V0 * a ** n_periods}
 
 
-def time_row(model, options, n_paths, n_periods, reps, mesh=None):
+def time_row(model, options, n_paths, n_periods, reps, mesh=None,
+             strategy=None):
     """(median s, every rep's s, the last result) of ``simulate_stats``
-    after one warm-up call at the full run shape."""
+    (under ``strategy``, default none) after one warm-up call at the full
+    run shape."""
     dev = torch.device(options.device)
     kw = dict(target_amount=TARGET, options=options, mesh=mesh)
+    if strategy is not None:
+        kw["strategy"] = strategy
     smt.simulate_stats(model, n_paths, n_periods, seed=WARM_SEED, **kw)
     times, res = [], None
     for _ in range(reps):

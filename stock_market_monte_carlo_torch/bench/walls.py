@@ -11,7 +11,11 @@ then N calls (default 15), each timed with the host clock around the call
 and a ``torch.cuda.synchronize()`` (seed 7, target 2000, the default 4096
 histogram cells). NAME picks paths (default: all): ``law`` (the historical
 terminal law, the headline's row), ``law_statsonly`` (no histogram),
-``historical``, ``gaussian_icdf`` and ``clt``; and ``simulate_bands`` as
+``historical``, ``gaussian_icdf`` and ``clt``; ``clt_prefix`` (the CLT
+prefix kernel, ``gaussian_sampler="clt-prefix"``) and
+``gaussian_icdf_percent`` (the ICDF month loop) under
+``FixedPercentWithdrawal(0.4)`` with the withdrawn total tracked, as
+``chip_smoke.py`` phase 5 runs them; and ``simulate_bands`` as
 ``chip_smoke.py`` phase 5b runs it (3 levels, 32 sample paths, timed
 alike): ``bands_hist`` (historical, 1024 bins) and ``bands_cdf``
 (Gaussian, 32 thresholds). Prints the card's name and power limit, then
@@ -33,13 +37,18 @@ from stock_market_monte_carlo_torch.bench import headline
 
 N_PATHS = 100_000_000
 N_PERIODS = 360
+PERCENT = 0.4
 PATHS = {
-    "law": ("historical", dict(terminal_law=True)),
+    # name: (model kind, options, percent withdrawn a month or None)
+    "law": ("historical", dict(terminal_law=True), None),
     "law_statsonly": ("historical", dict(terminal_law=True,
-                                         histogram=False)),
-    "historical": ("historical", {}),
-    "gaussian_icdf": ("gaussian", {}),
-    "clt": ("gaussian", dict(gaussian_sampler="clt")),
+                                         histogram=False), None),
+    "historical": ("historical", {}, None),
+    "gaussian_icdf": ("gaussian", {}, None),
+    "clt": ("gaussian", dict(gaussian_sampler="clt"), None),
+    "clt_prefix": ("gaussian", dict(gaussian_sampler="clt-prefix"),
+                   PERCENT),
+    "gaussian_icdf_percent": ("gaussian", {}, PERCENT),
 }
 BANDS = {
     "bands_hist": ("historical", dict(band_mode="hist", n_bins=1024)),
@@ -79,12 +88,13 @@ def main(argv=None):
     models = {"historical": smt.HistoricalBootstrap.from_csv(),
               "gaussian": smt.GaussianReturns()}
     out = {}
-    for name, (kind, opts) in PATHS.items():
+    for name, (kind, opts, percent) in PATHS.items():
         if args.names and name not in args.names:
             continue
         med, times, _ = headline.time_row(
             models[kind], smt.EngineOptions(**opts), N_PATHS, N_PERIODS,
-            args.reps)
+            args.reps, strategy=None if percent is None
+            else smt.FixedPercentWithdrawal(percent))
         out[name] = dict(median_s=med, rep_times_s=times)
     for name, (kind, kw) in BANDS.items():
         if args.names and name not in args.names:

@@ -31,17 +31,18 @@
 // What the design does about it:
 // - A block is one warpgroup (4 warps) over 64 paths; each warp owns a
 //   16-path strip and all 128 columns.
-// - The product runs on the tensor cores. Plain and keep-fold (and the
-//   probes): wgmma m64n128k16, bf16 in, float32 accumulate, 8 k-steps a
-//   block of months for the warpgroup. A comes from registers: each thread
+// - The product runs on the tensor cores, in every variant and probe:
+//   wgmma m64n128k16, bf16 in, float32 accumulate, 8 k-steps a block of
+//   months for the warpgroup. A comes from registers: each thread
 //   builds its fragments (the counts of its two rows, eight months a
 //   k-step; the m16n8k16 A layout, which wgmma's shares for each warp's 16
 //   rows) straight from the hash, so the count tile never touches memory;
 //   k-step ks+1's are hashed and packed while ks runs (two register
 //   buffers, wait_group 1). B is Q, staged once a block in shared memory in
 //   wgmma's K-major layout without swizzle (32 KB), read through a matrix
-//   descriptor. The prefix variant keeps mma.sync m16n8k16 with Q in
-//   B-fragment order (one 8-byte load an mma): on wgmma it was 11 % slower
+//   descriptor. The prefix variant stages Q's columns permuted
+//   (prefix_column), so that its finish runs along months in registers
+//   (below); on mma.sync m16n8k16 the same finish was 35-55 % slower
 //   (PERF.md).
 // - The accumulators come out in a known (row, column) layout, so the
 //   affine growth and the running product over blocks stay in registers.
@@ -50,12 +51,20 @@
 //   column order, two xor shuffles add the quad's four partial sums, and
 //   lanes tig 0 and 1 of the quad finish the two rows (exp, statistics,
 //   histogram): no shared-memory tile and no barrier. The prefix variant
-//   finishes through a padded shared-memory tile, one thread a row, column
-//   by column (the exclusive prefix and the withdrawn total).
+//   finishes each block of months there too (prefix_block): in each part
+//   of 32 months of a row a lane holds a run of 8 consecutive months,
+//   sums their logs in order (its running prefix), the quad scans the four
+//   lanes' sums with three shuffles, and every lane takes the exps of its
+//   own prefixes and the withdrawn terms; two xor shuffles add the quad's
+//   withdrawn sums, one shuffle brings month 127's factor to the carry.
+//   No shared tile and no barrier in the block loop; 2 blocks a SM
+//   (clt._PREFIX_BLOCKS_PER_SM). Its log is log_normal (smmc_common.cuh),
+//   logf's steps without the branches the clamp at 1e-37 rules out: the
+//   same bits as logf, ~6 instructions fewer a month.
 // - Built with -fmad=false: the affine step, the prefix and the moments
 //   round as the plain version does; the product's accumulation order and
-//   the finish's sum order (clt.finish_sum_twin) differ from it, hence the
-//   relative bars.
+//   the finish's sum and prefix order (clt.finish_sum_twin,
+//   clt.prefix_finish_twin) differ from it, hence the relative bars.
 //
 // Probe instances (smmc_clt_probe, the plain variant only; smmc_clt never
 // instantiates them, so its kernels do not move) port two experiments:
@@ -89,10 +98,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;      // paths per CUDA block
 constexpr int kKSteps = kK / 16;        // k-steps of m16n8k16
 constexpr int kNTiles = kK / 8;         // 8-column output tiles
-constexpr int kStride = kK + 1;         // padded row of the shared tile
 constexpr int kQFrags = kKSteps * kNTiles * 32;  // B fragments (uint2)
 
 enum Variant { kPlain = 0, kKeepFold = 1, kPrefix = 2 };
+// the prefix variant: months a lane runs through in order before its quad
+// scans the lanes' sums (a part of 4 kRun months of a row; clt.PREFIX_RUN),
+// and the accumulator tiles that hold one run
+constexpr int kRun = 8;
+constexpr int kRunTiles = kRun / 2;
+constexpr int kParts = kK / (4 * kRun);
 // kNone: the production kernel (smmc_clt); the rest: probe instances
 enum Ablate { kNone = 0, kBase = 1, kNoHist = 2, kNoLogExp = 3, kNoDraw = 4,
               kNoMM = 5 };
@@ -134,17 +148,30 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], uint32_t h,
   a[3] = pack2(count_bf16(h, pos_hi + m + 8), count_bf16(h, pos_hi + m + 9));
 }
 
+// The month that the prefix variant's accumulator column n holds: lane
+// tig's columns nt*8 + 2 tig + e of part P = nt / kRunTiles hold months
+// 4 kRun P + kRun tig + 2 (nt % kRunTiles) + e, so in each part a lane
+// holds a run of kRun consecutive months of each of its rows.
+__device__ __forceinline__ int prefix_column(int n) {
+  const int nt = n >> 3;
+  return 4 * kRun * (nt / kRunTiles) + kRun * ((n >> 1) & 3) +
+         2 * (nt % kRunTiles) + (n & 1);
+}
+
 // Q (bf16 bits, [k in][n out]) into s_q in wgmma's K-major layout without
 // swizzle: the 8x8 core matrix of months 8kc.. and columns 8ng.. at
 // element (kc * 16 + ng) * 64, column n's 8 months as one 16-byte row. A
 // k-step's B (months 16ks..16ks+15) then starts at byte 4096 ks, its two
-// core matrices along K 2048 bytes apart (LBO), along N 128 (SBO). Every
-// thread takes part; the caller fences and synchronises.
+// core matrices along K 2048 bytes apart (LBO), along N 128 (SBO). With
+// PERMUTE, column n is Q's column prefix_column(n). Every thread takes
+// part; the caller fences and synchronises.
+template <bool PERMUTE>
 __device__ __forceinline__ void stage_q(const unsigned short* q,
                                         unsigned short* s_q) {
   for (int i = threadIdx.x; i < (kK / 8) * kK; i += blockDim.x) {
     const int n = i % kK, kc = i / kK;
-    const unsigned short* col = q + kc * 8 * kK + n;
+    const unsigned short* col =
+        q + kc * 8 * kK + (PERMUTE ? prefix_column(n) : n);
     *reinterpret_cast<uint4*>(s_q + (kc * 16 + n / 8) * 64 + (n % 8) * 8) =
         make_uint4(pack2(col[0], col[kK]), pack2(col[2 * kK], col[3 * kK]),
                    pack2(col[4 * kK], col[5 * kK]),
@@ -217,12 +244,88 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kNTiles][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// Dynamic shared memory of one block: Q (B fragments for mma.sync, or the
-// wgmma layout; 32 KB either way), the histogram, and the prefix variant's
-// padded row tile.
-size_t smem_bytes(int variant, const Args& g) {
-  return kQFrags * sizeof(uint2) + (g.hist ? g.hb * sizeof(int) : 0) +
-         (variant == kPrefix ? kRows * kStride * sizeof(float) : 0);
+// Dynamic shared memory of one block: Q in the wgmma layout (32 KB) and
+// the histogram.
+size_t smem_bytes(const Args& g) {
+  return kQFrags * sizeof(uint2) + (g.hist ? g.hb * sizeof(int) : 0);
+}
+
+// One block of months of the prefix variant, finished in the accumulators'
+// layout. Q's columns are staged permuted (prefix_column): in part P of a
+// row (months 4 kRun P ..), lane tig of a quad holds the run of months
+// 4 kRun P + kRun tig + i, i = 0 .. kRun-1, of rows r_lo (acc[nt][0..1])
+// and r_lo + 8 (acc[nt][2..3]). Per row and part: the lane's running sum
+// of y = log(max(g*keep, 1e-37)) over its run, in order from 0; the quad's
+// exclusive scan of the four lanes' sums r (0, r0, r0 + r1,
+// r0 + (r1 + r2)) added to the row's prefix before the part; a month's
+// exclusive prefix is that plus the lane's running sum before it; the
+// part's total ((r0 + r1) + (r2 + r3)) then joins the row's prefix. Each
+// lane adds its terms excl*g*(1-keep) in its column order; the quad adds its
+// four sums as (s0 + s1) + (s2 + s3). Every lane keeps each row's carry
+// and withdrawn sum (the same values). g*keep is finite (the mix's z is
+// bounded) and the clamp keeps it at 1e-37 or more: log_normal's domain.
+// CPU twin: clt.prefix_finish_twin.
+__device__ __forceinline__ void prefix_block(float (&acc)[kNTiles][4],
+                                             const float* ar, const float* cr,
+                                             const float* kr, int tig,
+                                             float v0, float (&carry)[2],
+                                             float (&wsum)[2]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  float pre[2] = {0.0f, 0.0f};  // each row's prefix before the part
+  float s[2] = {0.0f, 0.0f};
+  float last[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int part = 0; part < kParts; ++part) {
+    const int m0 = 4 * kRun * part + kRun * tig;
+    float run[kRunTiles][4];  // the lane's sum of y before each month
+    float r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < kRunTiles; ++q) {
+      const int nt = part * kRunTiles + q;
+      const float2 a = __ldg(reinterpret_cast<const float2*>(ar + m0 + 2 * q));
+      const float2 c = __ldg(reinterpret_cast<const float2*>(cr + m0 + 2 * q));
+      const float2 k = __ldg(reinterpret_cast<const float2*>(kr + m0 + 2 * q));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[nt][e] = (e & 1 ? a.y : a.x) + acc[nt][e] * (e & 1 ? c.y : c.x);
+        const float gk = acc[nt][e] * (e & 1 ? k.y : k.x);
+        run[q][e] = r[e >> 1];
+        r[e >> 1] = r[e >> 1] + log_normal(fmaxf(gk, F(1e-37)));
+      }
+    }
+    float base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float u = __shfl_up_sync(kAll, r[h], 1, 4);
+      const float s1 = tig >= 1 ? u + r[h] : r[h];
+      u = __shfl_up_sync(kAll, s1, 2, 4);
+      const float incl = tig >= 2 ? u + s1 : s1;
+      u = __shfl_up_sync(kAll, incl, 1, 4);
+      base[h] = pre[h] + (tig >= 1 ? u : 0.0f);
+      pre[h] = pre[h] + __shfl_sync(kAll, incl, 3, 4);
+    }
+#pragma unroll
+    for (int q = 0; q < kRunTiles; ++q) {
+      const int nt = part * kRunTiles + q;
+      const float2 k = __ldg(reinterpret_cast<const float2*>(kr + m0 + 2 * q));
+      const float omk0 = 1.0f - k.x, omk1 = 1.0f - k.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(base[e >> 1] + run[q][e]);
+        s[e >> 1] = s[e >> 1] + x * acc[nt][e] * (e & 1 ? omk1 : omk0);
+        if (nt == kNTiles - 1 && (e & 1))  // month 127 at tig 3
+          last[e >> 1] = x * (acc[nt][e] * k.y);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] = s[h] + __shfl_xor_sync(kAll, s[h], 1);
+    s[h] = s[h] + __shfl_xor_sync(kAll, s[h], 2);
+    last[h] = __shfl_sync(kAll, last[h], 3, 4);
+    wsum[h] = wsum[h] + (v0 * carry[h]) * s[h];
+    carry[h] = carry[h] * last[h];
+  }
 }
 
 // Fragment layouts: smmc_common.cuh (mma_16x8x16).
@@ -232,19 +335,11 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   unsigned short* s_q = reinterpret_cast<unsigned short*>(smem);
   int* s_hist = reinterpret_cast<int*>(smem + kQFrags * sizeof(uint2));
   const bool with_hist = g.hist != nullptr && ABLATE != kNoHist;
-  float* s_tile = reinterpret_cast<float*>(s_hist + (g.hist ? g.hb : 0));
 
-  // the product on wgmma, but for the prefix variant, which is faster on
-  // mma.sync (PERF.md)
-  constexpr bool kWgmma = VARIANT != kPrefix;
   if (ABLATE != kNoMM) {
-    if constexpr (kWgmma) {
-      stage_q(g.q, s_q);
-      // the generic proxy's stores, before wgmma reads them
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    } else {
-      stage_mix_frags(g.q, reinterpret_cast<uint2*>(s_q));
-    }
+    stage_q<VARIANT == kPrefix>(g.q, s_q);
+    // the generic proxy's stores, before wgmma reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   if (with_hist)
     for (int i = threadIdx.x; i < g.hb; i += blockDim.x) s_hist[i] = 0;
@@ -254,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int r_lo = (threadIdx.x >> 5) * 16 + gid;  // rows r_lo and r_lo + 8
-  const uint64_t desc = kWgmma ? q_descriptor(s_q) : 0;
+  const uint64_t desc = q_descriptor(s_q);
   Stats st;
   const int n_groups = (g.valid + kRows - 1) / kRows;
   int grp_begin = blockIdx.x, grp_end = n_groups, grp_step = gridDim.x;
@@ -281,7 +376,8 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
     for (int nt = 0; nt < kNTiles; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) prod[nt][e] = 1.0f;
-    float carry = 1.0f, wsum = 0.0f;
+    float wsum = 0.0f;
+    float carry[2] = {1.0f, 1.0f}, wrow[2] = {0.0f, 0.0f};  // prefix rows
     if (ABLATE == kNoDraw) {
       // the one draw (key 0), packed once for all blocks
       const uint32_t h0 = tile_seed(seed, 0u);
@@ -302,7 +398,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
                                  tig * 2 + (e & 1);
             acc[nt][e] = (float)(arith_word(h, pos) >> 16) * F(0.001953125);
           }
-      } else if constexpr (kWgmma) {
+      } else {
         // eight k-steps of the warpgroup's 64 x 128 product: k-step ks+1's
         // A is hashed and packed while ks runs (double-buffered registers)
         uint32_t a[2][4];
@@ -321,69 +417,32 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
         }
         wgmma_wait<0>();
         fence_operands(acc);
-      } else {
-        const uint2* s_frag = reinterpret_cast<const uint2*>(s_q);
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-#pragma unroll
-        for (int ks = 0; ks < kKSteps; ++ks) {
-          uint32_t a[4];
-          if (ABLATE == kNoDraw) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) a[r] = a_keep[ks][r];
-          } else {
-            pack_a(a, h, pos_lo, pos_hi, ks, tig);
-          }
-#pragma unroll
-          for (int nt = 0; nt < kNTiles; ++nt)
-            mma_16x8x16(acc[nt], a, s_frag[(ks * kNTiles + nt) * 32 + lane]);
-        }
       }
       const float* ar = g.arow + j * kK;
       const float* cr = g.cs + j * kK;
+      if constexpr (VARIANT == kPrefix) {
+        prefix_block(acc, ar, cr, g.keep + j * kK, tig, g.v0, carry, wrow);
+      } else {
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt)
+        for (int nt = 0; nt < kNTiles; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + tig * 2 + (e & 1);
-          const float gr = __ldg(ar + col) + acc[nt][e] * __ldg(cr + col);
-          if (VARIANT == kPrefix)
-            s_tile[(r_lo + (e >> 1) * 8) * kStride + col] = gr;
-          else
+          for (int e = 0; e < 4; ++e) {
+            const int col = nt * 8 + tig * 2 + (e & 1);
+            const float gr = __ldg(ar + col) + acc[nt][e] * __ldg(cr + col);
             prod[nt][e] = prod[nt][e] * gr;
-        }
-      if (VARIANT == kPrefix) {
-        __syncthreads();
-        if (threadIdx.x < kRows) {
-          const float* row = s_tile + threadIdx.x * kStride;
-          const float* kr = g.keep + j * kK;
-          float run = 0.0f, s = 0.0f, last = 0.0f;
-          for (int c = 0; c < kK; ++c) {
-            const float gr = row[c];
-            const float k = __ldg(kr + c);
-            const float gk = gr * k;
-            const float excl = expf(run);
-            s = s + excl * gr * (1.0f - k);
-            if (c == kK - 1) last = excl * gk;
-            run = run + logf(fmaxf(gk, F(1e-37)));
           }
-          wsum = wsum + (g.v0 * carry) * s;
-          carry = carry * last;
-        }
-        __syncthreads();
       }
     }
 
-    // the finish: thread threadIdx.x finishes row threadIdx.x (prefix), or
-    // lane tig < 2 of each quad row r_lo + 8 tig, from the sum over its
+    // the finish: lane tig < 2 of each quad finishes row r_lo + 8 tig: from
+    // the row's carry and withdrawn sum (prefix), or from the sum over its
     // quad of each thread's columns of that row
-    int r = threadIdx.x;
-    bool row_thread = threadIdx.x < kRows;
+    const int r = r_lo + 8 * tig;
+    const bool row_thread = tig < 2;
     float total = 0.0f;
     if (VARIANT == kPrefix) {
-      total = g.v0 * carry;
+      total = g.v0 * (tig == 0 ? carry[0] : carry[1]);
+      wsum = tig == 0 ? wrow[0] : wrow[1];
     } else {
       // each row's own columns nt*8 + 2 tig + (e & 1) in order, then the
       // quad's four partial sums as (p0 + p1) + (p2 + p3)
@@ -399,8 +458,6 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
         s[0] = s[0] + __shfl_xor_sync(0xffffffffu, s[0], o);
         s[1] = s[1] + __shfl_xor_sync(0xffffffffu, s[1], o);
       }
-      r = r_lo + 8 * tig;
-      row_thread = tig < 2;
       const float sum = tig == 0 ? s[0] : s[1];
       total = ABLATE == kNoLogExp ? (g.v0 * sum) * F(0.0078125)
                                   : g.v0 * expf(sum);
@@ -422,7 +479,7 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
 
 template <int VARIANT, int ABLATE = kNone>
 cudaError_t launch(const Args& g, int n_blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(VARIANT, g);
+  const size_t smem = smem_bytes(g);
   cudaError_t err = cudaFuncSetAttribute(
       clt_kernel<VARIANT, ABLATE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -699,17 +699,21 @@ def simulate_stats(
 
         # the stream tag: the port (its chunk sums run in another order than
         # the JAX package's, so their checkpoints never mix), the effective
-        # sampler, and the histogram and segment tags (a checkpoint of a
-        # histogram run must not resume into a run without one, nor across
-        # seed_segment_paths). Neither the chunk size nor the ranks: every
-        # chunk row is merged in global chunk order on any topology
+        # sampler (the prefix sampler with its kernel's finish order, which
+        # rounds the withdrawn sums), and the histogram and segment tags (a
+        # checkpoint of a histogram run must not resume into a run without
+        # one, nor across seed_segment_paths). Neither the chunk size nor
+        # the ranks: every chunk row is merged in global chunk order on any
+        # topology
+        sampler = _effective_sampler(model, strategy, options)
+        if sampler == "clt-prefix":
+            sampler = f"{sampler}-{clt.PREFIX_FINISH}"
         hist_tag = "" if options.histogram else "/nohist"
         seg_tag = f"/seg{seg_paths}" if segmented else ""
         fingerprint = ckpt.config_fingerprint(
             model, strategy, n_paths, n_periods, initial_capital, seed,
             target_amount, spec,
-            f"torch/streams3/{_effective_sampler(model, strategy, options)}"
-            f"{hist_tag}{seg_tag}",
+            f"torch/streams3/{sampler}{hist_tag}{seg_tag}",
         )
         state = ckpt.load(checkpoint_path, fingerprint)
         if state is not None:

@@ -28,8 +28,10 @@ Three variants (``VARIANTS``), as the engine routes them:
   folded into ``arow`` and ``cs`` (finals exact, withdrawn not tracked);
 - ``prefix``: the percent strategy with the withdrawn total, by a
   log-space exclusive prefix along each 128-month row. The JAX kernel
-  takes it as a strictly-lower-triangular matrix product; here it is a
-  running sum along the row (the same function, within the bars).
+  takes it as a strictly-lower-triangular matrix product; the plain
+  version as a running sum along the row, the CUDA kernel as running
+  sums over each lane's runs of months and scans over the quad of lanes
+  (``prefix_finish_twin``): the same function, within the bars.
 
 ``clt_chunk`` takes its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. Launches count under
@@ -66,6 +68,13 @@ CLT_P_STRATEGY = 2048   # paths per tile with the prefix strategy
 CLT_K = 128             # months per block = mixing dimension
 CLT_STREAM_XOR = 0x11C7  # the CLT stream family
 VARIANTS = {"plain": 0, "keep_fold": 1, "prefix": 2}
+# the prefix kernel's months a lane sums in order before its quad's scan
+# (``csrc/clt.cu`` kRun)
+PREFIX_RUN = 8
+# the prefix kernel's finish order (``prefix_scan_twin``), in the
+# checkpoint tag of the clt-prefix sampler: a checkpoint of another order
+# rounds its withdrawn sums otherwise and is refused
+PREFIX_FINISH = "quadscan"
 ABLATIONS = {"base": 1, "nohist": 2, "nologexp": 3, "nodraw": 4, "nomm": 5}
 # exp_clt_ts2.py's TS = 2 and its neighbours; 0 is clt_chunk's geometry
 GROUPINGS = (0, 1, 2, 4)
@@ -81,6 +90,9 @@ _ROWS = 64              # paths per CUDA block (csrc/clt.cu kRows)
 # at most 4 blocks a SM (2 are resident at the kernel's registers): 1 %
 # faster than 2, and 3 leaves a wave partly idle (PERF.md)
 _BLOCKS_PER_SM = 4
+# the prefix variant: 2 blocks a SM, level with 3 (both resident at its
+# registers) and 1.18x faster than 4 (PERF.md)
+_PREFIX_BLOCKS_PER_SM = 2
 _SLAB = 1 << 18         # paths per slab of the plain version
 
 
@@ -192,6 +204,14 @@ def row_products(q, arow, cs, *, seed_base, tile0, rows, p_tile=CLT_P,
                        rows, p_tile, ablate), rows.numel(), q.device)
 
 
+def prefix_growth(q, arow, cs, *, seed_base, tile0, rows):
+    """Each block's (len(rows), 128) float32 growth of the chunk-local
+    paths ``rows`` in the prefix variant's stream tiles, in block order
+    (the rows ``prefix_finish_twin`` finishes)."""
+    return _growth_blocks(q.to(torch.float32), arow, cs, seed_base, tile0,
+                          rows, CLT_P_STRATEGY)
+
+
 def finish_sum_twin(terms):
     """Each row's sum of the (paths, 128) float32 ``terms`` in the order of
     ``csrc/clt.cu``'s finish (plain, keep-fold and the probes): lane tig of
@@ -217,6 +237,75 @@ def finals_twin(prod, v0, ablate="base"):
     if ablate == "nologexp":
         return (v0f * finish_sum_twin(prod)) * (1.0 / CLT_K)
     return v0f * torch.exp(finish_sum_twin(torch.log(prod)))
+
+
+def _prefix_columns():
+    """The month each accumulator column of the prefix kernel holds (its
+    staged Q's column order, ``csrc/clt.cu`` ``prefix_column``): lane t of
+    a quad holds columns 8nt + 2t + e; in part P = nt // (R / 2) they hold
+    months 4 R P + R t + 2 (nt % (R / 2)) + e, R = ``PREFIX_RUN``."""
+    run = PREFIX_RUN
+    n = np.arange(CLT_K)
+    nt = n >> 3
+    return torch.as_tensor(4 * run * (nt // (run // 2)) + run * ((n >> 1) & 3)
+                           + 2 * (nt % (run // 2)) + (n & 1))
+
+
+def prefix_scan_twin(y):
+    """(paths, 128) exclusive prefix sums along each row of ``y`` (month
+    order) in the order of ``csrc/clt.cu``'s ``prefix_block``, in parts of
+    4 R months, R = ``PREFIX_RUN``: lane t of a quad holds the part's
+    months R t .. R t + R - 1 and sums them in order from 0 (r_t its
+    total); the quad's exclusive scan of the totals 0, r0, r0 + r1,
+    r0 + (r1 + r2) is added to the row's prefix before the part, which
+    then adds the part's (r0 + r1) + (r2 + r3); a month takes its lane's
+    base plus the lane's sum before it."""
+    run = PREFIX_RUN
+    n = y.shape[0]
+    lanes = y.reshape(n, CLT_K // (4 * run), 4, run)
+    before = torch.empty_like(lanes)
+    r = torch.zeros_like(lanes[..., 0])
+    for i in range(run):
+        before[..., i] = r
+        r = r + lanes[..., i]
+    s1 = torch.cat([r[..., :1], r[..., :-1] + r[..., 1:]], -1)
+    incl = torch.cat([s1[..., :2], s1[..., :-2] + s1[..., 2:]], -1)
+    scan = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :3]], -1)
+    base = torch.empty_like(scan)
+    pre = torch.zeros_like(r[:, 0, 0])
+    for part in range(lanes.shape[1]):
+        base[:, part] = pre[:, None] + scan[:, part]
+        pre = pre + incl[:, part, 3]
+    return (base[..., None] + before).reshape(n, CLT_K)
+
+
+def prefix_finish_twin(blocks, keep, v0):
+    """(finals, withdrawn) of the prefix variant as the kernel finishes its
+    growth rows: ``blocks`` yields each block's (paths, 128) float32 growth
+    in block order (``prefix_growth``), ``keep`` holds the (nblocks, 128)
+    keep rows. Per block, y = log(max(g*keep, 1e-37)), excl = exp of
+    ``prefix_scan_twin(y)``, the withdrawn sum of (excl*g)*(1-keep), each
+    lane's months in its column order, then (s0 + s1) + (s2 + s3)
+    (``finish_sum_twin`` over the kernel's column order), and the carry
+    times excl*g*keep of month 127. The plain version takes the prefix and
+    the sum month by month; the two differ in the last bits of each
+    prefix."""
+    v0f = ce._f32(v0)
+    gk_floor = ce._f32(1e-37)
+    cols = None
+    carry = wsum = None
+    for j, g in enumerate(blocks):
+        if carry is None:
+            cols = _prefix_columns().to(g.device)
+            carry = torch.ones_like(g[:, 0])
+            wsum = torch.zeros_like(carry)
+        gk = g * keep[j]
+        excl = torch.exp(prefix_scan_twin(
+            torch.log(torch.clamp_min(gk, gk_floor))))
+        s = finish_sum_twin(((excl * g) * (1.0 - keep[j]))[:, cols])
+        wsum = wsum + (v0f * carry) * s
+        carry = carry * (excl[:, CLT_K - 1] * gk[:, CLT_K - 1])
+    return v0f * carry, wsum
 
 
 def clt_chunk_plain(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
@@ -284,11 +373,15 @@ def _finals_plain(q, arow, cs, keep, *, variant, seed_base, tile0, n_paths,
 
 def clt_launcher(q, arow, cs, keep, *, variant, seed_base, tile0, valid,
                  n_paths, v0, target, shift, lo, log_lo, inv_w, hb,
-                 with_hist, keep_finals, blocks_per_sm=_BLOCKS_PER_SM):
+                 with_hist, keep_finals, blocks_per_sm=None):
     """Checked inputs of one CLT chunk on a CUDA device -> ``(launch,
     outputs)`` (``cuda_engine._prepare``); ``launch()`` is the bare kernel,
     uncounted. ``blocks_per_sm`` caps the grid (the blocks stride over the
-    64-path groups); the results do not depend on it."""
+    64-path groups; default the variant's own); the results do not depend
+    on it."""
+    if blocks_per_sm is None:
+        blocks_per_sm = (_PREFIX_BLOCKS_PER_SM if variant == "prefix"
+                         else _BLOCKS_PER_SM)
     dev = q.device
     ce._check_chunk(dev, "CLT", valid, n_paths)
     ce._check(q, "q", dev, CLT_K * CLT_K, torch.bfloat16)

@@ -198,6 +198,42 @@ def test_clt_falling_back_to_icdf_shares_the_icdf_fingerprint(tmp_path):
                            options=clt)
 
 
+def test_clt_prefix_checkpoint_of_another_finish_refuses(tmp_path,
+                                                       monkeypatch):
+    """The clt-prefix sampler's stream tag names the kernel's finish order:
+    a checkpoint under the tag without it (the column-by-column finish
+    before the quad scan) refuses, the same state under the current tag
+    resumes; the other samplers' tags carry no such marker."""
+    opts = smt.EngineOptions(gaussian_sampler="clt-prefix", **CPU)
+    strategy = smt.FixedPercentWithdrawal(0.4)
+    n, t = 3 * TILE, 12
+    kw = dict(seed=2, target_amount=1100.0, strategy=strategy, options=opts)
+    path = str(tmp_path / "prefix.npz")
+    seen = []
+    real = ckpt.config_fingerprint
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(ckpt, "config_fingerprint", spy)
+    _interrupted(GAUSS, n, t, path, 1, **kw)
+    assert seen[0][-1] == "torch/streams3/clt-prefix-quadscan"
+    state = ckpt.load(path, _fingerprint(path))
+    ckpt.save(path, dataclasses.replace(
+        state, fingerprint=real(*seen[0][:-1], "torch/streams3/clt-prefix")))
+    with pytest.raises(ValueError, match="different run"):
+        smt.simulate_stats(GAUSS, n, t, checkpoint_path=path, **kw)
+    ckpt.save(path, state)
+    resumed = smt.simulate_stats(GAUSS, n, t, checkpoint_path=path, **kw)
+    _assert_identical(resumed, smt.simulate_stats(GAUSS, n, t, **kw))
+    seen.clear()
+    smt.simulate_stats(GAUSS, TILE, t, checkpoint_path=str(
+        tmp_path / "nw.npz"), **dict(kw, options=smt.EngineOptions(
+            gaussian_sampler="clt-prefix", track_withdrawn=False, **CPU)))
+    assert seen[0][-1] == "torch/streams3/clt-nw"
+
+
 @pytest.mark.parametrize("prng", ["default", "arith"])
 def test_jax_checkpoint_refuses(tmp_path, monkeypatch, prng):
     """The JAX package's checkpoint of the same arguments, from its default

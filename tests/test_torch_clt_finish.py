@@ -1,6 +1,9 @@
 """The CLT kernel's finish (``csrc/clt.cu``, plain and keep-fold variants
 and the probe instances) in its CPU twin, ``clt.finish_sum_twin``, against
-the plain version's column-by-column sum (``clt_chunk_plain``).
+the plain version's column-by-column sum (``clt_chunk_plain``); and the
+prefix variant's (``clt.prefix_finish_twin``: the quad scan of the
+log-space prefix, the withdrawn sum) against the plain version's running
+sum.
 
 The kernel finishes a path's row in the tensor cores' accumulator layout:
 lane tig of a quad adds the logs of its columns nt*8 + 2*tig + e (nt =
@@ -14,6 +17,18 @@ summation gives any two orders: both sums lie within the recursive
 summation bound of the exact (float64) sum, and the twin's order is the
 closer of the two. The card test holds the kernel to this twin bit for
 bit (``tests/test_torch_gpu.py``).
+
+The prefix twin at 2^16 paths x 360 months (the third block partial):
+finals and withdrawn total within the same bar of the plain version under
+a fixed and a variable percent. Under a schedule with keep 0 in one month
+the withdrawn total stays within the bar, but the finals (1e-35 .. 2e-34,
+every path emptied) differ by up to ~1e-4 relative (ROADMAP queue 3): the
+log-space prefix past that month sits near log(1e-37) = -85.2, where a
+float32 add rounds by up to ulp(85)/2 = 3.8e-6, and the plain version
+adds each month there one by one, the kernel only the months left in
+that month's lane and the lanes' sums. Both lie within the recursive
+summation bound of the float64 prefix of the same float32 logs, and the
+twin's finals are the closer to it.
 """
 
 import numpy as np
@@ -128,3 +143,99 @@ def test_twin_order_at_adversarial_rows(n_extreme, capsys):
               f"and {n_extreme} large a row: finals max rel {r!r}; sum "
               f"errors vs float64 twin {float(err_twin.max())!r}, plain "
               f"{float(err_seq.max())!r}")
+
+
+# ---------------------------------------------------------------------------
+# The prefix variant
+# ---------------------------------------------------------------------------
+
+
+def test_prefix_twin_order_is_the_kernel_layout():
+    """The prefix kernel's accumulator column nt*8 + 2*tig + e holds month
+    4*R*P + R*tig + 2*(nt % (R/2)) + e of part P = nt // (R/2), R =
+    ``clt.PREFIX_RUN`` (8): in each part a lane's columns are its run of
+    months, in order, and the quad's runs cover every month once. With a one-hot row of logs at each
+    month d, the twin's exclusive prefix is 1 exactly at the months after d
+    (integer sums are exact in any order), and on random integer logs it
+    is the exclusive cumulative sum."""
+    run = clt.PREFIX_RUN
+    assert run == 8
+    cols = clt._prefix_columns().tolist()
+    half = run // 2
+    for part in range(128 // (4 * run)):
+        for tig in range(4):
+            first = 4 * run * part + run * tig
+            assert [cols[(part * half + q) * 8 + 2 * tig + e]
+                    for q in range(half) for e in range(2)] == list(
+                        range(first, first + run))
+    assert sorted(cols) == list(range(128))
+    after = (torch.arange(128)[None, :] > torch.arange(128)[:, None])
+    assert torch.equal(clt.prefix_scan_twin(torch.eye(128)), after.float())
+    y = torch.as_tensor(np.random.default_rng(3).integers(
+        -1000, 1000, (64, 128)).astype(np.float32))
+    want = torch.cumsum(y.double(), 1) - y.double()
+    assert torch.equal(clt.prefix_scan_twin(y).double(), want)
+
+
+def _prefix_schedule(name):
+    if name == "fixed":
+        return np.full(MONTHS, np.float32(1.0) - np.float32(0.4)
+                       / np.float32(100.0), np.float32)
+    sched = np.random.default_rng(7).uniform(0.0, 1.0, MONTHS).astype(
+        np.float32)
+    if name == "variable_keep0":
+        sched[200] = 100.0
+    return np.float32(1.0) - sched / np.float32(100.0)
+
+
+def _prefix_finals64(blocks, keep, v0):
+    """Finals of the same float32 growth and logs with the prefix summed
+    in float64, and each row's sum over the blocks of |log| (the
+    recursive summation bound's scale)."""
+    carry = torch.ones_like(blocks[0][:, 0], dtype=torch.float64)
+    scale = torch.zeros_like(carry)
+    for j, g in enumerate(blocks):
+        gk = g * keep[j]
+        y = torch.log(torch.clamp_min(gk, ce._f32(1e-37))).double()
+        carry = carry * (torch.exp(y[:, :-1].sum(1)) * gk[:, -1].double())
+        scale = scale + y.abs().sum(1)
+    return v0 * carry, scale
+
+
+@pytest.mark.parametrize("schedule", ["fixed", "variable", "variable_keep0"])
+def test_prefix_twin_within_the_bar_of_plain(schedule, capsys):
+    a, b = ce.gaussian_ab(0.5, 10.0 / 12)
+    arow, cs = (torch.as_tensor(x) for x in clt.block_consts(a, b, MONTHS))
+    keep = torch.as_tensor(clt.keep_rows(_prefix_schedule(schedule),
+                                         MONTHS))
+    q = clt.q_tensor("cpu")
+    seed_base = 0x9E3779B9 ^ clt.CLT_STREAM_XOR
+    fp, wp = clt._finals_plain(q, arow, cs, keep, variant="prefix",
+                               seed_base=seed_base, tile0=37,
+                               n_paths=PATHS, v0=1000.0)
+    blocks = list(clt.prefix_growth(q, arow, cs, seed_base=seed_base,
+                                    tile0=37, rows=torch.arange(PATHS)))
+    assert len(blocks) == 3
+    ft, wt = clt.prefix_finish_twin(blocks, keep, 1000.0)
+    rf, rw = _rel(ft, fp), _rel(wt, wp)
+    with capsys.disabled():
+        print(f"\nCLT prefix twin vs plain, {schedule}, {PATHS} x {MONTHS}: "
+              f"finals max rel {rf!r} ({int((ft != fp).sum())} differ), "
+              f"withdrawn max rel {rw!r}")
+    assert bool((wp > 0).all()) and rw <= CLT_KERNEL_REL
+    if schedule != "variable_keep0":
+        assert rf <= CLT_KERNEL_REL
+        return
+    exact, scale = _prefix_finals64(blocks, keep, 1000.0)
+    bound = 127 * U * scale / (1 - 127 * U) + 8 * len(blocks) * U
+    err_twin = (ft.double() / exact - 1.0).abs()
+    err_plain = (fp.double() / exact - 1.0).abs()
+    assert bool((ft > 0).all()) and float(ft.max()) < 1e-30
+    assert bool((err_twin <= bound).all())
+    assert bool((err_plain <= bound).all())
+    assert float(err_twin.max()) <= float(err_plain.max())
+    with capsys.disabled():
+        print(f"keep 0 at month 200: finals errors vs the float64 prefix, "
+              f"twin {float(err_twin.max())!r}, plain "
+              f"{float(err_plain.max())!r}, bound {float(bound.min())!r}"
+              f" .. {float(bound.max())!r}")

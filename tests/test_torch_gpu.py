@@ -10,7 +10,8 @@ partial tile, under a warp of paths, across the tiles' wrap past 2^32 and
 at 1024 blocks, its chunks back to back on two streams, and its
 operand-length guard. The historical month loop's warp items at
 partial items and three grids, the CLT at three grids, and the CLT's
-finish against its CPU twin (``clt.finals_twin``) bit for bit. Also the
+finish against its CPU twin (``clt.finals_twin``; the prefix variant's
+``clt.prefix_finish_twin`` at three grids) bit for bit. Also the
 wrappers' input checks and launch counters, the launch counts of the
 engine's samplers, and bands,
 trajectories and seed segments on the card against the CPU. The month
@@ -437,6 +438,86 @@ def test_clt_finish_equals_its_twin(cuda, variant):
     twin = clt.finals_twin(prod, 1000.0)
     torch.cuda.synchronize()
     assert torch.equal(fk, twin)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [2, 3, 4])
+def test_clt_prefix_finish_equals_its_twin(cuda, blocks_per_sm):
+    """The prefix kernel's finish (the quad scan of the log-space prefix,
+    the withdrawn sum) against ``clt.prefix_finish_twin`` on the card's
+    log and exp, bit for bit, at rows of growth that do not depend on the
+    product's accumulation order (cs = 0), under a schedule with keep 0 in
+    one month, at 2, 3 and 4 blocks a SM; a ragged chunk at tile offset 3,
+    360 months (the third block partial)."""
+    arow, cs = _adversarial_arow(cuda, 360)
+    sched = np.random.default_rng(7).uniform(0.0, 1.0, 360).astype(
+        np.float32)
+    sched[200] = 100.0
+    keep = torch.as_tensor(clt.keep_rows(np.float32(1.0) - sched
+                                         / np.float32(100.0), 360),
+                           device=cuda)
+    q = clt.q_tensor(cuda)
+    valid = 3 * 8192 + 77
+    kw = dict(variant="prefix", seed_base=0x11C7, tile0=3, valid=valid,
+              n_paths=4 * 8192, v0=1000.0, target=1000.0, shift=1.0,
+              lo=1e-30, log_lo=float(np.log(1e-30)),
+              inv_w=float(np.float32(4094 / np.log(1e40))), hb=4096,
+              with_hist=True, keep_finals=True)
+    launch, outputs = clt.clt_launcher(q, arow, cs, keep, **kw,
+                                       blocks_per_sm=blocks_per_sm)
+    launch()
+    stats, _, fk = outputs()
+    fw, ww = clt.prefix_finish_twin(clt.prefix_growth(
+        q, arow, cs, seed_base=0x11C7, tile0=3,
+        rows=torch.arange(valid, device=cuda)), keep, 1000.0)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fw)
+    # the withdrawn total: the kernel's float64 sum of wsum/v0 per path
+    want = float((ww * ce._f32(1.0 / 1000.0)).double().sum())
+    assert float(stats[8]) == pytest.approx(want, rel=1e-6)
+
+
+_LOG_SWEEP = r"""
+#include <cstdio>
+#include "%s"
+__global__ void sweep(unsigned long long* bad) {
+  for (unsigned long long b = 0x00800000ull + blockIdx.x * blockDim.x +
+                              threadIdx.x;
+       b <= 0x7f7fffffull; b += (unsigned long long)gridDim.x * blockDim.x) {
+    const float a = __uint_as_float((unsigned)b);
+    if (__float_as_uint(logf(a)) != __float_as_uint(smmc::log_normal(a)))
+      atomicAdd(bad, 1ull);
+  }
+}
+int main() {
+  unsigned long long* bad;
+  cudaMallocManaged(&bad, 8);
+  *bad = 0;
+  sweep<<<2048, 256>>>(bad);
+  const cudaError_t err = cudaDeviceSynchronize();
+  printf("%%s %%llu\n", cudaGetErrorString(err), *bad);
+  return 0;
+}
+"""
+
+
+def test_log_normal_equals_logf_on_every_normal_float(cuda, tmp_path):
+    """``smmc::log_normal`` (``csrc/smmc_common.cuh``, the prefix CLT's
+    log: logf's steps without its branches for denormals, zero, infinities
+    and NaN, which the clamp at 1e-37 rules out) equals logf bit for bit
+    on every float from 2^-126 to FLT_MAX, built with the library's nvcc
+    flags."""
+    import subprocess
+
+    from stock_market_monte_carlo_torch.ops import _build
+
+    src = tmp_path / "log_sweep.cu"
+    src.write_text(_LOG_SWEEP % (_build.CSRC_DIR / "smmc_common.cuh"))
+    exe = tmp_path / "log_sweep"
+    subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-o", str(exe),
+                    str(src)], check=True, timeout=300)
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout.split()
+    assert out == ["no", "error", "0"]
 
 
 @pytest.mark.parametrize("ablate", ["nomm", "nologexp"])
