@@ -1110,10 +1110,11 @@ def main():
     from stock_market_monte_carlo_torch.ops import _build, clt
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
-    # 2. build; the month loops', the CLT's and the law's ptxas report: the
-    # run kernel's instances (registers, spills; paths a thread, shared
-    # memory, window and blocks a SM at the main shapes), the month-loop,
-    # CLT and terminal-law kernels' (no spills allowed)
+    # 2. build; the month loops', the CLT's, the law's and the toys' ptxas
+    # report: the run kernel's instances (registers, spills; paths a
+    # thread, shared memory, window and blocks a SM at the main shapes),
+    # the month-loop, CLT, terminal-law and toy kernels' (no spills
+    # allowed)
     t = time.perf_counter()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
@@ -1128,7 +1129,8 @@ def main():
             ("run_loop_kernel", 9, "draw,strategy"),
             ("month_loop_kernel", 6, "draw,strategy"),
             ("clt_kernel", 8, "variant,ablate"),
-            ("law_kernel", 2, "finals")):
+            ("law_kernel", 2, "finals"),
+            ("op_toy_kernel", 7, "op")):
         found = {args: v for name, v in res.items()
                  if (args := template_args(name, kernel))}
         check(len(found) == instances
@@ -1633,6 +1635,18 @@ def main():
             how = "== plain"
         max_err[f"op_toy_{op}"] = err
         say("3e", f"op_toy {op} {cal.TOY_TILES} tiles: kernel {how}")
+    # the cvt toy's chains started at hard values: about 2^22, a value
+    # bf16(float32(xi)) rounds twice, a chain ending at 2^31 - 1
+    for xi0 in cal.TOY_CVT_HARD_XI0:
+        launch, outputs = cal.op_toy_launcher("cvt", 64, DEVICE, xi0=xi0)
+        launch()
+        want = cal.op_toy_chunk_plain("cvt", 64, device=DEVICE, xi0=xi0)
+        torch.cuda.synchronize()
+        check(torch.equal(outputs(), want),
+              f"op_toy cvt xi0={xi0}: kernel differs from plain by "
+              f"{float((outputs() - want).abs().max())}")
+    say("3e", f"op_toy cvt 64 tiles from xi0 in {cal.TOY_CVT_HARD_XI0}: "
+              "kernel == plain")
     for ablate in clt.ABLATIONS:
         ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.ABLATE_SEED)
         kw = dict(kw, ablate=ablate, keep_finals=True)

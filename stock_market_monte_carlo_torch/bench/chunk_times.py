@@ -11,10 +11,10 @@ seed 0, target 2000, 4096 histogram cells, no withdrawal unless the name
 says so; the terminal law without and with finals), or the headline's
 and the probes' shapes for the histogram kernel (2^24 indices over 4096
 cells), the tile flatten (2048 tiles), the calibration kernels, the
-byte planes of both experiments and the counts below a tile (K=32),
-launched bare (the launcher's C call, uncounted): the median
-of 3 measurements of CUDA events around 5 launches
-(``headline.events_ms``).
+byte planes of both experiments, the counts below a tile (K=32) and the
+op-class toys (``op_toy_<op>``, 4096 tiles), launched bare (the
+launcher's C call, uncounted): the median of 3 measurements of CUDA
+events around 5 launches (``headline.events_ms``).
 NAME picks cases (default: all). Prints the card's name and power limit,
 then one JSON line {name: ms a chunk}. Imports neither jax nor the JAX
 package.
@@ -114,6 +114,9 @@ def cases():
     out["counts_below_tile"] = (bk.counts_below_tile_launcher, tuple(
         torch.as_tensor(rng.lognormal(size=shape).astype(np.float32),
                         device=dev) for shape in ((64, 128), (32, 128))), {})
+    for op in cal.TOY_OPS:
+        out[f"op_toy_{op}"] = (cal.op_toy_launcher, (op,), dict(
+            n_tiles=cal.TOY_TILES, device=dev))
     return out
 
 

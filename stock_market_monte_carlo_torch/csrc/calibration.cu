@@ -26,11 +26,13 @@
 //   mul x = x*c; fma x = a + x*c (FMUL then FADD: -fmad=false, as the
 //   CLT's affine step issues it); iadd xi = xi + ci; shf xi = (xi >> 1) +
 //   ci (logical); cvt bacc = bacc + bf16(xi), xi = xi + ci (bf16
-//   accumulator, out = bacc + xi); mm y = bf16(x) @ Q (float32
-//   accumulate), x = a + y*c. A seventh class, hash, is the port's own:
-//   xi = finalize(xi + ci * golden), the counter stream's word, which the
-//   CLT hashes per count and the TPU's hardware PRNG did not. x starts at
-//   c, xi at 3, bacc at 0 (the TPU toy's 1.0 * c, 3 and 0).
+//   accumulator, out = bacc + xi; bf16(xi) is bf16(float32(xi)), two
+//   roundings past 2^24, as torch's and XLA's casts round it); mm y =
+//   bf16(x) @ Q (float32 accumulate), x = a + y*c. A seventh class, hash,
+//   is the port's own: xi = finalize(xi + ci * golden), the counter
+//   stream's word, which the CLT hashes per count and the TPU's hardware
+//   PRNG did not. x starts at c, xi at xi0 (3), bacc at 0 (the TPU toy's
+//   1.0 * c, 3 and 0); the tests also start xi at hard values.
 // Plain versions: ops/calibration.py grid_overhead_chunk_plain,
 // calib_chunk_plain and op_toy_chunk_plain.
 //
@@ -50,7 +52,10 @@
 //   (calibration.calib_sass_instructions), not from the source.
 // - Toys: operations of one class, 12 x 2^31 a chunk equivalent: mul
 //   2.6e10 FMUL, 0.77 ms at the issue rate; mm 6.6e12 flop, 6.7 ms at the
-//   data-sheet bf16 rate. No memory traffic beyond 16 MiB of output.
+//   data-sheet bf16 rate. No memory traffic beyond 16 MiB of output; mm
+//   reads Q from shared memory through wgmma's descriptor, 32 KB a
+//   group-pass (103 GB a chunk equivalent, ~3.1 ms at 128 B a clock an
+//   SM), under its tensor bound.
 //
 // SASS of the toys (cuobjdump -sass, CUDA 12.8, sm_90a; ops/calibration.py
 // op_toy_sass reads it): a thread's 12 passes of 16 chains (192 element-
@@ -62,11 +67,14 @@
 //         pass adds its own addend register, and one IADD3 (a three-input
 //         add) takes two passes' adds, all on the integer pipe; 0.98
 //   shf   LEA 194: (x >> 1) + cp is one LEA.HI, the shift is free; 1.48
-//   cvt   I2F 192 (int32 to bf16, on the 16-lane conversion unit), HFMA2
-//         51 and HADD2 45 (the bf16 adds, two a instruction), IMAD 120,
-//         PRMT 106, IADD3 97; 3.70
-//   mm    a pass: HMMA 128, LDS 128 (the B fragments, reloaded each
-//         pass), F2FP 32 (two bf16 a pack), FMUL 64, FADD 64; 6.64
+//   cvt   I2FP 208 (int32 to float32 on the integer pipe; 16 in the
+//         stores), IMAD 207 (the chains' adds, as IMAD.IADD), F2FP 96 (a
+//         pair rounded to bf16 a pack), HFMA2 55 and HADD2 41 (the bf16
+//         pair adds); 3.73 (__int2bfloat16_rn, one rounding, is I2F on
+//         the 16-lane conversion unit: 3.70 an element-pass, 2x the time)
+//   mm    a pass (185 instructions): HGMMA 8 (the k-steps, B through the
+//         descriptor), F2FP 32 (two bf16 a pack), FMUL 64, FADD 64,
+//         WARPGROUP.ARRIVE and DEPBAR; 2.89
 //   hash  IMAD 595, SHF 594, LOP3 580: three of each a word; 9.51
 // (A first build without the threadIdx term ran the integer chains on the
 // uniform datapath: ULEA, UIADD3, UIMAD.)
@@ -99,11 +107,30 @@
 //   the chain issues one IADD3 for two passes. Only rows 0-7 of a
 //   tile are written, as the TPU toy writes them; every other chain ends in
 //   a compare with a runtime sentinel that never matches (a bit pattern no
-//   chain reaches), so no chain is dead. mm keeps x in the accumulator
-//   layout of mma.sync m16n8k16 (a warp owns 16 rows, all 128 columns):
-//   the accumulators of n-tiles 2ks and 2ks+1 are the A fragment of k-step
-//   ks, packed to bf16 in registers, so x never leaves the registers.
+//   chain reaches), so no chain is dead.
+// - mm runs the CLT's product: wgmma m64n128k16 for a warpgroup's 64-row
+//   group, A from registers, B = Q staged once a block in wgmma's K-major
+//   layout without swizzle and read through a descriptor (the helpers of
+//   smmc_common.cuh), so no warp reloads Q from shared memory. x stays in
+//   the accumulators' layout (a warp owns 16 rows, all 128 columns): the
+//   accumulators of n-tiles 2ks and 2ks+1, packed to bf16 pairs, are k-step
+//   ks's A, so x never leaves the registers; a pass packs all 8 k-steps'
+//   A, then its 8 k-steps overwrite x, then the affine step runs in place.
+//   A pass waits for the one before, so other warpgroups' products hide
+//   it: a persistent grid of one-warpgroup blocks, four resident a SM
+//   (122 registers), each striding over the groups. Two groups in flight
+//   a warpgroup (one's affine step and pack while the other's wgmma runs,
+//   wait_group 1; 250 registers, 2 blocks a SM) ran no faster (PERF.md).
+// - cvt converts as the CLT does, through float32 and a packed round, off
+//   the 16-lane conversion unit that int32-to-bf16 (I2F) runs on:
+//   __int2float_rn (I2FP, on the integer pipe), then
+//   __floats2bfloat162_rn for two chains at once (one F2FP), the bf16
+//   pairs added with __hadd2. Getting the float32 as xi added into the
+//   bits of 1.5 * 2^23 less 1.5 * 2^23 (|xi| < 2^22) issues two
+//   instructions for I2FP's one and ran slower (PERF.md).
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "smmc_common.cuh"
 
@@ -191,13 +218,19 @@ constexpr int kToyTileElems = kToyRows * 128;   // 2^19
 constexpr int kToyPasses = 12;
 constexpr int kToyOutRows = 8;                  // rows written a tile
 constexpr int kToyChains = 16;                  // chains a thread (not mm)
-constexpr int kToyMmThreads = 128;              // mm: 4 warps, 64 rows
+// mm: a block is one warpgroup, striding over the 64-row groups of the
+// tiles, kToyMmBlocks of them resident a SM
+constexpr int kToyMmThreads = 128;
+constexpr int kToyMmRows = 64;                       // rows of a group
+constexpr int kToyMmGroups = kToyRows / kToyMmRows;  // groups of a tile
+constexpr int kToyMmBlocks = 4;
 
 struct ToyArgs {
   float c, a, one;
   uint32_t xi0, ci, zero, never;
   const unsigned short* q;  // mm: Q (128, 128) bf16 bits
   float* out;               // (n_tiles * 8, 128)
+  int n_tiles;
 };
 
 // x + y, opaque to the compiler's reassociation
@@ -212,65 +245,88 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// mm: a warp owns 16 rows of a tile and all 128 columns; x[nt][e] is row
-// gid + 8*(e >> 1), column nt*8 + 2*tig + (e & 1) (the C layout).
-__device__ __forceinline__ void op_toy_mm(const ToyArgs& g) {
-  __shared__ uint2 s_q[kMixFrags];
-  stage_mix_frags(g.q, s_q);
-  __syncthreads();
+// mm: x <- a + x * c in place (FMUL then FADD: -fmad=false)
+__device__ __forceinline__ void mm_affine(float (&x)[kQNTiles][4], float a,
+                                          float c) {
+#pragma unroll
+  for (int nt = 0; nt < kQNTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nt][e] = a + x[nt][e] * c;
+}
+
+// mm: one pass's product, issued as one committed wgmma group: bf16(x)
+// packed into a (n-tiles 2ks and 2ks+1 are k-step ks's A), then x <- A Q
+// over 8 k-steps (the first with scale_d 0). Every A is packed before
+// the first k-step overwrites x.
+__device__ __forceinline__ void mm_issue(float (&x)[kQNTiles][4],
+                                         uint32_t (&a)[kQKSteps][4],
+                                         uint64_t desc) {
+#pragma unroll
+  for (int ks = 0; ks < kQKSteps; ++ks) {
+    a[ks][0] = bf16x2_bits(x[2 * ks][0], x[2 * ks][1]);
+    a[ks][1] = bf16x2_bits(x[2 * ks][2], x[2 * ks][3]);
+    a[ks][2] = bf16x2_bits(x[2 * ks + 1][0], x[2 * ks + 1][1]);
+    a[ks][3] = bf16x2_bits(x[2 * ks + 1][2], x[2 * ks + 1][3]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kQKSteps; ++ks)
+    wgmma_m64n128k16(x, a[ks], desc + 256u * ks, ks);
+  wgmma_commit();
+}
+
+// mm: rows 0-7 of a tile (its group 0, warp 0, rows gid) go out; every
+// value ends in a compare with the sentinel, which never matches
+__device__ __forceinline__ void mm_store(const ToyArgs& g,
+                                         const float (&x)[kQNTiles][4],
+                                         long long grp) {
   const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  constexpr int blocks_per_tile = kToyRows / (kToyMmThreads / 2);
-  const int row = (blockIdx.x % blocks_per_tile) * (kToyMmThreads / 2) +
-                  (threadIdx.x >> 5) * 16 + gid;
-  float x[kMixNTiles][4];
-#pragma unroll
-  for (int nt = 0; nt < kMixNTiles; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nt][e] = g.c;
-#pragma unroll 1
-  for (int p = 0; p < kToyPasses; ++p) {
-    float acc[kMixNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kMixNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < kMixKSteps; ++ks) {
-      const uint32_t a[4] = {
-          bf16x2_bits(x[2 * ks][0], x[2 * ks][1]),
-          bf16x2_bits(x[2 * ks][2], x[2 * ks][3]),
-          bf16x2_bits(x[2 * ks + 1][0], x[2 * ks + 1][1]),
-          bf16x2_bits(x[2 * ks + 1][2], x[2 * ks + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < kMixNTiles; ++nt)
-        mma_16x8x16(acc[nt], a, s_q[(ks * kMixNTiles + nt) * 32 + lane]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kMixNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[nt][e] = g.a + acc[nt][e] * g.c;
-  }
-  const size_t tile = blockIdx.x / blocks_per_tile;
-  if (row < kToyOutRows) {
-    float* dst = g.out + (tile * kToyOutRows + row) * 128 + tig * 2;
-#pragma unroll
-    for (int nt = 0; nt < kMixNTiles; ++nt)
-      *reinterpret_cast<float2*>(dst + nt * 8) = make_float2(x[nt][0],
-                                                             x[nt][1]);
-    return;
-  }
   bool hit = false;
 #pragma unroll
-  for (int nt = 0; nt < kMixNTiles; ++nt)
+  for (int nt = 0; nt < kQNTiles; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) hit |= __float_as_uint(x[nt][e]) == g.never;
+  if (grp % kToyMmGroups == 0 && threadIdx.x < 32) {
+    float* dst = g.out + ((grp / kToyMmGroups) * kToyOutRows + (lane >> 2)) *
+                             128 + (lane & 3) * 2;
+#pragma unroll
+    for (int nt = 0; nt < kQNTiles; ++nt)
+      *reinterpret_cast<float2*>(dst + nt * 8) = make_float2(x[nt][0],
+                                                             x[nt][1]);
+  }
   if (hit) g.out[0] = x[0][0];
 }
 
+// mm: Q staged once a block; the block strides over the 64-row groups,
+// each its warpgroup's 12 passes of wgmma
+__device__ __forceinline__ void op_toy_mm(const ToyArgs& g) {
+  __shared__ __align__(128) unsigned short s_q[kQDim * kQDim];
+  stage_q(g.q, s_q, [](int n) { return n; });
+  fence_async_shared();
+  __syncthreads();
+  const uint64_t desc = q_descriptor(s_q);
+  const long long n_groups = (long long)g.n_tiles * kToyMmGroups;
+  float x[kQNTiles][4];
+  uint32_t a[kQKSteps][4];
+  for (long long grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+#pragma unroll
+    for (int nt = 0; nt < kQNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[nt][e] = g.c;
+#pragma unroll 1
+    for (int p = 0; p < kToyPasses; ++p) {
+      mm_issue(x, a, desc);
+      wgmma_wait<0>();
+      fence_operands(x);
+      mm_affine(x, g.a, g.c);
+    }
+    mm_store(g, x, grp);
+  }
+}
+
 template <int OP>
-__global__ void __launch_bounds__(OP == kMm ? kToyMmThreads : kBlock)
+__global__ void __launch_bounds__(OP == kMm ? kToyMmThreads : kBlock,
+                                  OP == kMm ? kToyMmBlocks : 1)
 op_toy_kernel(const ToyArgs g) {
   if constexpr (OP == kMm) {
     op_toy_mm(g);
@@ -281,7 +337,7 @@ op_toy_kernel(const ToyArgs g) {
     const uint32_t w = (uint32_t)(e0 % kToyTileElems);
     float x[kToyChains];
     uint32_t xi[kToyChains];
-    __nv_bfloat16 bacc[kToyChains];
+    __nv_bfloat162 bacc[kToyChains / 2];  // cvt: chains 2k, 2k+1
     // threadIdx-dependent starts (lane_zero is 0): a chain that depends on
     // kernel arguments alone is warp-uniform, and nvcc would run it once a
     // warp on the uniform datapath instead of once a thread
@@ -294,7 +350,8 @@ op_toy_kernel(const ToyArgs g) {
       xi[k] = add_u32(xi[k - 1], g.zero);
     }
 #pragma unroll
-    for (int k = 0; k < kToyChains; ++k) bacc[k] = __float2bfloat16_rn(0.0f);
+    for (int k = 0; k < kToyChains / 2; ++k)
+      bacc[k] = __float2bfloat162_rn(0.0f);
     // a register of its own for each pass's addend (ci + p * zero): with one
     // ci, ptxas adds two passes' ci at once as x + 2ci (a LEA or an IMAD)
     uint32_t cp[kToyPasses];
@@ -315,7 +372,11 @@ op_toy_kernel(const ToyArgs g) {
         } else if constexpr (OP == kShf) {
           xi[k] = add_u32(xi[k] >> 1, cp[p]);
         } else if constexpr (OP == kCvt) {
-          bacc[k] = __hadd(bacc[k], __int2bfloat16_rn((int)xi[k]));
+          // a pair of chains: two float32s (I2FP) rounded to bf16 in one
+          // pack, added as a bf16 pair
+          if (k % 2 == 0)
+            bacc[k / 2] = __hadd2(bacc[k / 2], __floats2bfloat162_rn(
+                __int2float_rn((int)xi[k]), __int2float_rn((int)xi[k + 1])));
           xi[k] = add_u32(xi[k], cp[p]);
         } else {
           xi[k] = finalize(xi[k] + step);
@@ -328,7 +389,8 @@ op_toy_kernel(const ToyArgs g) {
       if constexpr (OP == kMul || OP == kFma)
         v[k] = x[k];
       else if constexpr (OP == kCvt)
-        v[k] = __bfloat162float(bacc[k]) + (float)(int32_t)xi[k];
+        v[k] = (k % 2 ? __high2float(bacc[k / 2])
+                      : __low2float(bacc[k / 2])) + (float)(int32_t)xi[k];
       else if constexpr (OP == kHash)
         v[k] = (float)(xi[k] >> 8);
       else
@@ -348,11 +410,27 @@ op_toy_kernel(const ToyArgs g) {
 }
 
 template <int OP>
-cudaError_t launch_toy(const ToyArgs& g, int n_tiles, cudaStream_t stream) {
-  const int threads = OP == kMm ? kToyMmThreads : kBlock;
-  const long long per_block = OP == kMm ? (long long)threads / 2 * 128
-                                        : (long long)threads * kToyChains;
-  const long long n_blocks = (long long)n_tiles * kToyTileElems / per_block;
+cudaError_t launch_toy(const ToyArgs& g, cudaStream_t stream) {
+  long long n_blocks;
+  int threads = kBlock;
+  if constexpr (OP == kMm) {
+    // the blocks that fit on the card at once, at most one a unit
+    threads = kToyMmThreads;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, op_toy_kernel<kMm>, threads, 0)) != cudaSuccess)
+      return err;
+    n_blocks = std::min<long long>(
+        (long long)sms * std::max(1, per_sm),
+        (long long)g.n_tiles * kToyMmGroups);
+  } else {
+    n_blocks = (long long)g.n_tiles * kToyTileElems / (kBlock * kToyChains);
+  }
   op_toy_kernel<OP><<<(unsigned)n_blocks, threads, 0, stream>>>(g);
   return cudaGetLastError();
 }
@@ -397,21 +475,24 @@ extern "C" int smmc_calib(int n_ops, unsigned int seed, int n_iters,
 
 // One op-class toy of n_tiles (4096, 128) tiles: op 0 mul, 1 fma, 2 iadd,
 // 3 shf, 4 cvt, 5 mm (reads q, Q as bf16 bits), 6 hash; c and a as the
-// TPU toy's fscal[0] and fscal[1]. out (n_tiles * 8, 128) float32: rows
-// 0-7 of each tile.
-extern "C" int smmc_op_toy(int op, float c, float a, const unsigned short* q,
-                           int n_tiles, float* out, void* stream) {
+// TPU toy's fscal[0] and fscal[1]; the integer chains start at xi0 and add
+// ci a pass (xi0 + 12 ci must not leave int32). out (n_tiles * 8, 128)
+// float32: rows 0-7 of each tile.
+extern "C" int smmc_op_toy(int op, float c, float a, int xi0, int ci,
+                           const unsigned short* q, int n_tiles, float* out,
+                           void* stream) {
   if (n_tiles < 1 || (op == kMm && q == nullptr)) return cudaErrorInvalidValue;
-  const ToyArgs g{c, a, 1.0f, 3u, 1u, 0u, 0xFFFFFFFFu, q, out};
+  const ToyArgs g{c, a, 1.0f, (uint32_t)xi0, (uint32_t)ci, 0u, 0xFFFFFFFFu,
+                  q, out, n_tiles};
   auto s = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case kMul: return launch_toy<kMul>(g, n_tiles, s);
-    case kFma: return launch_toy<kFma>(g, n_tiles, s);
-    case kIadd: return launch_toy<kIadd>(g, n_tiles, s);
-    case kShf: return launch_toy<kShf>(g, n_tiles, s);
-    case kCvt: return launch_toy<kCvt>(g, n_tiles, s);
-    case kMm: return launch_toy<kMm>(g, n_tiles, s);
-    case kHash: return launch_toy<kHash>(g, n_tiles, s);
+    case kMul: return launch_toy<kMul>(g, s);
+    case kFma: return launch_toy<kFma>(g, s);
+    case kIadd: return launch_toy<kIadd>(g, s);
+    case kShf: return launch_toy<kShf>(g, s);
+    case kCvt: return launch_toy<kCvt>(g, s);
+    case kMm: return launch_toy<kMm>(g, s);
+    case kHash: return launch_toy<kHash>(g, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -99,6 +99,7 @@ constexpr int kRows = 16 * kWarps;      // paths per CUDA block
 constexpr int kKSteps = kK / 16;        // k-steps of m16n8k16
 constexpr int kNTiles = kK / 8;         // 8-column output tiles
 constexpr int kQFrags = kKSteps * kNTiles * 32;  // B fragments (uint2)
+static_assert(kK == kQDim, "the block of months is Q's dimension");
 
 enum Variant { kPlain = 0, kKeepFold = 1, kPrefix = 2 };
 // the prefix variant: months a lane runs through in order before its quad
@@ -156,92 +157,6 @@ __device__ __forceinline__ int prefix_column(int n) {
   const int nt = n >> 3;
   return 4 * kRun * (nt / kRunTiles) + kRun * ((n >> 1) & 3) +
          2 * (nt % kRunTiles) + (n & 1);
-}
-
-// Q (bf16 bits, [k in][n out]) into s_q in wgmma's K-major layout without
-// swizzle: the 8x8 core matrix of months 8kc.. and columns 8ng.. at
-// element (kc * 16 + ng) * 64, column n's 8 months as one 16-byte row. A
-// k-step's B (months 16ks..16ks+15) then starts at byte 4096 ks, its two
-// core matrices along K 2048 bytes apart (LBO), along N 128 (SBO). With
-// PERMUTE, column n is Q's column prefix_column(n). Every thread takes
-// part; the caller fences and synchronises.
-template <bool PERMUTE>
-__device__ __forceinline__ void stage_q(const unsigned short* q,
-                                        unsigned short* s_q) {
-  for (int i = threadIdx.x; i < (kK / 8) * kK; i += blockDim.x) {
-    const int n = i % kK, kc = i / kK;
-    const unsigned short* col =
-        q + kc * 8 * kK + (PERMUTE ? prefix_column(n) : n);
-    *reinterpret_cast<uint4*>(s_q + (kc * 16 + n / 8) * 64 + (n % 8) * 8) =
-        make_uint4(pack2(col[0], col[kK]), pack2(col[2 * kK], col[3 * kK]),
-                   pack2(col[4 * kK], col[5 * kK]),
-                   pack2(col[6 * kK], col[7 * kK]));
-  }
-}
-
-// The shared-memory matrix descriptor of k-step 0 of s_q (no swizzle,
-// LBO 2048 bytes, SBO 128); k-step ks adds 256 ks (4096 bytes in 16-byte
-// units) to it.
-__device__ __forceinline__ uint64_t q_descriptor(const unsigned short* s_q) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(s_q);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(2048 >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the wgmma instructions that own them asynchronously.
-__device__ __forceinline__ void fence_operands(float (&d)[kNTiles][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[nt][e])::"memory");
-}
-
-// d (64 x 128 of the warpgroup; d[nt][e] in the m16n8 C layout of each
-// warp's 16 rows) = a (64 x 16, registers) * B (16 x 128, descriptor),
-// plus d when scale_d is nonzero; bf16 in, float32 accumulate
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kNTiles][4],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // Dynamic shared memory of one block: Q in the wgmma layout (32 KB) and
@@ -328,7 +243,7 @@ __device__ __forceinline__ void prefix_block(float (&acc)[kNTiles][4],
   }
 }
 
-// Fragment layouts: smmc_common.cuh (mma_16x8x16).
+// Fragment layouts and the wgmma helpers: smmc_common.cuh.
 template <int VARIANT, int ABLATE>
 __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -337,9 +252,10 @@ __global__ void __launch_bounds__(kThreads) clt_kernel(const Args g) {
   const bool with_hist = g.hist != nullptr && ABLATE != kNoHist;
 
   if (ABLATE != kNoMM) {
-    stage_q<VARIANT == kPrefix>(g.q, s_q);
-    // the generic proxy's stores, before wgmma reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    stage_q(g.q, s_q, [](int n) {
+      return VARIANT == kPrefix ? prefix_column(n) : n;
+    });
+    fence_async_shared();
   }
   if (with_hist)
     for (int i = threadIdx.x; i < g.hb; i += blockDim.x) s_hist[i] = 0;

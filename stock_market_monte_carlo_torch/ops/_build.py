@@ -57,7 +57,7 @@ _ARGTYPES = {
     "smmc_counts_below_tile": (_vp, _vp, _i, _vp, _vp),
     "smmc_grid_overhead": (_i, _u, _u, _i, _i, _vp, _vp, _vp),
     "smmc_calib": (_i, _u, _i, _i, _vp, _vp),
-    "smmc_op_toy": (_i, _f, _f, _vp, _i, _vp, _vp),
+    "smmc_op_toy": (_i, _f, _f, _i, _i, _vp, _i, _vp, _vp),
     "smmc_byte_planes": (_vp, _i, _vp, _vp),
     "smmc_histogram": (_i, _vp, _i, _i, _f, _f, _f, _vp, _vp),
     "smmc_flatten_tile": (_vp, _vp, _i, _vp),

@@ -65,6 +65,13 @@ TOY_XI0, TOY_CI = 3, 1
 # chains a thread of each instance (csrc/calibration.cu kToyChains; mm: a
 # thread's 64 accumulators)
 TOY_CHAINS = {op: 64 if op == "mm" else 16 for op in TOY_OPS}
+# hard starts of the cvt toy's chains, at which the tests and chip_smoke.py
+# hold the kernel to its plain version: chains on either side of +-2^22,
+# a value that bf16(float32(xi)) rounds twice (2^24 + 2^16 + 1: 2^24,
+# where one rounding gives 2^24 + 2^17), its negative, and a chain ending
+# at 2^31 - 1
+TOY_CVT_HARD_XI0 = (3, -(1 << 22) + 20, (1 << 22) - 13, (1 << 22) - 5,
+                    16842753, -16842753, (1 << 31) - 13)
 
 
 # ---------------------------------------------------------------------------
@@ -239,20 +246,50 @@ def calib_chunk(n_ops, *, n_periods, n_paths, seed, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _check_toy(op, n_tiles):
+def _check_toy(op, n_tiles, xi0=TOY_XI0):
     if op not in TOY_OPS:
         raise ValueError(f"unknown op class {op!r}")
     if n_tiles < 1 or n_tiles > TOY_TILES * 16:
         raise ValueError(f"n_tiles must be in [1, {TOY_TILES * 16}], got "
                          f"{n_tiles}")
+    last = xi0 + TOY_PASSES * TOY_CI
+    if not -(1 << 31) <= min(xi0, last) <= max(xi0, last) < 1 << 31:
+        raise ValueError(f"xi0 = {xi0}: the chains leave int32")
 
 
-def _toy_tile(op, device):
+def _round_bits(v, bits):
+    """Non-negative int64 ``v`` rounded to ``bits`` significant bits, to
+    nearest, ties to even (exact below 2^62)."""
+    out = v.clone()
+    for shift in range(1, 63 - bits):
+        over = v >= 1 << (bits + shift - 1)
+        if not bool(over.any()):
+            break
+        q, rem, half = v >> shift, v & ((1 << shift) - 1), 1 << (shift - 1)
+        q = q + ((rem > half) | ((rem == half) & ((q & 1) == 1))).long()
+        out = torch.where(over, q << shift, out)
+    return out
+
+
+def cvt_bf16_twin(xi):
+    """The cvt kernel's conversion of int32 values (any integer tensor) to
+    bfloat16, step by step in integer arithmetic, as float32 values:
+    ``__int2float_rn``, xi rounded to 24 significant bits, then
+    ``__floats2bfloat162_rn``, that float rounded to 8; each to nearest,
+    ties to even. bf16(float32(xi)): torch's and XLA's int-to-bf16 cast,
+    two roundings past 2^24."""
+    xi = torch.as_tensor(xi).to(torch.int64)
+    out = _round_bits(_round_bits(xi.abs(), 24), 8).to(torch.float32)
+    return torch.where(xi < 0, -out, out)
+
+
+def _toy_tile(op, device, xi0=TOY_XI0):
     """One (4096, 128) tile of class ``op`` after its 12 passes, float32,
-    as the toy writes it (iadd, shf: xi; cvt: bacc + xi; hash: the word's
-    top 24 bits; else x). torch's own ops in the toy's types: float32, a
-    bfloat16 accumulator, ``bf16 @ bf16`` accumulated in float32 for mm
-    (TF32 off)."""
+    as the toy writes it (iadd, shf: xi as int32; cvt: bacc + xi; hash: the
+    word's top 24 bits; else x). torch's own ops in the toy's types:
+    float32, a bfloat16 accumulator, ``bf16 @ bf16`` accumulated in float32
+    for mm (TF32 off). The integer chains start at ``xi0``; shf and hash
+    run on uint32 bits, iadd and cvt never leave int32 (``_check_toy``)."""
     from stock_market_monte_carlo_torch.ops import clt
 
     dev = torch.device(device)
@@ -270,13 +307,13 @@ def _toy_tile(op, device):
                 y = x.to(torch.bfloat16).to(torch.float32) @ qf
                 x = TOY_A + y * TOY_C
         return x
-    xi = torch.full(shape, TOY_XI0, dtype=torch.int64, device=dev)
+    xi = torch.full(shape, xi0, dtype=torch.int64, device=dev)
     bacc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
     for _ in range(TOY_PASSES):
         if op == "iadd":
             xi = xi + TOY_CI
         elif op == "shf":
-            xi = (xi >> 1) + TOY_CI      # small and non-negative: logical
+            xi = (((xi & ce.MASK32) >> 1) + TOY_CI) & ce.MASK32  # logical
         elif op == "cvt":
             bacc = bacc + xi.to(torch.bfloat16)
             xi = xi + TOY_CI
@@ -286,33 +323,38 @@ def _toy_tile(op, device):
         return bacc.to(torch.float32) + xi.to(torch.float32)
     if op == "hash":
         return (xi >> 8).to(torch.float32)
-    return xi.to(torch.float32)
+    xi = xi & ce.MASK32
+    return torch.where(xi >= 1 << 31, xi - (1 << 32), xi).to(torch.float32)
 
 
-def op_toy_chunk_plain(op, n_tiles=TOY_TILES, device="cpu"):
+def op_toy_chunk_plain(op, n_tiles=TOY_TILES, device="cpu", *,
+                       xi0=TOY_XI0):
     """Plain PyTorch version of the toy kernel on ``device``: (n_tiles *
     8, 128) float32, rows 0-7 of each tile. Every tile is the same, so it
-    computes one tile and repeats it."""
-    _check_toy(op, n_tiles)
-    rows = _toy_tile(op, device)[:TOY_OUT_ROWS]
+    computes one tile and repeats it. ``xi0``: the integer chains' start
+    (the tests' hard inputs)."""
+    _check_toy(op, n_tiles, xi0)
+    rows = _toy_tile(op, device, xi0)[:TOY_OUT_ROWS]
     return rows.repeat(n_tiles, 1)
 
 
-def op_toy_launcher(op, n_tiles=TOY_TILES, device="cuda"):
+def op_toy_launcher(op, n_tiles=TOY_TILES, device="cuda", *, xi0=TOY_XI0):
     """Checked inputs of one toy on a CUDA device -> ``(launch,
     outputs)``: ``launch()`` runs the kernel, uncounted; ``outputs()``
-    returns the (n_tiles * 8, 128) rows."""
+    returns the (n_tiles * 8, 128) rows. ``xi0``: the integer chains'
+    start (the tests' hard inputs)."""
     from stock_market_monte_carlo_torch.ops import clt
     from stock_market_monte_carlo_torch.ops._build import load_library
 
-    _check_toy(op, n_tiles)
+    _check_toy(op, n_tiles, xi0)
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"no toy kernel for device {dev}")
     q = clt.q_tensor(dev) if op == "mm" else None
     out = torch.empty((n_tiles * TOY_OUT_ROWS, 128), dtype=torch.float32,
                       device=dev)
-    args = (TOY_OPS[op], TOY_C, TOY_A, ce._ptr(q), n_tiles, ce._ptr(out),
+    args = (TOY_OPS[op], TOY_C, TOY_A, int(xi0), TOY_CI, ce._ptr(q), n_tiles,
+            ce._ptr(out),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     fn = load_library().smmc_op_toy
 
@@ -354,22 +396,26 @@ def _instructions(sass: str):
     return instrs, addrs
 
 
-def loop_body(sass: str) -> list:
-    """The instructions of the longest loop of one function's SASS listing:
-    from a branch's target to the branch, for every branch that jumps
-    back. NOPs do not count."""
+def loop_body(sass: str, holding: str | None = None) -> list:
+    """The instructions of the longest loop of one function's SASS listing,
+    or with ``holding`` the shortest loop that holds an instruction of
+    that opcode: from a branch's target to the branch, for every branch
+    that jumps back. NOPs do not count."""
     instrs, addrs = _instructions(sass)
-    best = []
+    loops = []
     for j, ins in enumerate(instrs):
         m = _TARGET.search(ins)
-        if not m:
-            continue
-        i = addrs.get(int(m.group(1), 16))
-        if i is not None and i <= j and j - i + 1 > len(best):
-            best = instrs[i:j + 1]
-    if not best:
-        raise ValueError("no loop in the listing")
-    return best
+        i = addrs.get(int(m.group(1), 16)) if m else None
+        if i is not None and i <= j:
+            loops.append(instrs[i:j + 1])
+    if holding is not None:
+        loops = sorted((b for b in loops if holding in opcodes(b)), key=len)
+    else:
+        loops = sorted(loops, key=len, reverse=True)
+    if not loops:
+        raise ValueError(f"no loop{f' holding {holding}' if holding else ''}"
+                         " in the listing")
+    return loops[0]
 
 
 def loop_instructions(sass: str) -> int:
@@ -441,13 +487,14 @@ def op_toy_sass() -> dict:
     "opcodes": {opcode: count}}} of each toy instance in the built library.
     The non-mm instances are straight-line code (12 passes of 16 chains
     unrolled): every instruction counts, the chains' setup and the stores
-    with them. mm runs its passes as a loop: its body, one pass of a
-    thread's 64 chains."""
+    with them. mm runs its passes as a loop inside the loop over its
+    groups: the pass loop's body (the shortest loop holding an HGMMA), one
+    pass of a thread's 64 accumulators."""
     out = {}
     for op, code in TOY_OPS.items():
         sass = sass_function(f"op_toy_kernelILi{code}E")
         if op == "mm":
-            body, passes = loop_body(sass), 1
+            body, passes = loop_body(sass, holding="HGMMA"), 1
         else:
             body, passes = _instructions(sass)[0], TOY_PASSES
         out[op] = dict(instructions=len(body),

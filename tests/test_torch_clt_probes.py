@@ -137,6 +137,61 @@ def test_op_toy_values_and_checks():
         cal.op_toy_chunk_plain("mul", 0)
 
 
+def _bf16_of_torch_and_xla(xi):
+    """int32 values cast to bfloat16 by torch (from int64) and by XLA on
+    the CPU (``astype``), as float32 arrays."""
+    by_torch = torch.as_tensor(xi, dtype=torch.int64).to(torch.bfloat16)
+    by_xla = jnp.asarray(np.asarray(xi, np.int32)).astype(jnp.bfloat16)
+    return (by_torch.to(torch.float32).numpy(),
+            np.asarray(by_xla).astype(np.float32))
+
+
+def test_cvt_twin_matches_torch_and_xla_about_2_22():
+    """The cvt kernel's conversion, step by step (cal.cvt_bf16_twin), on
+    every int in [-2^22, 2^22], bit for bit against torch's and XLA's
+    int-to-bf16 casts."""
+    xi = np.arange(-(1 << 22), (1 << 22) + 1, dtype=np.int64)
+    got = cal.cvt_bf16_twin(torch.from_numpy(xi)).numpy()
+    by_torch, by_xla = _bf16_of_torch_and_xla(xi)
+    np.testing.assert_array_equal(got, by_torch)
+    np.testing.assert_array_equal(got, by_xla)
+
+
+def test_cvt_twin_matches_torch_and_xla_on_witnesses():
+    """The conversion up to 2^31 - 1, bit for bit against torch and XLA:
+    the card tests' starts and their chains, a value that rounds twice
+    (2^24 + 2^16 + 1 goes to 2^24 through float32, to 2^24 + 2^17 in one
+    rounding), ties and carries at every binade past 2^24, and 2^20 draws
+    over int32; then the plain toy from each start against a bf16 sum of
+    the twin's values, and the plain toy's int32 check."""
+    rng = np.random.default_rng(17)
+    starts = np.asarray(cal.TOY_CVT_HARD_XI0, np.int64)
+    ties = [(1 << b) + (1 << (b - 8)) * m + d for b in range(24, 31)
+            for m in (1, 3) for d in (-1, 0, 1)]
+    xi = np.concatenate([
+        (starts[:, None] + np.arange(cal.TOY_PASSES + 1)).ravel(),
+        np.asarray(ties), -np.asarray(ties), [2**31 - 1, -(2**31)],
+        rng.integers(-(2**31), 2**31, 1 << 20)])
+    got = cal.cvt_bf16_twin(torch.from_numpy(xi)).numpy()
+    by_torch, by_xla = _bf16_of_torch_and_xla(xi)
+    np.testing.assert_array_equal(got, by_torch)
+    np.testing.assert_array_equal(got, by_xla)
+    witness = torch.tensor([16842753])
+    assert float(cal.cvt_bf16_twin(witness)) == 2.0**24
+    assert int(cal._round_bits(witness, 8)) == 2**24 + 2**17
+    for x0 in cal.TOY_CVT_HARD_XI0:
+        bacc = torch.zeros((), dtype=torch.bfloat16)
+        for p in range(cal.TOY_PASSES):
+            bacc = bacc + cal.cvt_bf16_twin(torch.tensor(x0 + p)).to(
+                torch.bfloat16)
+        want = float(bacc.float() + torch.tensor(x0 + cal.TOY_PASSES,
+                                                 dtype=torch.float32))
+        assert bool((cal.op_toy_chunk_plain("cvt", 1, xi0=x0)
+                     == want).all())
+    with pytest.raises(ValueError, match="int32"):
+        cal.op_toy_chunk_plain("cvt", 1, xi0=(1 << 31) - 12)
+
+
 # ---------------------------------------------------------------------------
 # 12c, 12d: the ablation and the tile grouping
 # ---------------------------------------------------------------------------

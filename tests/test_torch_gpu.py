@@ -62,6 +62,7 @@ from stock_market_monte_carlo_torch.data.loader import (
     SYNTHETIC_CSV,
     read_historical_returns,
 )
+from stock_market_monte_carlo_torch.ops import calibration as cal
 from stock_market_monte_carlo_torch.ops import clt
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 
@@ -1536,6 +1537,19 @@ def test_op_toy_kernel_matches_plain(cuda, op):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("xi0", cal.TOY_CVT_HARD_XI0)
+def test_op_toy_cvt_hard_inputs(cuda, xi0):
+    """The cvt toy bit for bit against its plain version where its chains
+    start at hard values (cal.TOY_CVT_HARD_XI0): about 2^22, the
+    double-rounding witness 2^24 + 2^16 + 1 and its negative, and a chain
+    that ends at 2^31 - 1."""
+    launch, outputs = cal.op_toy_launcher("cvt", 64, cuda, xi0=xi0)
+    launch()
+    want = cal.op_toy_chunk_plain("cvt", 64, device=cuda, xi0=xi0)
+    torch.cuda.synchronize()
+    assert torch.equal(outputs(), want)
+
+
 def _probe_operands(cuda):
     arow, cs = clt.block_consts(np.float32(1.005), np.float32(1.0 / 120.0),
                                 360)
@@ -1642,21 +1656,25 @@ def test_probe_wrappers_check_inputs_and_count_launches(cuda):
 
 def test_op_toy_sass(cuda):
     """Each toy instance is found in the built library's SASS; mul issues
-    at least one FMUL an element-pass, fma an FMUL and an FADD, mm its
-    HMMAs (16 n-tiles x 8 k-steps a pass), and the chains are not folded
-    away (a folded chain would cost about 1/12 of an instruction an
-    element-pass). iadd's passes add their own addends on the integer
-    pipe: IADD3, a three-input add, takes two passes' adds at once, so at
-    least one IADD3 for two element-passes and no LEA or IMAD that adds
-    x + 2ci (a few compute addresses)."""
-    from stock_market_monte_carlo_torch.ops import calibration as cal
-
+    at least one FMUL an element-pass, fma an FMUL and an FADD, mm's pass
+    loop its 8 wgmma k-steps (HGMMA) and neither HMMA nor LDS (Q is read
+    through the descriptor), cvt no I2F (the conversion unit) and one
+    F2FP a pair of element-passes, and the
+    chains are not folded away (a folded chain would cost about 1/12 of an
+    instruction an element-pass). iadd's passes add their own addends on
+    the integer pipe: IADD3, a three-input add, takes two passes' adds at
+    once, so at least one IADD3 for two element-passes and no LEA or IMAD
+    that adds x + 2ci (a few compute addresses)."""
     sass = cal.op_toy_sass()
     chains = 12 * 16
     assert sass["mul"]["opcodes"].get("FMUL", 0) >= chains
     assert sass["fma"]["opcodes"].get("FADD", 0) >= chains
     assert sass["fma"]["opcodes"].get("FMUL", 0) >= chains
-    assert sass["mm"]["opcodes"].get("HMMA", 0) == 16 * 8
+    mm = sass["mm"]["opcodes"]
+    assert mm.get("HGMMA", 0) == 8
+    assert mm.get("HMMA", 0) == 0 and mm.get("LDS", 0) == 0
+    cvt = sass["cvt"]["opcodes"]
+    assert cvt.get("I2F", 0) == 0 and cvt.get("F2FP", 0) >= chains // 2
     iadd = sass["iadd"]["opcodes"]
     assert iadd.get("IADD3", 0) >= chains // 2
     assert iadd.get("LEA", 0) + iadd.get("IMAD", 0) < 16
