@@ -12,7 +12,9 @@ table) and prints their launch plans, holds the histogram kernel's three
 modes and the tile flatten against their plain versions and np.bincount
 (and times the flatten and Tensor.copy_ in turns), the CLT and law
 chunks of an odd histogram and the Sobol draws at 1866 months against
-their plain versions, times the kernels and the paths, runs the histogram
+their plain versions, times the kernels and the paths (the counts below a
+tile also as launches replayed from a CUDA graph, beside a 1-element
+``fill_``), runs the histogram
 probes' reports (``bench/probes.py``) and the headline benchmark
 (``bench/headline.py``) at 100M x 360 with its dispatch-floor and
 calibration kernels; then the experiment probes of the CLT and the
@@ -200,7 +202,7 @@ GRID_SEED = 12345
 CALIB_SEED = 123
 # a ragged tile offset for the calibration check
 CALIB_TILE0 = 37
-COUNTS_K = (8, 32, 64)
+COUNTS_K = (1, 8, 32, 64)
 # tile counts of the flatten besides the main 2048 (a block copies a tile):
 # one block, and an odd grid
 FLATTEN_ODD_TILES = (1, 2047)
@@ -1512,19 +1514,27 @@ def main():
                       f"{float(got.double().sum())!r})")
     rng = np.random.default_rng(11)
     tile = np.exp(rng.normal(size=(ce.TILE_ROWS, 128)).astype(np.float32))
-    for k in COUNTS_K:
+    # the last case: NaN and +-inf in tile rows and in threshold lanes
+    special = np.float32([np.nan, np.inf, -np.inf])
+    hard_tile = tile.copy()
+    hard_tile[5:8] = special[:, None]
+    for k, tl in [(k, tile) for k in COUNTS_K] + [(32, hard_tile)]:
         thr = np.exp(rng.normal(size=(k, 128)).astype(np.float32))
-        thr[k // 2] = tile[3]   # ties: strictly below excludes them
-        ops = (torch.as_tensor(tile, device=DEVICE),
+        thr[k // 2] = tl[3]   # ties: strictly below excludes them
+        if tl is hard_tile:
+            thr[:, 0:3] = special
+        ops = (torch.as_tensor(tl, device=DEVICE),
                torch.as_tensor(thr, device=DEVICE))
         got = bk.counts_below_tile(*ops)
         want = bk.counts_below_tile_plain(*ops)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
-        check(torch.equal(got, want), f"counts_below_tile K={k}: kernel "
+        what = (f"K={k}" + (", NaN and +-inf in the tile and thresholds"
+                            if tl is hard_tile else ""))
+        check(torch.equal(got, want), f"counts_below_tile {what}: kernel "
                                       f"differs from plain by {err}")
         max_err["counts_below_tile"] = max(max_err["counts_below_tile"], err)
-        say("3c", f"counts_below_tile K={k}, ties in row {k // 2}: kernel "
+        say("3c", f"counts_below_tile {what}, ties in row {k // 2}: kernel "
                   "== plain")
 
     # 3d. the histogram kernel's three modes against their plain versions
@@ -1646,6 +1656,17 @@ def main():
               f"op_toy cvt xi0={xi0}: kernel differs from plain by "
               f"{float((outputs() - want).abs().max())}")
     say("3e", f"op_toy cvt 64 tiles from xi0 in {cal.TOY_CVT_HARD_XI0}: "
+              "kernel == plain")
+    # the shf toy's chains started with bit 31 set and at the largest int32
+    for xi0 in cal.TOY_SHF_HARD_XI0:
+        launch, outputs = cal.op_toy_launcher("shf", 64, DEVICE, xi0=xi0)
+        launch()
+        want = cal.op_toy_chunk_plain("shf", 64, device=DEVICE, xi0=xi0)
+        torch.cuda.synchronize()
+        check(torch.equal(outputs(), want),
+              f"op_toy shf xi0={xi0}: kernel differs from plain by "
+              f"{float((outputs() - want).abs().max())}")
+    say("3e", f"op_toy shf 64 tiles from xi0 in {cal.TOY_SHF_HARD_XI0}: "
               "kernel == plain")
     for ablate in clt.ABLATIONS:
         ops, kw = probes.clt_probe_case(CHUNK, DEVICE, probes.ABLATE_SEED)
@@ -2173,6 +2194,21 @@ def main():
            f"kernel {turns[0]!r}, copy_ {turns[1]!r}, copy_ {turns[2]!r}, "
            f"kernel {turns[3]!r} ms; kernel/copy_ "
            f"{flat['ms'] / flat['library_ms']!r}")
+    # the counts below a tile with no host dispatch: launches in one CUDA
+    # graph, its replays timed, beside a 1-element fill_ under the same
+    # replay (the floor of a launch)
+    from stock_market_monte_carlo_torch.bench import chunk_times, headline
+
+    counts_ops = timed_args["counts_below_tile"][0]
+    graph = {"counts_below_tile": headline.graph_ms(
+                 lambda: bk.counts_below_tile_launcher(*counts_ops)),
+             "fill_one": headline.graph_ms(
+                 lambda: chunk_times.fill_one_launcher(DEVICE))}
+    say(6, f"[{card}] counts_below_tile K=32 under graph replay "
+           f"({headline.GRAPH_K} launches a graph, median of "
+           f"{headline.GRAPH_REPS} replays): {graph['counts_below_tile']!r} "
+           f"ms a launch; 1-element fill_ {graph['fill_one']!r} ms; ratio "
+           f"{graph['counts_below_tile'] / graph['fill_one']!r}")
     # 6c. the production CLT again, after the probe instances ran: within
     # CLT_TIME_REL of its phase-6 time
     launch, _ = clt.clt_launcher(*timed_args["clt"][0], **timed_args["clt"][1])
@@ -2182,8 +2218,6 @@ def main():
           f"production CLT {again} ms vs {timings['clt']['ms']} ms earlier")
     say("6c", f"[{card}] production CLT again: {again!r} ms a chunk vs "
               f"{timings['clt']['ms']!r} ms in phase 6 ({drift:+.4f})")
-    from stock_market_monte_carlo_torch.bench import headline
-
     report = headline.grid_overhead_report()
     check(report["counter_bits_identical_across_grouping"],
           f"grid overhead report: {report}")

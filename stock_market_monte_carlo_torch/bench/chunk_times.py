@@ -14,7 +14,10 @@ cells), the tile flatten (2048 tiles), the calibration kernels, the
 byte planes of both experiments, the counts below a tile (K=32) and the
 op-class toys (``op_toy_<op>``, 4096 tiles), launched bare (the
 launcher's C call, uncounted): the median of 3 measurements of CUDA
-events around 5 launches (``headline.events_ms``).
+events around 5 launches (``headline.events_ms``). Cases whose name ends
+in ``_graph`` are timed with no host dispatch in them, as launches in one
+CUDA graph (``headline.graph_ms``): the counts below a tile, and its
+floor, a 1-element ``Tensor.fill_`` (``fill_one_graph``).
 NAME picks cases (default: all). Prints the card's name and power limit,
 then one JSON line {name: ms a chunk}. Imports neither jax nor the JAX
 package.
@@ -114,10 +117,19 @@ def cases():
     out["counts_below_tile"] = (bk.counts_below_tile_launcher, tuple(
         torch.as_tensor(rng.lognormal(size=shape).astype(np.float32),
                         device=dev) for shape in ((64, 128), (32, 128))), {})
+    out["counts_below_tile_graph"] = out["counts_below_tile"]
+    out["fill_one_graph"] = (fill_one_launcher, (dev,), {})
     for op in cal.TOY_OPS:
         out[f"op_toy_{op}"] = (cal.op_toy_launcher, (op,), dict(
             n_tiles=cal.TOY_TILES, device=dev))
     return out
+
+
+def fill_one_launcher(device):
+    """``(launch, outputs)`` of a 1-element ``Tensor.fill_``: the floor
+    of a launch under graph replay."""
+    t = torch.empty(1, device=device)
+    return (lambda: t.fill_(1.0)), lambda: t
 
 
 def main(argv=None):
@@ -130,6 +142,9 @@ def main(argv=None):
             continue
         if "keep_finals" in kw and not name.startswith("law"):
             kw = dict(kw, keep_finals=False)
+        if name.endswith("_graph"):
+            times[name] = headline.graph_ms(lambda: launcher(*ops, **kw))
+            continue
         launch, _ = launcher(*ops, **kw)
         times[name] = headline.events_ms(lambda _: launch(), k=5, reps=3)
     print(json.dumps(times))

@@ -24,6 +24,9 @@ wrappers), the dispatch tax of an isolated call, the dispatch floor (the
 chunks of a 100M run launched back to back, and the sustained int32
 instruction rate from the calibration pair, with each kernel's predicted
 time at that rate (``bench/roofline.py``) over its measured time.
+``graph_ms`` times a launch with no host dispatch in it (launches
+captured in one CUDA graph, its replays timed), for kernels so small that
+back-to-back events time how fast the host dispatches.
 
 Prints the full record on the line before the last, and on the last line
 one JSON object of under 2000 characters: metric, value (law paths/s on
@@ -74,6 +77,12 @@ CHUNK = 1 << 24
 # back-to-back calls in one device-time measurement, and measurements
 K = 6
 REPS = 3
+# a graph-replay measurement: launches a graph, replays, and the sleep
+# before each replay (~0.5 ms at the H100's clock, far longer than the
+# host takes to queue an event and a replay)
+GRAPH_K = 20
+GRAPH_REPS = 11
+GRAPH_SLEEP_CYCLES = 1_000_000
 GRID_SEED = 12345
 CALIB_SEED = 123
 # a row's mean against the analytic mean: this, or six standard errors
@@ -119,6 +128,47 @@ def events_ms(call, k=K, reps=REPS):
         start.record()
         for i in range(k):
             call(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    return statistics.median(times)
+
+
+def graph_capture(make_launch, k=GRAPH_K):
+    """``(graph, outputs)``: ``k`` calls of ``launch`` captured in one
+    ``torch.cuda.CUDAGraph``, where ``make_launch()`` returns ``(launch,
+    outputs)`` as the bare launchers do. One launch runs outside the
+    capture first, so that lazy module loading does not happen inside it;
+    the launch captured is built inside the capture, because a launcher
+    reads the current stream when it is built and must read the capture
+    stream."""
+    launch, _ = make_launch()
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch, outputs = make_launch()
+        for _ in range(k):
+            launch()
+    return graph, outputs
+
+
+def graph_ms(make_launch, k=GRAPH_K, reps=GRAPH_REPS):
+    """Milliseconds per launch with no host dispatch in them: CUDA events
+    around one replay of ``graph_capture(make_launch, k)``, over ``k``; the
+    median of ``reps`` replays, after one. A sleep kernel goes before each
+    start event, so the host has queued the event and the replay before
+    the card reaches them."""
+    graph, _ = graph_capture(make_launch, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(GRAPH_SLEEP_CYCLES)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / k)

@@ -596,23 +596,39 @@ extern "C" int smmc_bands_info(int mode, int draw, int keep, int k_chunks,
 // values and K x 512 B of thresholds and writes K x 512 B of counts, under
 // 0.1 us at 3.35 TB/s; a launch costs its latency.
 //
-// What the design does about it: one thread per (k, c) output, looping over
-// the 64 rows of its lane; neighbouring threads read neighbouring lanes.
+// What the design does about it: one block a threshold row, four threads an
+// output (k, c), each counting 16 of the 64 rows of lane c; neighbouring
+// threads read neighbouring lanes. A thread's 16 loads are all in flight
+// before its first compare, so the launch waits for one round trip to L2;
+// the four partial counts meet in shared memory. One thread an output
+// looping over 64 rows waited for several: ptxas keeps it at 32 to 48
+// registers, so a compare comes after the first 22 to 39 loads.
 namespace {
 
 constexpr int kTileRows = 64;
+constexpr int kParts = 4;                          // threads an output
+constexpr int kPartRows = kTileRows / kParts;
+static_assert(kParts == 4, "the kernel adds four parts by name");
 
-__global__ void __launch_bounds__(smmc::kBlock)
+__global__ void __launch_bounds__(128 * kParts)
 counts_below_tile_kernel(const float* __restrict__ tl,
-                         const float* __restrict__ thr, int n_out,
+                         const float* __restrict__ thr,
                          int* __restrict__ out) {
-  const int i = blockIdx.x * smmc::kBlock + threadIdx.x;
-  if (i >= n_out) return;
-  const int c = i & 127;
+  __shared__ int part[kParts][128];
+  const int c = threadIdx.x, q = threadIdx.y;
+  const int i = blockIdx.x * 128 + c;
   const float t = thr[i];
+  float v[kPartRows];
+#pragma unroll
+  for (int r = 0; r < kPartRows; ++r)
+    v[r] = tl[(q * kPartRows + r) * 128 + c];
   int n = 0;
-  for (int r = 0; r < kTileRows; ++r) n += tl[r * 128 + c] < t ? 1 : 0;
-  out[i] = n;
+  // strict <: NaN on either side counts 0
+#pragma unroll
+  for (int r = 0; r < kPartRows; ++r) n += v[r] < t ? 1 : 0;
+  part[q][c] = n;
+  __syncthreads();
+  if (q == 0) out[i] = part[0][c] + part[1][c] + part[2][c] + part[3][c];
 }
 
 }  // namespace
@@ -621,10 +637,8 @@ counts_below_tile_kernel(const float* __restrict__ tl,
 // Returns cudaGetLastError() after the launch.
 extern "C" int smmc_counts_below_tile(const float* tl, const float* thr,
                                       int k_rows, int* out, void* stream) {
-  const int n_out = k_rows * 128;
-  counts_below_tile_kernel<<<(n_out + smmc::kBlock - 1) / smmc::kBlock,
-                             smmc::kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      tl, thr, n_out, out);
+  counts_below_tile_kernel<<<k_rows, dim3(128, kParts), 0,
+                             static_cast<cudaStream_t>(stream)>>>(tl, thr,
+                                                                  out);
   return cudaGetLastError();
 }

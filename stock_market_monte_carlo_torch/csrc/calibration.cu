@@ -66,7 +66,14 @@
 //   iadd  IADD3 97, VIADD 27 (the addends and the chains' starts): each
 //         pass adds its own addend register, and one IADD3 (a three-input
 //         add) takes two passes' adds, all on the integer pipe; 0.98
-//   shf   LEA 194: (x >> 1) + cp is one LEA.HI, the shift is free; 1.48
+//   shf   LEA 194: (x >> 1) + cp is one LEA.HI, the shift is free; 1.48.
+//         LEA.HI issues only on the ALU pipe, at 64 lanes a SM-clock;
+//         mad.hi.u32 (x, 2^31, cp), the same shift-add as IMAD.HI on the
+//         FMA pipe, ran at half that for all 16 chains (3.04-3.18 ms
+//         against 1.76), and every split of the chains between the two
+//         pipes tried (1, 2, 3, 4, 6 or 8 of 16 as IMAD.HI, the multiplier
+//         a kernel argument) ran 2-12 % slower than LEA.HI alone, so the
+//         toy keeps LEA.HI (PERF.md §6)
 //   cvt   I2FP 208 (int32 to float32 on the integer pipe; 16 in the
 //         stores), IMAD 207 (the chains' adds, as IMAD.IADD), F2FP 96 (a
 //         pair rounded to bf16 a pack), HFMA2 55 and HADD2 41 (the bf16

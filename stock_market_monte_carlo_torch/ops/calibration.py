@@ -72,6 +72,9 @@ TOY_CHAINS = {op: 64 if op == "mm" else 16 for op in TOY_OPS}
 # at 2^31 - 1
 TOY_CVT_HARD_XI0 = (3, -(1 << 22) + 20, (1 << 22) - 13, (1 << 22) - 5,
                     16842753, -16842753, (1 << 31) - 13)
+# hard starts of the shf toy's chains: bit 31 set (a logical shift brings
+# in a 0, an arithmetic one a 1) and the largest int32
+TOY_SHF_HARD_XI0 = (-1, -3, -(1 << 31), -(1 << 31) + 1, (1 << 31) - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +255,8 @@ def _check_toy(op, n_tiles, xi0=TOY_XI0):
     if n_tiles < 1 or n_tiles > TOY_TILES * 16:
         raise ValueError(f"n_tiles must be in [1, {TOY_TILES * 16}], got "
                          f"{n_tiles}")
-    last = xi0 + TOY_PASSES * TOY_CI
+    # iadd and cvt add ci each pass; shf and hash run on uint32 bits
+    last = xi0 + TOY_PASSES * TOY_CI if op in ("iadd", "cvt") else xi0
     if not -(1 << 31) <= min(xi0, last) <= max(xi0, last) < 1 << 31:
         raise ValueError(f"xi0 = {xi0}: the chains leave int32")
 

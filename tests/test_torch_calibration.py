@@ -197,17 +197,23 @@ def test_calib_and_grid_wrappers_run_plain_on_the_cpu():
 
 
 @pytest.mark.parametrize("n_thr,lanes", [(8, "row"), (32, "row"),
-                                          (64, "row"), (32, "per_lane")])
+                                          (64, "row"), (32, "per_lane"),
+                                          (1, "row"), (1, "per_lane"),
+                                          (1, "nan_inf"), (64, "nan_inf")])
 def test_counts_below_tile_matches_jax(n_thr, lanes):
     """Against pl.pallas_call of _counts_below_tile in interpret mode, for
     each of its three layouts, bit for bit; thresholds equal across lanes
-    (tests/test_bands.py's inputs) or drawn per lane, with a tie row."""
+    (tests/test_bands.py's inputs) or drawn per lane, with a tie row; with
+    ``nan_inf``, NaN and +-inf in the tile's rows and columns and in the
+    thresholds' lanes (strict <: NaN on either side counts 0)."""
     rng = np.random.default_rng(11)
     tl = np.exp(rng.normal(size=(pe.TILE_ROWS, 128)).astype(np.float32))
     shape = (n_thr, 1) if lanes == "row" else (n_thr, 128)
     thr = np.exp(rng.normal(size=shape).astype(np.float32)) * np.ones(
         (1, 128), np.float32)
     thr[n_thr // 2, :] = tl[3, :]   # ties: strictly below excludes them
+    if lanes == "nan_inf":
+        _nan_inf(tl, thr)
     got = port_bands.counts_below_tile(torch.as_tensor(tl),
                                        torch.as_tensor(thr))
     assert got.dtype == torch.int32
@@ -221,6 +227,18 @@ def test_counts_below_tile_matches_jax(n_thr, lanes):
             interpret=True)(jnp.asarray(tl), jnp.asarray(thr))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want),
                                       err_msg=f"{impl} K={n_thr}")
+
+
+def _nan_inf(tl, thr):
+    """NaN and +-inf, in place: whole rows and single values of the tile,
+    whole lanes and single values of the thresholds."""
+    special = np.float32([np.nan, np.inf, -np.inf])
+    tl[5:8, :] = special[:, None]
+    tl[9:12, 20] = special
+    tl[13, 30:33] = special
+    thr[:, 0:3] = special
+    thr[-1, 40:43] = special
+    thr[0, 20] = np.inf
 
 
 def test_counts_below_tile_checks_shapes():

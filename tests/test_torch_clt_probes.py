@@ -135,6 +135,22 @@ def test_op_toy_values_and_checks():
         cal.op_toy_chunk_plain("div", 1)
     with pytest.raises(ValueError, match="n_tiles"):
         cal.op_toy_chunk_plain("mul", 0)
+    with pytest.raises(ValueError, match="int32"):
+        cal.op_toy_chunk_plain("shf", 1, xi0=1 << 31)
+
+
+@pytest.mark.parametrize("xi0", cal.TOY_SHF_HARD_XI0)
+def test_shf_toy_from_hard_starts(xi0):
+    """The plain shf toy from a start with bit 31 set (or the largest
+    int32) against a numpy twin on uint32: a logical shift, so the top bit
+    comes in as 0; written as int32."""
+    x = np.uint32(xi0 & 0xFFFFFFFF)
+    for _ in range(cal.TOY_PASSES):
+        x = (x >> np.uint32(1)) + np.uint32(cal.TOY_CI)
+    want = np.float32(np.array(x).view(np.int32))
+    got = cal.op_toy_chunk_plain("shf", 1, xi0=xi0)
+    assert got.shape == (cal.TOY_OUT_ROWS, 128)
+    assert bool((got == float(want)).all())
 
 
 def _bf16_of_torch_and_xla(xi):

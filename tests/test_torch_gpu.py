@@ -1219,20 +1219,53 @@ def test_calib_kernel_matches_plain(cuda, n_ops, n_paths, tile0):
     assert bool(torch.isfinite(got).all())
 
 
-@pytest.mark.parametrize("n_thr", [8, 32, 64])
+@pytest.mark.parametrize("n_thr", [8, 32, 64, 1, 3, 257])
 def test_counts_below_tile_kernel_matches_plain(cuda, n_thr):
+    """Exact, with a tie row, and with NaN and +-inf in the tile's rows and
+    values and in the thresholds' lanes (strict <: NaN counts 0)."""
     from stock_market_monte_carlo_torch.ops import bands as kb
 
     rng = np.random.default_rng(11)
     tl = np.exp(rng.normal(size=(64, 128)).astype(np.float32))
     thr = np.exp(rng.normal(size=(n_thr, 128)).astype(np.float32))
     thr[n_thr // 2] = tl[3]     # ties: strictly below excludes them
-    ops = (torch.as_tensor(tl, device=cuda), torch.as_tensor(thr,
-                                                             device=cuda))
-    got = kb.counts_below_tile(*ops)
-    want = kb.counts_below_tile_plain(*ops)
+    for special in (False, True):
+        if special:
+            tl[5:8] = np.float32([np.nan, np.inf, -np.inf])[:, None]
+            tl[9:12, 20] = [np.nan, np.inf, -np.inf]
+            thr[:, 0:3] = [np.nan, np.inf, -np.inf]
+            thr[-1, 40:43] = [np.nan, np.inf, -np.inf]
+        ops = (torch.as_tensor(tl, device=cuda),
+               torch.as_tensor(thr, device=cuda))
+        got = kb.counts_below_tile(*ops)
+        want = kb.counts_below_tile_plain(*ops)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), special
+
+
+def test_graph_timer_captures_the_ctypes_launch(cuda):
+    """headline.graph_capture builds the bare launcher inside the capture,
+    so the ctypes launch goes to the capture stream: a replay writes the
+    captured output, equal to a direct launch's, and graph_ms times it."""
+    from stock_market_monte_carlo_torch.bench import headline
+    from stock_market_monte_carlo_torch.ops import bands as kb
+
+    rng = np.random.default_rng(5)
+    ops = tuple(torch.as_tensor(rng.lognormal(size=shape).astype(
+        np.float32), device=cuda) for shape in ((64, 128), (32, 128)))
+    graph, outputs = headline.graph_capture(
+        lambda: kb.counts_below_tile_launcher(*ops), k=3)
+    outputs().fill_(-1)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    graph.replay()
+    launch, direct = kb.counts_below_tile_launcher(*ops)
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(outputs(), direct())
+    assert torch.equal(direct(), kb.counts_below_tile_plain(*ops))
+    ms = headline.graph_ms(lambda: kb.counts_below_tile_launcher(*ops),
+                           k=4, reps=3)
+    assert 0.0 < ms < 1.0
 
 
 def test_calibration_wrappers_check_inputs_and_count_launches(cuda):
@@ -1550,6 +1583,18 @@ def test_op_toy_cvt_hard_inputs(cuda, xi0):
     assert torch.equal(outputs(), want)
 
 
+@pytest.mark.parametrize("xi0", cal.TOY_SHF_HARD_XI0)
+def test_op_toy_shf_hard_inputs(cuda, xi0):
+    """The shf toy bit for bit against its plain version where its chains
+    start with bit 31 set (LEA.HI's shift is logical) or at the largest
+    int32 (cal.TOY_SHF_HARD_XI0)."""
+    launch, outputs = cal.op_toy_launcher("shf", 64, cuda, xi0=xi0)
+    launch()
+    want = cal.op_toy_chunk_plain("shf", 64, device=cuda, xi0=xi0)
+    torch.cuda.synchronize()
+    assert torch.equal(outputs(), want)
+
+
 def _probe_operands(cuda):
     arow, cs = clt.block_consts(np.float32(1.005), np.float32(1.0 / 120.0),
                                 360)
@@ -1664,7 +1709,9 @@ def test_op_toy_sass(cuda):
     instruction an element-pass). iadd's passes add their own addends on
     the integer pipe: IADD3, a three-input add, takes two passes' adds at
     once, so at least one IADD3 for two element-passes and no LEA or IMAD
-    that adds x + 2ci (a few compute addresses)."""
+    that adds x + 2ci (a few compute addresses). shf issues one LEA.HI an
+    element-pass (its shift-add) and no IMAD.HI, at least 0.9
+    instructions an element-pass."""
     sass = cal.op_toy_sass()
     chains = 12 * 16
     assert sass["mul"]["opcodes"].get("FMUL", 0) >= chains
@@ -1678,6 +1725,13 @@ def test_op_toy_sass(cuda):
     iadd = sass["iadd"]["opcodes"]
     assert iadd.get("IADD3", 0) >= chains // 2
     assert iadd.get("LEA", 0) + iadd.get("IMAD", 0) < 16
+    # shf: one LEA.HI an element-pass on the ALU pipe, none folded, none
+    # as IMAD.HI (half the lanes on the FMA pipe; every split ran slower)
+    shf = cal._instructions(cal.sass_function("op_toy_kernelILi3E"))[0]
+    forms = [ins.split()[0] for ins in shf]
+    assert sum(f.startswith("LEA.HI") for f in forms) >= chains
+    assert not any(f.startswith("IMAD.HI") for f in forms)
+    assert sass["shf"]["per_element_pass"] >= 0.9
     for op, v in sass.items():
         assert v["per_element_pass"] >= 0.4, op
     prod = cal.clt_production_sass()
