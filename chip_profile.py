@@ -7,7 +7,9 @@ For each path (``simulate_stats`` through the historical month loop, the
 terminal law, the Gaussian ICDF month loop, the Gaussian CLT and the Sobol
 Gaussian, Sobol historical and reference-parity historical month loops;
 the CLT prefix and the ICDF month loop under ``FixedPercentWithdrawal(0.4)``
-with the withdrawn total tracked;
+with the withdrawn total tracked; the XLA backend (``backend="xla"``: the
+threefry loop's historical, Gaussian and Sobol Gaussian draws and the
+terminal law's threefry draw);
 ``simulate_bands`` on the historical model in hist mode and on the
 Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
 ``torch.profiler`` (CPU and CUDA activity) over one call that ends in
@@ -78,6 +80,12 @@ def main():
             gaussian_sampler="clt-prefix"),
         "Gaussian ICDF month loop, 0.4 % a month": stats(
             gauss, smt.FixedPercentWithdrawal(0.4)),
+        "XLA historical (threefry loop)": stats(hist, backend="xla"),
+        "XLA Gaussian (threefry loop)": stats(gauss, backend="xla"),
+        "XLA Sobol Gaussian (threefry loop)": stats(sobol_gauss,
+                                                    backend="xla"),
+        "XLA terminal law (threefry)": stats(hist, backend="xla",
+                                             terminal_law=True),
         "historical bands (hist)": bands(hist, band_mode="hist"),
         "Gaussian bands (cdf)": bands(gauss, band_mode="cdf"),
     }

@@ -50,7 +50,14 @@ through the CLI's ``main([...])`` on the card: ``benchmark-mc-gpu 1 360
 native library built and held to its Python versions; ``benchmark-google``
 and ``benchmark-compare``; and the sweep (``bench/sweep.py``) at full
 size, which launches the ICDF and Sobol loops, the CLT, both band kernels
-and the law.
+and the law. Last, the JAX package's XLA backend (phase 13,
+``backend="xla"``): the threefry loop kernel (historical, Gaussian and
+Sobol Gaussian draws under no withdrawal, a fixed percent and a fixed
+amount) and the terminal law's threefry draw against their plain versions
+at the first and the ragged last 2^24-path chunk of a 100M-path run, the
+four XLA paths at 100M x 360 each counted on its own (means against
+1000 * g^360), a golden of the JAX package's XLA backend, their walls
+and their chunk times.
 
     python3 chip_smoke.py
 
@@ -65,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import io
 import json
 import math
@@ -90,6 +98,18 @@ GOLDEN_CLT = dict(t=7, head=[1001.21185, 1041.5238, 1029.5404, 1031.0122],
                   probes={1000: 1034.0186, 8192: 1024.9257, -1: 1055.2952},
                   total=9286861.409606934)
 GOLDEN_CLT_REL = 2e-5
+# the XLA backend's golden: 8192 + 777 paths x 360 months of the historical
+# model, seed 12, target 2000, from the JAX package's XLA backend on the
+# CPU (JAX 0.9.0); the port's CPU run sits within 2.9e-6 of its finals,
+# 9e-9 of its mean, with the same count below (tests/test_torch_xla_
+# backend.py holds 6e-6 at 360 months: XLA's product order)
+GOLDEN_XLA = dict(t=360, head=[2049.238525390625, 2156.827880859375,
+                               704.2615356445312, 13337.099609375],
+                  probes={1000: 11384.8388671875, 8192: 1016.2482299804688,
+                          -1: 2536.158935546875},
+                  mean=6758.954909934252, std=7499.748193547848,
+                  count_below=1707, total=60621062.797058105)
+GOLDEN_XLA_REL = 6e-6
 # CLT kernel against its plain version: the bf16 x bf16 product accumulates
 # in float32 in the tensor cores' order, torch.matmul in its own; the
 # difference compounds through 360 months of logs (measured 1.6e-6)
@@ -110,6 +130,8 @@ _PE = "stock_market_monte_carlo_tpu/ops/pallas_engine.py"
 _PB = "stock_market_monte_carlo_tpu/ops/pallas_bands.py"
 _EXP = "experiments"
 _CSRC = "stock_market_monte_carlo_torch/csrc"
+# the XLA backend's functions the threefry kernels run (not Pallas kernels)
+_ENG = "stock_market_monte_carlo_tpu/engine/engine.py"
 KERNELS = {
     "month_loop": dict(source=f"{_CSRC}/month_loop.cu",
                        replaces=f"{_PE}:1097"),
@@ -162,6 +184,13 @@ KERNELS = {
                         replaces=f"{_EXP}/exp_prng_bytes.py:34"),
     "byte_planes_crossword": dict(source=f"{_CSRC}/byte_planes.cu",
                                   replaces=f"{_EXP}/exp_prng_crossword.py:41"),
+    # not Pallas kernels: the JAX package's XLA backend, chunk_stats and
+    # the terminal law's _law_finals_xla
+    **{key: dict(source=f"{_CSRC}/threefry_loop.cu", replaces=f"{_ENG}:359")
+       for key in ("threefry_loop", "threefry_loop_gaussian",
+                   "threefry_loop_sobol_gaussian")},
+    "law_threefry": dict(source=f"{_CSRC}/terminal_law.cu",
+                         replaces=f"{_ENG}:328"),
 }
 # the record's entry of a kernel -> the launch counter it reads
 COUNTER_OF = {"histogram_index_rows": "histogram_index"}
@@ -294,9 +323,7 @@ def _common(model, strategy, n_periods, valid, n_paths, target, tile0,
 def _keep(strategy, n_periods):
     from stock_market_monte_carlo_torch.engine import engine as eng
 
-    return (eng._keep_factors_np(strategy, n_periods)
-            if eng._is_multiplicative(strategy)
-            else np.ones((n_periods,), np.float32))
+    return eng._keep_np(strategy, n_periods)
 
 
 def _base(seed):
@@ -335,7 +362,10 @@ def month_chunk_args(model, strategy, n_periods, valid, n_paths, target,
 
 
 def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
-                   keep_finals, tile0=0, bins=4094):
+                   keep_finals, tile0=0, bins=4094, draw="counter"):
+    """(law,), kwargs of one terminal-law chunk; ``draw="threefry"``: the
+    XLA backend's draw, under the law key of the seed's key."""
+    from stock_market_monte_carlo_torch.engine import engine as eng
     from stock_market_monte_carlo_torch.models.strategies import NoWithdrawal
     from stock_market_monte_carlo_torch.ops import cuda_engine as ce
     from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
@@ -347,7 +377,30 @@ def law_chunk_args(model, n_periods, valid, n_paths, target, seed,
               seed_base=_base(seed) ^ ce.LAW_STREAM_XOR,
               inv_zmax=1.0 / tlaw.LAW_ZMAX, keep_finals=keep_finals,
               law_host=op)
+    if draw == "threefry":
+        kw.update(seed_base=0, draw="threefry",
+                  key=ce.law_key(eng._segment_key(seed, 0)))
     return (torch.as_tensor(op, device=DEVICE),), kw
+
+
+def threefry_chunk_args(model, strategy, n_periods, valid, n_paths, target,
+                        seed, tile0=0, bins=4094):
+    """(table, keep), kwargs of one threefry-loop chunk (the XLA backend's
+    draw of the model under the seed's key)."""
+    from stock_market_monte_carlo_torch.engine import engine as eng
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+    from stock_market_monte_carlo_torch.ops import sobol
+
+    shift = (sobol.digital_shift(eng._scramble_key(seed, DEVICE), n_periods)
+             if model.is_quasi else None)
+    table, draw = ce.threefry_operands(model, DEVICE, n_periods, shift)
+    kw = dict(_common(model, strategy, n_periods, valid, n_paths, target,
+                      tile0, bins),
+              strategy=strategy.kind,
+              amount=float(getattr(strategy, "amount", 0.0)),
+              n_periods=n_periods, key=eng._segment_key(seed, 0), **draw)
+    return (table, torch.as_tensor(_keep(strategy, n_periods),
+                                   device=DEVICE)), kw
 
 
 def band_chunk_args(model, strategy, kind, n_periods, valid, n_paths, seed,
@@ -1088,6 +1141,196 @@ def surfaces_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# The XLA backend (phase 13).
+# ---------------------------------------------------------------------------
+
+
+def event_ms(fn):
+    """(ms, result) of one call on the card's clock."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def xla_phase(card):
+    """Phase 13: ``backend="xla"`` on the card. Returns (launches,
+    max_err, timings) of its kernels' record entries."""
+    import stock_market_monte_carlo_torch as smt
+    from stock_market_monte_carlo_torch.bench import roofline
+    from stock_market_monte_carlo_torch.bench.headline import events_ms
+    from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+
+    hist_model = smt.HistoricalBootstrap.from_csv()
+    gauss = smt.GaussianReturns()
+    sobol_gauss = smt.SobolGaussianReturns.create(MAIN_MONTHS)
+    strategies = {"none": smt.NoWithdrawal(),
+                  "fixed_percent": smt.FixedPercentWithdrawal(0.4),
+                  "fixed_amount": smt.FixedAmountWithdrawal(6.0)}
+    models = {"threefry_loop": hist_model, "threefry_loop_gaussian": gauss,
+              "threefry_loop_sobol_gaussian": sobol_gauss}
+    # the first chunk of a 100M-path run and its ragged last one
+    full = MAIN_PATHS // CHUNK
+    chunks = ((0, CHUNK), (full * CHUNK // ce.TILE_PATHS,
+                           MAIN_PATHS - full * CHUNK))
+    max_err = dict.fromkeys([*models, "law_threefry"], 0.0)
+    plain_ms, cases = {}, {}
+
+    def hold(key, label, ops, kw, wrapper, plain):
+        """The kernel against its plain version: finals and cells bit for
+        bit, the stats row as compare_chunk holds it (its float64 sums run
+        in another order)."""
+        k_out = wrapper(*ops, **kw)
+        ms, p_out = event_ms(lambda: plain(*ops, **dict(kw,
+                                                        keep_finals=True)))
+        t = time.perf_counter()
+        err, _ = compare_chunk(label, k_out, p_out, kw, 0.0)
+        check(torch.equal(k_out[1], p_out[1]), f"{label}: cells differ")
+        check((k_out[2] is None) != kw["keep_finals"],
+              f"{label}: finals written {k_out[2] is not None}")
+        max_err[key] = max(max_err[key], err)
+        say(13, f"{label}: equal to the plain version (plain {ms!r} ms, "
+                f"compared in {time.perf_counter() - t:.1f} s)")
+        return ms
+
+    # 13a. the kernels against their plain versions, bit for bit. The
+    # plain draw of a chunk runs once, its months held on the card (24 GB),
+    # for the three strategies; a plain time is that draw's plus the
+    # compounding without withdrawals
+    t0 = time.perf_counter()
+    growth_keys = ("draw", "key", "tile0", "n_paths", "n_periods", "n_table",
+                   "mean", "std", "direction", "sobol_shift", "index_offset")
+    for key, model in models.items():
+        for tile0, valid in chunks:
+            months = None
+            for sname, strategy in strategies.items():
+                ops, kw = threefry_chunk_args(model, strategy, MAIN_MONTHS,
+                                              valid, CHUNK, 2000.0, seed=0,
+                                              tile0=tile0)
+                if months is None:
+                    growth = ce.threefry_growth(
+                        DEVICE, ops[0], **{k: kw[k] for k in growth_keys
+                                           if k in kw})
+                    draw_ms, months = event_ms(
+                        lambda: [growth(t) for t in range(MAIN_MONTHS)])
+                ms = hold(key, f"{key} {sname}, chunk at tile {tile0}, "
+                               f"{valid} valid", ops, kw,
+                          ce.threefry_loop_chunk,
+                          functools.partial(ce.threefry_loop_chunk_plain,
+                                            growth=months.__getitem__))
+                if sname == "none" and tile0 == 0:
+                    plain_ms[key], cases[key] = draw_ms + ms, (ops, kw)
+            del months
+    for keep_finals in (True, False):
+        for tile0, valid in chunks:
+            ops, kw = law_chunk_args(hist_model, MAIN_MONTHS, valid, CHUNK,
+                                     2000.0, seed=0, keep_finals=keep_finals,
+                                     tile0=tile0, draw="threefry")
+            ms = hold("law_threefry", f"law_threefry finals {keep_finals}, "
+                                      f"chunk at tile {tile0}, {valid} "
+                                      "valid", ops, kw, ce.law_chunk,
+                      ce.law_chunk_plain)
+            if not keep_finals and tile0 == 0:
+                plain_ms["law_threefry"] = ms
+                cases["law_threefry"] = (ops, kw)
+    say(13, f"threefry kernels against their plain versions in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # 13b. the XLA paths at 100M x 360, each counted on its own
+    g_hist = 1.0 + float(np.mean(hist_model.returns_pct.astype(np.float64))
+                         ) / 100.0
+    g_gauss = 1.0 + float(gauss.mean_pct) / 100.0
+    paths = {
+        # launch counter: (label, model, options, analytic mean growth)
+        "threefry_loop": ("XLA historical", hist_model, {}, g_hist),
+        "threefry_loop_gaussian": ("XLA Gaussian", gauss, {}, g_gauss),
+        "threefry_loop_sobol_gaussian": ("XLA Sobol Gaussian", sobol_gauss,
+                                         {}, g_gauss),
+        "law_threefry": ("XLA terminal law", hist_model,
+                         dict(terminal_law=True), g_hist),
+    }
+    n_chunks = -(-MAIN_PATHS // CHUNK)
+
+    def run(key):
+        _, model, opts, _ = paths[key]
+        return smt.simulate_stats(model, MAIN_PATHS, MAIN_MONTHS,
+                                  target_amount=2000.0,
+                                  options=smt.EngineOptions(backend="xla",
+                                                            **opts))
+
+    launches = {}
+    for key, (label, _, _, g_bar) in paths.items():
+        ce.reset_launch_counts()
+        res = run(key)
+        torch.cuda.synchronize()
+        counts = dict(ce.LAUNCHES)
+        launches[key] = counts[key]
+        check(counts == dict({k: 0 for k in counts}, **{key: n_chunks}),
+              f"{label}: launches {counts}")
+        check(res.moments.n == MAIN_PATHS
+              and float(res.histogram_counts.sum()) == MAIN_PATHS,
+              f"{label}: n {res.moments.n}")
+        analytic = 1000.0 * g_bar ** MAIN_MONTHS
+        dev = abs(res.mean / analytic - 1.0)
+        check(np.isfinite(res.mean) and dev < 1e-3,
+              f"{label}: mean {res.mean} vs analytic {analytic}")
+        say(13, f"{label} 100M x 360: {counts[key]} launches of {key}, "
+                f"mean {res.mean!r} (analytic {analytic!r}, rel dev "
+                f"{dev:.2e}), std {res.std!r}, count_below "
+                f"{res.count_below}")
+
+    # 13c. the JAX package's XLA golden
+    g = GOLDEN_XLA
+    res = smt.simulate_stats(
+        hist_model, GOLDEN_N, g["t"], seed=12, target_amount=2000.0,
+        keep_final_values=True,
+        options=smt.EngineOptions(backend="xla", chunk_paths=8192))
+    f = res.final_values.astype(np.float64)
+    errs = [rel(f[i], v) for i, v in enumerate(g["head"])]
+    errs += [rel(f[i], v) for i, v in g["probes"].items()]
+    errs += [rel(float(np.sum(f)), g["total"]), rel(res.mean, g["mean"]),
+             rel(res.std, g["std"])]
+    near = int(np.sum(np.abs(f - 2000.0) <= GOLDEN_XLA_REL * f))
+    check(max(errs) <= GOLDEN_XLA_REL
+          and abs(res.moments.count_below - g["count_below"]) <= near,
+          f"XLA golden rel errors {errs}, count below "
+          f"{res.moments.count_below} vs {g['count_below']}")
+    say(13, f"XLA golden on the card within {GOLDEN_XLA_REL} of the JAX "
+            f"package's (max rel {max(errs)!r}, count below "
+            f"{res.moments.count_below})")
+
+    # 13d. walls, then the chunk times: kernel (bare launch), wrapper,
+    # plain (its run in 13a), bound
+    for key, (label, _, _, _) in paths.items():
+        wall, reps = wall_median(lambda: run(key))
+        say(13, f"[{card}] wall 100M x 360 {label}: median {wall!r} s of "
+                f"{reps}")
+    launchers = dict.fromkeys(models, ce.threefry_loop_launcher)
+    launchers["law_threefry"] = ce.law_launcher
+    wrappers = dict.fromkeys(models, ce.threefry_loop_chunk)
+    wrappers["law_threefry"] = ce.law_chunk
+    timings = {}
+    for key, (ops, kw) in cases.items():
+        kw = dict(kw, keep_finals=False)
+        launch, _ = launchers[key](*ops, **kw)
+        ms = events_ms(lambda _: launch(), 5, 1)
+        wrapper_ms = events_ms(lambda _: wrappers[key](*ops, **kw), 5, 1)
+        bound_ms, bound_by, work = roofline.bound(key, ops, kw)
+        timings[key] = dict(ms=ms, plain_ms=plain_ms[key],
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+        say(13, f"[{card}] {key}: kernel {ms!r} ms, wrapper {wrapper_ms!r} "
+                f"ms, plain {plain_ms[key]!r} ms, bound {bound_ms!r} ms "
+                f"({bound_by}: {work}), share {bound_ms / ms!r} per 2^24-"
+                f"path chunk x {MAIN_MONTHS} months")
+    return launches, max_err, timings
+
+
+# ---------------------------------------------------------------------------
 # The run.
 # ---------------------------------------------------------------------------
 
@@ -1131,7 +1374,8 @@ def main():
             ("run_loop_kernel", 9, "draw,strategy"),
             ("month_loop_kernel", 6, "draw,strategy"),
             ("clt_kernel", 8, "variant,ablate"),
-            ("law_kernel", 2, "finals"),
+            ("law_kernel", 4, "draw,finals"),
+            ("threefry_loop_kernel", 9, "draw,strategy"),
             ("op_toy_kernel", 7, "op")):
         found = {args: v for name, v in res.items()
                  if (args := template_args(name, kernel))}
@@ -2395,6 +2639,11 @@ def main():
     # 12. the user surfaces on the card: the CLI's commands, the native
     # library and the sweep
     surfaces_phase(card)
+
+    # 13. the XLA backend: its kernels against their plain versions, its
+    # paths, its golden, its walls and chunk times
+    for part, out in zip((launches, max_err, timings), xla_phase(card)):
+        part.update(out)
 
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],

@@ -8,7 +8,9 @@ into the other checkout where it lacks it.
 Each case is one 2^24-path chunk at 360 months with the operands that
 ``chip_smoke.py`` builds for its phase-6 timings (its ``*_chunk_args``,
 seed 0, target 2000, 4096 histogram cells, no withdrawal unless the name
-says so; the terminal law without and with finals), or the headline's
+says so; the terminal law without and with finals; the XLA backend's
+threefry loop, ``threefry_<draw>``, and terminal law, ``law_threefry``),
+or the headline's
 and the probes' shapes for the histogram kernel (2^24 indices over 4096
 cells), the tile flatten (2048 tiles), the calibration kernels, the
 byte planes of both experiments, the counts below a tile (K=32) and the
@@ -83,6 +85,15 @@ def cases():
         out[name] = (ce.law_launcher, *cs.law_chunk_args(
             hist, MONTHS, CHUNK, CHUNK, TARGET, seed=0,
             keep_finals=keep_finals))
+    for name, model in (("threefry_historical", hist),
+                        ("threefry_gaussian", gauss),
+                        ("threefry_sobol_gaussian",
+                         smt.SobolGaussianReturns.create(MONTHS))):
+        out[name] = (ce.threefry_loop_launcher, *cs.threefry_chunk_args(
+            model, none, MONTHS, CHUNK, CHUNK, TARGET, seed=0))
+    out["law_threefry"] = (ce.law_launcher, *cs.law_chunk_args(
+        hist, MONTHS, CHUNK, CHUNK, TARGET, seed=0, keep_finals=False,
+        draw="threefry"))
     for variant, strategy in (("plain", none),
                               ("keep_fold", smt.FixedPercentWithdrawal(0.4)),
                               ("prefix", smt.VariablePercentWithdrawal(

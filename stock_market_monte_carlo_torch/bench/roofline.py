@@ -27,7 +27,8 @@ TENSOR_BF16_FLOP_PER_S = 989e12
 SCALAR_OPS_PER_S = 132 * 128 * 1.98e9
 
 # 32-bit scalar operations, counted from the kernels' sources; a libm call
-# (logf, expf, log1pf, sqrtf) counts as one, so the bounds err low.
+# (logf, expf, log1pf, sqrtf) and an integer remainder count as one, so
+# the bounds err low.
 _HASH = 8                     # finalize: 3 shifts, 3 xors, 2 multiplies
 _WORD = _HASH + 2             # arith_word: + multiply, add
 _IDX = 7                      # idx_exact
@@ -41,6 +42,20 @@ _EPILOGUE = 25                # Stats.add (16) and bin_index + atomic (9)
 # the kernel's per-bit fold is a cost of its design, not counted
 _SOBOL = 3
 _XORSHIFT = 6                 # three shifts, three xors
+# threefry2x32 under a key whose third word and injection constants a
+# thread holds: 2 adds, 20 rounds of add, funnel shift and xor, 5
+# injections of two adds; a word of jax.random.bits xors the pair
+_THREEFRY = 2 + 20 * 3 + 5 * 2
+_THREEFRY_BITS = _THREEFRY + 1
+# jax.random.randint from its two words: two remainders, the combine's
+# multiply, add and remainder
+_RANDINT = 2 * _THREEFRY_BITS + 5
+# the XLA draws' growth (100 + (mean + std z)) * 0.01: multiply, 3 adds
+# and the scale less the one add the count of a strategy's compounding has
+_XLA_GROWTH = 4
+# normal_icdf of a Sobol word: its float, scale and clamp below 1, then
+# the clip, where _NORMAL_Z's u23 takes 4
+_SOBOL_ICDF = _NORMAL_Z + 1
 _U23 = 4                      # shift, convert, add, scale
 # binning and counting one input of the histogram kernel: the range test
 # and the atomic; the cast and two clamps; HistogramSpec.bin_index (NaN
@@ -188,10 +203,37 @@ def work(name, ops, kw):
         scalar = valid * per_path + (valid / ce.TILE_PATHS) * t * key_words
         sobol_ops = [kw.get("direction"), kw.get("sobol_shift")]
         nbytes = _io_bytes(list(ops) + sobol_ops, kw, 256, 8)
+    elif name.startswith("threefry_loop"):
+        t = kw["n_periods"]
+        # per path-month the draw, the counter's increment and the
+        # compounding (run * g), a percent strategy's g * keep and the
+        # withdrawn term's four operations and add, a fixed amount's step;
+        # per path the tile key (and the historical draw's split keys),
+        # the counter's start, v0 * run and the epilogue
+        strat = {"none": 0, "fixed_percent": 6, "variable_percent": 6,
+                 "fixed_amount": 4}[kw["strategy"]]
+        draw = kw["draw"]
+        if draw == "historical":
+            per, keys = _RANDINT + 1, 3
+        elif draw == "gaussian":
+            per, keys = _THREEFRY_BITS + _NORMAL_Z + _XLA_GROWTH, 1
+        else:
+            per, keys = _SOBOL + _SOBOL_ICDF + _XLA_GROWTH, 1
+        per_path = (t * (per + 2 + strat) + keys * _THREEFRY + 2
+                    + _EPILOGUE)
+        scalar = valid * per_path
+        sobol_ops = [kw.get("direction"), kw.get("sobol_shift")]
+        nbytes = _io_bytes(list(ops) + sobol_ops, kw, 256, 8)
     elif name.startswith("law"):
         d = ops[0].numel() - 1
-        scalar = valid * (_WORD + _NORMAL_Z + 2 + 3 * (d - 1) + 5
-                          + _EPILOGUE)
+        if kw.get("draw") == "threefry":
+            # the word under the tile key (one a tile), its normal, the
+            # clamp and the scale
+            draw = _THREEFRY_BITS + _NORMAL_Z + 4
+            tiles = -(-valid // ce.TILE_PATHS) * _THREEFRY
+        else:
+            draw, tiles = _WORD + _NORMAL_Z + 2, 0
+        scalar = valid * (draw + 3 * (d - 1) + 5 + _EPILOGUE) + tiles
         nbytes = _io_bytes(ops, kw, 256, 8)
     elif name.startswith("clt"):
         nblocks = ops[1].shape[0]

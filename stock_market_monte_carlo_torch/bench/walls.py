@@ -18,7 +18,10 @@ prefix kernel, ``gaussian_sampler="clt-prefix"``) and
 ``chip_smoke.py`` phase 5 runs them; and ``simulate_bands`` as
 ``chip_smoke.py`` phase 5b runs it (3 levels, 32 sample paths, timed
 alike): ``bands_hist`` (historical, 1024 bins) and ``bands_cdf``
-(Gaussian, 32 thresholds). Prints the card's name and power limit, then
+(Gaussian, 32 thresholds). The XLA backend (``backend="xla"``):
+``threefry_historical`` and ``threefry_gaussian`` (the threefry loop) and
+``law_threefry`` (the terminal law's threefry draw, historical). Prints
+the card's name and power limit, then
 one JSON line {name: {"median_s", "rep_times_s"}}. Imports neither jax
 nor the JAX package.
 """
@@ -49,6 +52,10 @@ PATHS = {
     "clt_prefix": ("gaussian", dict(gaussian_sampler="clt-prefix"),
                    PERCENT),
     "gaussian_icdf_percent": ("gaussian", {}, PERCENT),
+    "threefry_historical": ("historical", dict(backend="xla"), None),
+    "threefry_gaussian": ("gaussian", dict(backend="xla"), None),
+    "law_threefry": ("historical", dict(backend="xla", terminal_law=True),
+                     None),
 }
 BANDS = {
     "bands_hist": ("historical", dict(band_mode="hist", n_bins=1024)),

@@ -31,8 +31,12 @@ class EngineOptions:
     The fields and their validation are the JAX package's, plus
     ``device``. Where the port differs:
 
-    - ``backend``: only ``"auto"`` and ``"pallas"`` (the kernels); the
-      port has no XLA backend. Where the chunks run is ``device``.
+    - ``backend``: ``"auto"`` and ``"pallas"`` run the kernels' counter
+      stream; ``"xla"`` the JAX package's XLA backend (the threefry
+      stream, ``engine.chunk_stats``), on the threefry kernels on the card
+      and in plain PyTorch on the CPU. The JAX package's ``"auto"``
+      follows ``jax.default_backend()`` (``"xla"`` off a TPU); the port's
+      is always its kernels' stream. Where the chunks run is ``device``.
     - ``fuse_chunks``: no effect. It fused chunks into one TPU dispatch to
       save a per-dispatch floor; CUDA launches are already asynchronous and
       every chunk is queued before the first host sync anyway.
@@ -105,11 +109,11 @@ class EngineOptions:
                 "trajectory_dtype must be 'float32' or 'bfloat16', "
                 f"got {self.trajectory_dtype!r}"
             )
-        if self.backend not in ("auto", "pallas"):
+        if self.backend not in ("auto", "pallas", "xla"):
             raise ValueError(
-                "the port has no XLA backend: backend must be 'auto' or "
-                f"'pallas', got {self.backend!r}; set device='cpu' for the "
-                "plain PyTorch versions"
+                "backend must be 'auto', 'pallas' or 'xla', got "
+                f"{self.backend!r}; set device='cpu' for the plain PyTorch "
+                "versions"
             )
         if torch.device(self.device).type not in ("cuda", "cpu"):
             raise ValueError(

@@ -1,16 +1,26 @@
-// Terminal-law kernel, with and without per-path finals.
+// Terminal-law kernel, with and without per-path finals, under two
+// draws.
 //
 // Replaces: stock_market_monte_carlo_tpu/ops/pallas_engine.py
 //   _build_law_kernel (finals; pl.pallas_call at :1252) and
 //   _build_law_stats_kernel (finals-free; pl.pallas_call at :1445), both
-//   run by _law_chunk_stats. Plain version: ops/cuda_engine.py
-//   law_chunk_plain.
+//   run by _law_chunk_stats (the counter draw). The threefry draw
+//   replaces no Pallas kernel: it runs the JAX package's XLA law,
+//   engine._law_finals_xla (stock_market_monte_carlo_tpu/engine/
+//   engine.py:328) and chunk_stats' epilogue. Plain version:
+//   ops/cuda_engine.py law_chunk_plain.
 //
 // What it computes, per path: one word of the arithmetic counter stream
 // (key 0 of the tile seeded by seed_base ^ 0x1A37), u23 uniform,
 // z = sqrt(2) * erfinv(2u - 1), s = z / 6.25, a 48-term Clenshaw recurrence
 // over the fitted law operand, V = scale * exp(...); then the same stats
 // row and log histogram as the month loop, with the withdrawn row at 0.
+// The threefry draw (kThreefry) takes the path's word from the XLA
+// backend's stream instead: counter p mod 8192 under the tile key
+// fold_in(law key, tile), the law key fold_in(segment key, 0x1A37) made
+// by the wrapper, then jax.random.normal's uniform and erfinv (one
+// normal a path, clamped to +-LAW_CLAMP before the scale by 1 / 6.25);
+// the recurrence and the finish are the same.
 //
 // What bounds it on an H100: issue slots. About 213 32-bit operations a
 // path (bench/roofline.py: the word, the normal draw, 3 x 47 Clenshaw
@@ -45,6 +55,8 @@ namespace {
 using namespace smmc;
 
 constexpr int kLawD = 48;           // Chebyshev terms (ops/terminal_law.py)
+constexpr float kLawClamp = 5.99f;  // LAW_CLAMP (ops/terminal_law.py)
+enum Draw { kCounter = 0, kThreefry = 1 };
 constexpr int kLawPaths = 4;        // paths a thread a pass
 constexpr int kUnitPaths = kBlock * kLawPaths;
 constexpr int kUnitsPerTile = kTilePaths / kUnitPaths;
@@ -67,6 +79,7 @@ struct Args {
   float* stats;                     // the chunk's float32[9] stats row
   float* hist;                      // its float32[hb] histogram, or null
                                     // (16-byte aligned, as counts)
+  uint32_t key0, key1;              // the law key of the threefry draw
 };
 
 // The chunk's finish, by the last block to finish: the float32 stats row
@@ -122,10 +135,9 @@ __device__ void finish(const Args& a) {
   }
 }
 
-// V of one word: the normal draw, the unrolled Clenshaw recurrence on the
-// parameter-bank coefficients, scale * exp. Call from a whole warp.
-__device__ __forceinline__ float law_value(const Args& a, uint32_t w) {
-  const float s = normal_z_warp(w) * a.inv_zmax;
+// V of a scaled normal s: the unrolled Clenshaw recurrence on the
+// parameter-bank coefficients, scale * exp.
+__device__ __forceinline__ float law_of_s(const Args& a, float s) {
   const float two_s = 2.0f * s;
   float b1 = 0.0f, b2 = 0.0f;
 #pragma unroll
@@ -137,7 +149,19 @@ __device__ __forceinline__ float law_value(const Args& a, uint32_t w) {
   return a.law[0] * expf(s * b1 - b2 + a.law[1]);
 }
 
-template <bool WRITE_FINALS>
+// V of one word of the counter draw. Call from a whole warp.
+__device__ __forceinline__ float law_value(const Args& a, uint32_t w) {
+  return law_of_s(a, normal_z_warp(w) * a.inv_zmax);
+}
+
+// V of one word of the threefry draw: the clamped normal, scaled
+__device__ __forceinline__ float law_value_threefry(const Args& a,
+                                                    uint32_t w) {
+  const float z = threefry_normal(w);
+  return law_of_s(a, fminf(fmaxf(z, -kLawClamp), kLawClamp) * a.inv_zmax);
+}
+
+template <int DRAW, bool WRITE_FINALS>
 __global__ void __launch_bounds__(kBlock, kLawBlocksPerSM)
 law_kernel(const __grid_constant__ Args a) {
   extern __shared__ int s_hist[];
@@ -151,14 +175,23 @@ law_kernel(const __grid_constant__ Args a) {
   const int n_units = (a.valid + kUnitPaths - 1) / kUnitPaths;
   for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
     // the unit's tile key, from block-uniform values
-    const uint32_t h = tile_seed(
-        tile_seed(a.seed_base, a.tile0 + (uint32_t)(u / kUnitsPerTile)), 0u);
+    const uint32_t tile = a.tile0 + (uint32_t)(u / kUnitsPerTile);
+    uint32_t h = 0u;
+    uint2 tk = make_uint2(0u, 0u);
+    if constexpr (DRAW == kThreefry)
+      tk = threefry_fold_in(make_uint2(a.key0, a.key1), tile);
+    else
+      h = tile_seed(tile_seed(a.seed_base, tile), 0u);
     const int p0 = u * kUnitPaths + threadIdx.x;
 #pragma unroll
     for (int i = 0; i < kLawPaths; ++i) {
       const int p = p0 + i * kBlock;
-      const float total =
-          law_value(a, arith_word(h, (uint32_t)p & (kTilePaths - 1)));
+      const uint32_t pos = (uint32_t)p & (kTilePaths - 1);
+      float total;
+      if constexpr (DRAW == kThreefry)
+        total = law_value_threefry(a, threefry_bits(tk, pos));
+      else
+        total = law_value(a, arith_word(h, pos));
       if (p < a.valid) {
         if (WRITE_FINALS) a.finals[p] = total;
         st.add_value(total, a.inv0, a.shift, a.target);
@@ -195,15 +228,19 @@ law_kernel(const __grid_constant__ Args a) {
 // kernel writes stats (float32[9]) and, where hist is not null, hist
 // (float32[hb]: the cells, or zeros without counts); counts and hist are
 // 16-byte aligned. finals may be null (null finals selects the
-// finals-free kernel). Returns cudaGetLastError() after the launch.
+// finals-free kernel). draw: 0 the counter stream (seed_base), 1 the
+// threefry stream (key0, key1: the law key). Returns cudaGetLastError()
+// after the launch.
 extern "C" int smmc_law(const float* law, int law_d, unsigned int seed_base,
                         unsigned int tile0, int valid, float inv0,
                         float target, float shift, float inv_zmax,
                         float log_lo, float inv_w, int hb, float* finals,
                         double* partials, int* counts, unsigned int* ticket,
-                        float* stats, float* hist, int n_blocks,
+                        float* stats, float* hist, int draw,
+                        unsigned int key0, unsigned int key1, int n_blocks,
                         void* stream) {
   if (law == nullptr || law_d != kLawD || n_blocks < 1 ||
+      (draw != kCounter && draw != kThreefry) ||
       partials == nullptr || ticket == nullptr || stats == nullptr ||
       (counts != nullptr &&
        (hist == nullptr || hb < 4 || hb > kMaxCells || hb % 4 != 0 ||
@@ -228,11 +265,19 @@ extern "C" int smmc_law(const float* law, int law_d, unsigned int seed_base,
   a.ticket = ticket;
   a.stats = stats;
   a.hist = hist;
+  a.key0 = key0;
+  a.key1 = key1;
   const size_t smem = counts ? hb * sizeof(int) : 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (finals)
-    law_kernel<true><<<n_blocks, kBlock, smem, s>>>(a);
-  else
-    law_kernel<false><<<n_blocks, kBlock, smem, s>>>(a);
+  if (draw == kThreefry) {
+    if (finals)
+      law_kernel<kThreefry, true><<<n_blocks, kBlock, smem, s>>>(a);
+    else
+      law_kernel<kThreefry, false><<<n_blocks, kBlock, smem, s>>>(a);
+  } else if (finals) {
+    law_kernel<kCounter, true><<<n_blocks, kBlock, smem, s>>>(a);
+  } else {
+    law_kernel<kCounter, false><<<n_blocks, kBlock, smem, s>>>(a);
+  }
   return cudaGetLastError();
 }

@@ -218,7 +218,9 @@ def simulate_bands(
     # cannot bracket: they bin linearly on [0, hi_t]
     linear = not eng._is_multiplicative(strategy)
     centers, scales = band_grid(model, strategy, n_periods, initial_capital)
-    use_kernels = not linear and kb.bands_supported(model, strategy.kind)
+    # the XLA backend takes the trajectory route, as the JAX package's does
+    use_kernels = (not linear and eng.resolve_backend(options) != "xla"
+                   and kb.bands_supported(model, strategy.kind))
     if use_kernels:
         b = min(options.chunk_paths, 1 << 24)
         b = max(kb.TILE_PATHS, (b // kb.TILE_PATHS) * kb.TILE_PATHS)

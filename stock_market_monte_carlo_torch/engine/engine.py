@@ -1,14 +1,21 @@
 """The simulation engine: a host chunk loop over the device chunk functions.
 
-Counterpart of ``stock_market_monte_carlo_tpu/engine/engine.py`` on its
-Pallas backend: ``simulate_stats``, ``simulate_final_values``,
+Counterpart of ``stock_market_monte_carlo_tpu/engine/engine.py`` on both
+of its backends: ``simulate_stats``, ``simulate_final_values``,
 ``simulate``, ``run`` and ``simulate_paths`` on every model of
 ``models/market.py``. The sampler is chosen as the JAX package chooses it
-on its Pallas backend (``_effective_sampler``): the month loop with the
-model's draw (counter-stream historical or Gaussian ICDF, Sobol Gaussian
-or historical, reference-parity historical), the CLT kernel (Gaussian,
+(``_effective_sampler``). On the Pallas backend (``EngineOptions.backend``
+"auto" or "pallas"): the month loop with the model's draw (counter-stream
+historical or Gaussian ICDF, Sobol Gaussian or historical,
+reference-parity historical), the CLT kernel (Gaussian,
 ``EngineOptions.gaussian_sampler`` "clt" / "clt-prefix"), or, with
-``terminal_law=True``, the terminal law (counter-stream models).
+``terminal_law=True``, the terminal law (counter-stream models). On the
+XLA backend (``backend="xla"``): the threefry stream of ``ops/threefry.py``
+through ``chunk_stats`` (the JAX package's XLA chunk: ``sample_growth``,
+``compound_final``) on the CPU and the threefry loop kernel on the card,
+or the terminal law's threefry draw; the Sobol historical model and the
+reference stream draw the same points on both backends and keep their
+month-loop kernels.
 
 A run streams in chunks of ``chunk_paths`` paths. Each chunk reduces on
 the device to one float32 stats row and a histogram
@@ -216,11 +223,21 @@ def _validate_terminal_law(model, strategy, options) -> None:
         )
 
 
+def resolve_backend(options: EngineOptions) -> str:
+    """The backend that runs: ``"xla"`` where asked for, else the kernels'
+    ``"pallas"``. The JAX package's ``"auto"`` follows
+    ``jax.default_backend()``; the port's is its kernels' counter stream
+    (ROADMAP queue 3)."""
+    return "xla" if options.backend == "xla" else "pallas"
+
+
 def _effective_sampler(model, strategy, options: EngineOptions) -> str:
     """The sampler that runs (``engine._effective_sampler`` of the JAX
-    package on its Pallas backend, which the port always is):
+    package):
 
     - ``"law"``: ``terminal_law=True``;
+    - ``"icdf"`` on the XLA backend otherwise, whatever
+      ``gaussian_sampler`` says;
     - ``"icdf"``: the month loop; every model but ``GaussianReturns``
       (historical and Sobol kinds, whatever ``gaussian_sampler`` says),
       Gaussian models by default, and the cases below that the CLT kernels
@@ -238,7 +255,7 @@ def _effective_sampler(model, strategy, options: EngineOptions) -> str:
     """
     if options.terminal_law:
         return "law"
-    if model.kind != "gaussian":
+    if resolve_backend(options) == "xla" or model.kind != "gaussian":
         return "icdf"
     clt_asked = options.gaussian_sampler in ("clt", "clt-prefix")
     if clt_asked:
@@ -347,8 +364,40 @@ def _validate_run(model, n_paths: int, per_dispatch: int, n_periods: int,
             )
 
 
+def _xla_chunk_paths(n_periods: int, options: EngineOptions) -> int:
+    """Paths a chunk of the XLA backend's CPU route, which materialises the
+    (B, T) growth buffer: bounded to ~1 GiB as the JAX package bounds it.
+    The card's kernels never materialise it and take ``chunk_paths``."""
+    budget = 1 << 30
+    b = budget // (n_periods * 4 * 3)
+    b = max(KEY_TILE, (b // KEY_TILE) * KEY_TILE)
+    return min(b, options.chunk_paths)
+
+
+def _draws_threefry(model) -> bool:
+    """Whether the XLA backend draws ``model`` from its own stream: the
+    counter-stream models (threefry) and the Sobol Gaussian model (its
+    points through ``normal_icdf``, not its kernel's u23 normal). The Sobol
+    historical model and the reference stream draw the same points on
+    both backends (tests/test_torch_xla_backend.py)."""
+    if model.kind == "sobol_gaussian":
+        return True
+    return (model.kind in ("gaussian", "historical")
+            and getattr(model, "rng", "counter") == "counter")
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _segment_key(seed: int, segment: int) -> Tuple[int, int]:
+    """The threefry key of a seed segment as two ints: ``key(seed)`` for
+    segment 0, ``fold_in(key(seed), _SEG_FOLD + segment)`` after (the JAX
+    package's ``_segment_keys``)."""
+    key = threefry.key(seed)
+    if segment:
+        key = threefry.fold_in(key, _SEG_FOLD + segment)
+    return threefry.key_data(key)
 
 
 def _segment_base(seed: int, segment: int) -> int:
@@ -419,31 +468,44 @@ def _scramble_key(seed: int, dev):
     return threefry.fold_in(threefry.key(seed, dev), _SCRAMBLE_FOLD)
 
 
+def _segment_stream(seed: int, segment: int, options: EngineOptions):
+    """What a chunk function draws a seed segment from: its threefry key
+    on the XLA backend (``_segment_key``), else its uint32 stream base
+    (``_segment_base``)."""
+    if resolve_backend(options) == "xla":
+        return _segment_key(seed, segment)
+    return _segment_base(seed, segment)
+
+
 def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
     """The chunk function of this run, with its run-constant operands
-    uploaded once: ``fn(base, offset, valid=, n_paths=, **common)``, where
-    ``base`` is the seed segment's uint32 stream base (``_segment_base``)
-    and ``offset`` the chunk's first path in the segment. A Sobol model's
+    uploaded once: ``fn(stream, offset, valid=, n_paths=, **common)``,
+    where ``stream`` is the seed segment's (``_segment_stream``) and
+    ``offset`` the chunk's first path in the segment. A Sobol model's
     digital shift comes from ``seed`` (its runs never segment)."""
     sampler = _effective_sampler(model, strategy, options)
+    if resolve_backend(options) == "xla":
+        if sampler == "law" or _draws_threefry(model):
+            return _xla_chunk_fn(model, strategy, n_periods, v0f, options,
+                                 dev, seed)
+        # the same points as the kernels' stream, which takes no key
+        kernel_fn = _chunk_fn(model, strategy, n_periods, v0f,
+                              dataclasses.replace(options, backend="auto"),
+                              dev, seed)
+        base = _segment_base(seed, 0)
+        return lambda key, offset, **kw: kernel_fn(base, offset, **kw)
     if sampler == "law":
-        from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
-
-        _validate_terminal_law(model, strategy, options)
-        fit = tlaw.fit_terminal_law(model, strategy, n_periods, v0f)
-        law_host = fit.operand()
-        law = torch.as_tensor(law_host, device=dev)
+        law, law_host, inv_zmax = _law_operand(model, strategy, n_periods,
+                                               v0f, options, dev)
 
         def fn(base, offset, **kw):
             return cuda_engine.law_chunk(
                 law, seed_base=base ^ cuda_engine.LAW_STREAM_XOR,
-                tile0=offset // KEY_TILE, inv_zmax=1.0 / tlaw.LAW_ZMAX,
+                tile0=offset // KEY_TILE, inv_zmax=inv_zmax,
                 law_host=law_host, **kw)
         return fn
 
-    keep_np = (_keep_factors_np(strategy, n_periods)
-               if _is_multiplicative(strategy)
-               else np.ones((n_periods,), np.float32))
+    keep_np = _keep_np(strategy, n_periods)
     if sampler.startswith("clt"):
         variant = {"clt": "plain", "clt-nw": "keep_fold",
                    "clt-prefix": "prefix"}[sampler]
@@ -477,6 +539,65 @@ def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
             table, keep, strategy=strategy.kind, amount=amount,
             n_periods=n_periods, seed_base=base, tile0=offset // KEY_TILE,
             **draw, **kw)
+    return fn
+
+
+def _keep_np(strategy, n_periods: int) -> np.ndarray:
+    """(T,) float32 keep factors of a multiplicative strategy, ones for a
+    fixed amount (whose kernels read none)."""
+    if _is_multiplicative(strategy):
+        return _keep_factors_np(strategy, n_periods)
+    return np.ones((n_periods,), np.float32)
+
+
+def _law_operand(model, strategy, n_periods, v0f, options, dev):
+    """(law, law_host, inv_zmax) of a terminal-law run: the fitted
+    operand on ``dev`` and on the host, and the normal's scale."""
+    from stock_market_monte_carlo_torch.ops import terminal_law as tlaw
+
+    _validate_terminal_law(model, strategy, options)
+    law_host = tlaw.fit_terminal_law(model, strategy, n_periods,
+                                     v0f).operand()
+    return (torch.as_tensor(law_host, device=dev), law_host,
+            1.0 / tlaw.LAW_ZMAX)
+
+
+def _xla_chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
+    """``_chunk_fn`` of the XLA backend's own draws, ``fn(key, offset,
+    **kw)`` with ``key`` the segment's threefry key: the terminal law's
+    threefry draw; else ``chunk_stats`` on the CPU and the threefry loop
+    kernel on the card."""
+    if options.terminal_law:
+        law, law_host, inv_zmax = _law_operand(model, strategy, n_periods,
+                                               v0f, options, dev)
+
+        def fn(key, offset, **kw):
+            return cuda_engine.law_chunk(
+                law, seed_base=0, tile0=offset // KEY_TILE,
+                inv_zmax=inv_zmax, law_host=law_host, draw="threefry",
+                key=cuda_engine.law_key(key), **kw)
+        return fn
+    if dev.type == "cpu":
+        scramble_key = _scramble_key(seed, dev)
+
+        def fn(key, offset, **kw):
+            root_key = tuple(torch.tensor(k, dtype=torch.int64, device=dev)
+                             for k in key)
+            return chunk_stats(model, strategy, root_key, scramble_key,
+                               offset, n_periods=n_periods, **kw)
+        return fn
+    keep = torch.as_tensor(_keep_np(strategy, n_periods), device=dev)
+    table, draw = cuda_engine.threefry_operands(
+        model, dev, n_periods,
+        sobol.digital_shift(_scramble_key(seed, dev), n_periods)
+        if model.is_quasi else None)
+    amount = float(getattr(strategy, "amount", 0.0))
+
+    def fn(key, offset, **kw):
+        return cuda_engine.threefry_loop_chunk(
+            table, keep, strategy=strategy.kind, amount=amount,
+            n_periods=n_periods, key=key, tile0=offset // KEY_TILE, **draw,
+            **kw)
     return fn
 
 
@@ -637,7 +758,10 @@ def simulate_stats(
     dev = _resolve_device(options)
     n_dev = _check_mesh(mesh, dev)
     rank = 0 if mesh is None else mesh.rank
+    xla = resolve_backend(options) == "xla"
     chunk_b = options.chunk_paths
+    if xla and dev.type == "cpu" and not options.terminal_law:
+        chunk_b = _xla_chunk_paths(n_periods, options)
     per_dispatch = chunk_b * n_dev
     _validate_run(model, n_paths, per_dispatch, n_periods,
                   draws_bootstrap=not options.terminal_law,
@@ -690,7 +814,7 @@ def simulate_stats(
     seg_paths = options.seed_segment_paths
     segmented = n_paths > seg_paths and not model.is_quasi
     seg = 0
-    base = _segment_base(seed, 0)
+    base = _segment_stream(seed, 0, options)
     defer_absorb = (stream is None and progress is None
                     and checkpoint_path is None and not keep_finals)
     fingerprint = None
@@ -698,8 +822,10 @@ def simulate_stats(
         from stock_market_monte_carlo_torch.engine import checkpoint as ckpt
 
         # the stream tag: the port (its chunk sums run in another order than
-        # the JAX package's, so their checkpoints never mix), the effective
-        # sampler (the prefix sampler with its kernel's finish order, which
+        # the JAX package's, so their checkpoints never mix), the backend
+        # (the XLA backend's threefry stream is not the kernels'; its tag
+        # names it, the kernels' tag is as it was), the effective sampler
+        # (the prefix sampler with its kernel's finish order, which
         # rounds the withdrawn sums), and the histogram and segment tags (a
         # checkpoint of a histogram run must not resume into a run without
         # one, nor across seed_segment_paths). Neither the chunk size nor
@@ -713,7 +839,8 @@ def simulate_stats(
         fingerprint = ckpt.config_fingerprint(
             model, strategy, n_paths, n_periods, initial_capital, seed,
             target_amount, spec,
-            f"torch/streams3/{sampler}{hist_tag}{seg_tag}",
+            f"torch/{'xla/' if xla else ''}streams3/{sampler}{hist_tag}"
+            f"{seg_tag}",
         )
         state = ckpt.load(checkpoint_path, fingerprint)
         if state is not None:
@@ -725,7 +852,7 @@ def simulate_stats(
                 # every dispatch of a segment but its last is full, so the
                 # offset in the segment follows from the paths done
                 seg, offset = divmod(done, seg_paths)
-                base = _segment_base(seed, seg)
+                base = _segment_stream(seed, seg, options)
         if mesh is not None:
             # the first collective: every rank must resume at one point
             here = torch.tensor([done, offset], dtype=torch.int64)
@@ -795,7 +922,7 @@ def simulate_stats(
                 # a fresh segment: its own stream, offsets from 0
                 seg = done_v // seg_paths
                 offset = 0
-                base = _segment_base(seed, seg)
+                base = _segment_stream(seed, seg, options)
             cap = min(remaining, (seg + 1) * seg_paths - done_v)
         this_valid = min(cap, per_dispatch)
         if n_paths > per_dispatch:
@@ -946,6 +1073,54 @@ def compound_paths(growth, v0, strategy):
     for m in range(t):
         cols.append(torch.clamp_min(cols[-1] * growth[:, m] - amount, 0.0))
     return torch.stack(cols, dim=1)
+
+
+def compound_final(growth, v0, strategy):
+    """(B,) final values and (B,) withdrawn totals from (B, T) growth (the
+    JAX package's ``compound_final``): percent strategies and none as v0 *
+    prod(growth * keep), the withdrawn total summing (v0 * the shifted
+    cumprod * growth) * (1 - keep); a fixed amount month by month as
+    max(V * g - amount, 0), withdrawing the difference."""
+    b, t = growth.shape
+    v0 = cuda_engine._f32(v0)
+    f32 = dict(dtype=torch.float32, device=growth.device)
+    if _is_multiplicative(strategy):
+        keep = torch.as_tensor(_keep_factors_np(strategy, t),
+                               device=growth.device)
+        gk = growth * keep
+        finals = v0 * torch.prod(gk, dim=1)
+        if strategy.kind == "none":
+            return finals, torch.zeros((b,), **f32)
+        prev = torch.cat([torch.ones((b, 1), **f32),
+                          torch.cumprod(gk, dim=1)[:, :-1]], dim=1)
+        grown = v0 * prev * growth
+        return finals, torch.sum(grown * (1.0 - keep), dim=1)
+    amount = cuda_engine._f32(strategy.amount)
+    value = torch.full((b,), v0, **f32)
+    wsum = torch.zeros((b,), **f32)
+    for m in range(t):
+        grown = value * growth[:, m]
+        value = torch.clamp_min(grown - amount, 0.0)
+        wsum = wsum + (grown - value)
+    return value, wsum
+
+
+def chunk_stats(model, strategy, root_key, scramble_key, path_offset, *,
+                n_periods, valid, n_paths, v0, target, shift, lo, log_lo,
+                inv_w, hb, with_hist, keep_finals):
+    """One chunk of the XLA backend in plain torch (the JAX package's
+    ``chunk_stats``): ``sample_growth`` of paths [path_offset, path_offset
+    + n_paths) under the segment's ``root_key``, ``compound_final``, then
+    the stats row and histogram of the first ``valid`` paths as the
+    kernels make them (``cuda_engine._epilogue``: float64 sums where the
+    JAX package sums in float32). Returns (stats, hist, finals-or-None)."""
+    growth = sample_growth(model, root_key, scramble_key, path_offset,
+                           (n_paths, n_periods))
+    finals, withdrawn = compound_final(growth, v0, strategy)
+    stats, hist = cuda_engine._epilogue(finals, withdrawn, valid, v0, target,
+                                        shift, lo, log_lo, inv_w, hb,
+                                        with_hist)
+    return stats, hist, (finals[:valid] if keep_finals else None)
 
 
 def _check_paths(n_paths: int, n_periods: int, dtype: str) -> None:

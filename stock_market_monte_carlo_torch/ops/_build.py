@@ -30,8 +30,9 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("month_loop.cu", "run_loop.cu", "terminal_law.cu", "clt.cu",
-           "bands.cu", "calibration.cu", "histogram.cu", "byte_planes.cu")
+SOURCES = ("month_loop.cu", "run_loop.cu", "threefry_loop.cu",
+           "terminal_law.cu", "clt.cu", "bands.cu", "calibration.cu",
+           "histogram.cu", "byte_planes.cu")
 HEADERS = ("smmc_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -45,8 +46,11 @@ _ARGTYPES = {
                         _vp, _i, _f, _i, _u, _u, _i, _f, _f, _f, _f, _f,
                         _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_run_info": (_i, _i, _i, _i, _i, _i, _i, _vp),
+    "smmc_threefry_loop": (_i, _vp, _i, _u, _f, _f, _vp, _vp, _i, _u, _u,
+                           _vp, _i, _f, _i, _u, _u, _u, _i, _f, _f, _f, _f,
+                           _f, _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_law": (_vp, _i, _u, _u, _i, _f, _f, _f, _f, _f, _f, _i,
-                 _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp),
+                 _vp, _vp, _vp, _vp, _vp, _vp, _i, _u, _u, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,
                  _f, _f, _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_clt_probe": (_i, _i, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f,

@@ -11,12 +11,19 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
   reference-parity historical stream; the Gaussian ICDF and the Sobol
   draws run on ``csrc/run_loop.cu`` (``run_kernel_info``);
 - ``law_chunk`` replaces ``_build_law_kernel`` and
-  ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``.
+  ``_build_law_stats_kernel``, source ``csrc/terminal_law.cu``; its
+  ``draw="threefry"`` runs the JAX package's XLA law instead
+  (``engine._law_finals_xla``);
+- ``threefry_loop_chunk`` replaces no Pallas kernel: it runs the JAX
+  package's XLA backend (``EngineOptions(backend="xla")``: ``engine.
+  chunk_stats``, the threefry stream of ``ops/threefry.py``), source
+  ``csrc/threefry_loop.cu``, in three draws (``THREEFRY_DRAWS``).
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel (plain runs do not count):
-the month loop's draws (``MONTH_LOOP_COUNTERS``), ``law``, ``clt``
+the month loop's draws (``MONTH_LOOP_COUNTERS``), the threefry loop's
+(``THREEFRY_LOOP_COUNTERS``), ``law``, ``law_threefry``, ``clt``
 (``ops/clt.py``), ``bands_hist``, ``bands_cdf`` and ``counts_below_tile``
 (``ops/bands.py``), ``grid_overhead`` and ``calib``
 (``ops/calibration.py``), ``histogram``, ``histogram_index``,
@@ -117,8 +124,25 @@ _SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
 # the draws of csrc/run_loop.cu, whose threads hold runs of paths
 RUN_DRAWS = ("gaussian", *_SOBOL_DRAWS)
 
+# the threefry loop's draws (csrc/threefry_loop.cu) and launch counters
+THREEFRY_DRAWS = {"historical": 0, "gaussian": 1, "sobol_gaussian": 2}
+THREEFRY_LOOP_COUNTERS = {
+    "historical": "threefry_loop",
+    "gaussian": "threefry_loop_gaussian",
+    "sobol_gaussian": "threefry_loop_sobol_gaussian",
+}
+# months of a threefry chunk: element (p, m) of a tile's draw is counter
+# p * T + m, whose high word must stay 0 for p < 8192
+THREEFRY_MAX_MONTHS = MASK32 // TILE_PATHS
+# the terminal law's draws (csrc/terminal_law.cu) and launch counters
+LAW_DRAWS = {"counter": 0, "threefry": 1}
+LAW_COUNTERS = {"counter": "law", "threefry": "law_threefry"}
+# fold_in tag of the XLA law's key (the JAX package's _law_finals_xla)
+LAW_KEY_FOLD = 0x1A37
+
 LAUNCHES = dict.fromkeys(
-    [*MONTH_LOOP_COUNTERS.values(), "law", "clt", "bands_hist",
+    [*MONTH_LOOP_COUNTERS.values(), *THREEFRY_LOOP_COUNTERS.values(),
+     *LAW_COUNTERS.values(), "clt", "bands_hist",
      "bands_cdf", "counts_below_tile", "grid_overhead", "calib",
      "histogram", "histogram_index", "histogram_clip_cast", "flatten_tile",
      *(f"op_toy_{op}" for op in ("mul", "fma", "iadd", "shf", "cvt", "mm",
@@ -655,20 +679,62 @@ def month_loop_chunk_plain(table, keep, *, strategy, amount, n_periods,
     return stats, hist, (finals[:valid] if keep_finals else None)
 
 
+def _tile_keys(key, tile0, n_paths, dev):
+    """(k0, k1) int64 tensors: fold_in(key, tile) of each 8192-path tile
+    of a chunk of ``n_paths`` paths whose first tile is ``tile0``."""
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    tiles = (int(tile0) + torch.arange(n_paths // TILE_PATHS, device=dev)
+             ) & MASK32
+    k = torch.tensor([int(key[0]) & MASK32, int(key[1]) & MASK32],
+                     dtype=torch.int64, device=dev)
+    return threefry.fold_in((k[0], k[1]), tiles)
+
+
+def law_key(key):
+    """The XLA law's key of a segment's threefry key (two ints):
+    fold_in(key, LAW_KEY_FOLD) as two ints."""
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    return threefry.key_data(threefry.threefry2x32(*key, 0, LAW_KEY_FOLD))
+
+
+def law_normals_threefry(key, tile0, n_paths, dev):
+    """(n_paths,) float32 normals of the XLA law (the JAX package's
+    ``_law_finals_xla``): ``jax.random.normal(fold_in(key, tile),
+    (8192,))`` for each tile of the chunk, ``key`` the law key
+    (``law_key``) as two ints."""
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    k0, k1 = _tile_keys(key, tile0, n_paths, dev)
+    return threefry.normal((k0, k1), (TILE_PATHS,)).reshape(-1)
+
+
 def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
                     shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
-                    keep_finals, law_host=None):
+                    keep_finals, law_host=None, draw="counter", key=None):
     """Plain PyTorch version of ``csrc/terminal_law.cu``: one word per
     path, u23 -> sqrt(2)*erfinv(2u-1) -> Clenshaw over the law operand
     [scale, c_0 .. c_{D-1}] -> scale * exp(...). ``seed_base`` is the law
     stream's base (already XOR-ed with LAW_STREAM_XOR); ``law_host`` is
-    the kernel's and unused here."""
+    the kernel's and unused here. ``draw="threefry"`` takes the normals
+    from ``law_normals_threefry`` under the law key ``key`` instead,
+    clamped to +-LAW_CLAMP (``seed_base`` unused)."""
+    from stock_market_monte_carlo_torch.ops.terminal_law import LAW_CLAMP
+
     dev = law.device
-    ntiles = n_paths // TILE_PATHS
-    tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
-    seeds = _tile_seed_i32(int(seed_base) & MASK32, tiles)[:, None]
-    pos = torch.arange(TILE_PATHS, device=dev)[None, :]
-    s = _normal_z(_arith_bits(seeds, 0, pos)) * _f32(inv_zmax)
+    if draw == "threefry":
+        clamp = _f32(LAW_CLAMP)
+        s = torch.clamp(law_normals_threefry(key, tile0, n_paths, dev),
+                        -clamp, clamp) * _f32(inv_zmax)
+    elif draw == "counter":
+        ntiles = n_paths // TILE_PATHS
+        tiles = (int(tile0) + torch.arange(ntiles, device=dev)) & MASK32
+        seeds = _tile_seed_i32(int(seed_base) & MASK32, tiles)[:, None]
+        pos = torch.arange(TILE_PATHS, device=dev)[None, :]
+        s = _normal_z(_arith_bits(seeds, 0, pos)) * _f32(inv_zmax)
+    else:
+        raise ValueError(f"unknown law draw {draw!r}")
     two_s = 2.0 * s
     b1 = torch.zeros_like(s)
     b2 = torch.zeros_like(s)
@@ -680,6 +746,129 @@ def law_chunk_plain(law, *, seed_base, tile0, valid, n_paths, v0, target,
     stats, hist = _epilogue(finals, None, valid, v0, target, shift, lo,
                             log_lo, inv_w, hb, with_hist)
     return stats, hist, (finals[:valid] if keep_finals else None)
+
+
+def threefry_operands(model, device, n_periods, sobol_shift=None):
+    """(table, draw keywords) of the threefry loop for a model whose XLA
+    draw it runs (``THREEFRY_DRAWS``): the unpadded float32 growth table
+    (100 + r) * 0.01 and its length (historical), or None and the
+    float32 monthly mean and std (Gaussian kinds); the Sobol Gaussian
+    kind also ``direction``, ``sobol_shift`` and ``index_offset`` as
+    ``draw_operands`` makes them."""
+    kw = dict(draw=model.kind, n_table=0, mean=0.0, std=0.0)
+    table = None
+    if model.kind == "historical":
+        table_np, kw["n_table"] = _pad_table(model.returns_pct)
+        table = torch.as_tensor(table_np[:kw["n_table"]], device=device)
+    elif model.kind in ("gaussian", "sobol_gaussian"):
+        kw["mean"], kw["std"] = _f32(model.mean_pct), _f32(model.std_pct)
+    else:
+        raise ValueError(f"no threefry draw for a {model.kind!r} model")
+    if model.kind == "sobol_gaussian":
+        _, sobol_kw = draw_operands(model, device, n_periods, sobol_shift)
+        kw.update(direction=sobol_kw["direction"],
+                  sobol_shift=sobol_kw["sobol_shift"],
+                  index_offset=sobol_kw["index_offset"])
+    return table, kw
+
+
+def _gaussian_growth(mean, std, z):
+    """The XLA draw's growth of normals z: (100 + (mean + std z)) * 0.01."""
+    return (100.0 + (_f32(mean) + _f32(std) * z)) * _f32(0.01)
+
+
+def threefry_growth(dev, table, *, draw, key, tile0, n_paths, n_periods,
+                    n_table=0, mean=0.0, std=0.0, direction=None,
+                    sobol_shift=None, index_offset=0):
+    """``growth(t)``: the (n_paths,) float32 growth factors of month t of
+    a chunk's paths on ``dev``, the threefry loop's draw. Path p lies at
+    position p mod 8192 of tile tile0 + p / 8192 and draws month t at
+    counter (p mod 8192) * n_periods + t under the tile key fold_in(key,
+    tile): ``draw="historical"`` as ``randint`` over ``table`` (``n_table``
+    growth factors), ``"gaussian"`` as mean + std * ``normal``. The
+    ``"sobol_gaussian"`` draw takes the Sobol word of dimension t at the
+    path's sequence position (``direction``, ``sobol_shift``,
+    ``index_offset``) through ``sobol_points_f32``'s float and
+    ``normal_icdf``."""
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    p = torch.arange(n_paths, dtype=torch.int64, device=dev)
+    if draw == "sobol_gaussian":
+        from stock_market_monte_carlo_torch.ops.normal import normal_icdf
+
+        word = _sobol_words(direction, sobol_shift, index_offset,
+                            (int(tile0) * TILE_PATHS + p) & MASK32)
+
+        def growth(t):
+            u = torch.clamp_max(word(t).to(torch.float32) * _f32(2.0**-32),
+                                _f32(1.0 - 2.0**-24))
+            return _gaussian_growth(mean, std, normal_icdf(u))
+        return growth
+    tk = tuple(k.repeat_interleave(TILE_PATHS)
+               for k in _tile_keys(key, tile0, n_paths, dev))
+    counter0 = (p & (TILE_PATHS - 1)) * n_periods
+    if draw == "historical":
+        s0, s1 = threefry.split(tk, 2)
+        ka, kb = (s0[:, 0], s1[:, 0]), (s0[:, 1], s1[:, 1])
+
+        def growth(t):
+            i = counter0 + t
+            return table[threefry.randint_of_bits(
+                threefry.bits_at(ka, i), threefry.bits_at(kb, i), n_table)]
+        return growth
+    if draw == "gaussian":
+        return lambda t: _gaussian_growth(
+            mean, std, threefry.normal_of_bits(
+                threefry.bits_at(tk, counter0 + t)))
+    raise ValueError(f"unknown threefry draw {draw!r}")
+
+
+def threefry_loop_chunk_plain(table, keep, *, draw, key, strategy, amount,
+                              n_periods, tile0, valid, n_paths, v0, target,
+                              shift, lo, log_lo, inv_w, hb, with_hist,
+                              keep_finals, n_table=0, mean=0.0, std=0.0,
+                              direction=None, sobol_shift=None,
+                              index_offset=0, growth=None):
+    """Plain PyTorch version of ``csrc/threefry_loop.cu``: the draw as
+    ``threefry_growth``, then the JAX package's ``compound_final`` month by
+    month on (n_paths,) tensors, in the kernel's order: the percent
+    strategies and none as run = run * (g * keep), finals v0 * run, the
+    withdrawn total adding (v0 * run * g) * (1 - keep); a fixed amount as
+    max(V * g - amount, 0). Then the month loop's stats and histogram.
+    ``growth``: the draw's ``growth(t)`` where the caller already has it
+    for these keywords (one draw held to the kernel under several
+    strategies)."""
+    dev = keep.device
+    if growth is None:
+        growth = threefry_growth(dev, table, draw=draw, key=key,
+                                 tile0=tile0, n_paths=n_paths,
+                                 n_periods=n_periods, n_table=n_table,
+                                 mean=mean, std=std, direction=direction,
+                                 sobol_shift=sobol_shift,
+                                 index_offset=index_offset)
+    code = STRATEGY_CODES[strategy]
+    v0f, amount = _f32(v0), _f32(amount)
+    f32 = dict(dtype=torch.float32, device=dev)
+    run = torch.ones((n_paths,), **f32)
+    total = torch.full((n_paths,), v0f, **f32)
+    wsum = torch.zeros((n_paths,), **f32)
+    for t in range(n_periods):
+        g = growth(t)
+        if code == 2:
+            grown = total * g
+            new = torch.clamp_min(grown - amount, 0.0)
+            wsum = wsum + (grown - new)
+            total = new
+        elif code == 1:
+            wsum = wsum + v0f * run * g * (1.0 - keep[t])
+            run = run * (g * keep[t])
+        else:
+            run = run * g
+    if code != 2:
+        total = v0f * run
+    stats, hist = _epilogue(total, wsum, valid, v0, target, shift, lo,
+                            log_lo, inv_w, hb, with_hist)
+    return stats, hist, (total[:valid] if keep_finals else None)
 
 
 # ---------------------------------------------------------------------------
@@ -923,7 +1112,8 @@ def law_operand_host(law, law_host):
 
 def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
                  shift, inv_zmax, lo, log_lo, inv_w, hb, with_hist,
-                 keep_finals, law_host=None, blocks_per_sm=_BLOCKS_PER_SM):
+                 keep_finals, law_host=None, draw="counter", key=None,
+                 blocks_per_sm=_BLOCKS_PER_SM):
     """Checked inputs of one terminal-law chunk on a CUDA device ->
     ``(launch, outputs)``, as ``month_loop_launcher``. The kernel takes
     the operand's values from ``law_host`` (``law_operand_host``) and
@@ -931,7 +1121,9 @@ def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
     histogram (``law_stats_twin``), so ``outputs()`` launches nothing but
     on the spec route (``in_kernel_hist`` false with a histogram), where
     the histogram kernel counts the finals. ``blocks_per_sm`` caps the
-    grid (``_launch_geometry``); the results do not depend on it."""
+    grid (``_launch_geometry``); the results do not depend on it.
+    ``draw="threefry"`` draws under the law key ``key`` (two ints) as
+    ``law_chunk_plain`` does."""
     from stock_market_monte_carlo_torch.ops import histogram
     from stock_market_monte_carlo_torch.ops._build import load_library
 
@@ -939,6 +1131,13 @@ def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
     dev = law.device
     _check_chunk(dev, "terminal-law", valid, n_paths)
     _check(law, "law", dev)
+    if draw not in LAW_DRAWS:
+        raise ValueError(f"unknown law draw {draw!r}")
+    if (key is None) != (draw == "counter"):
+        raise ValueError("the threefry law draw takes a key, the counter "
+                         "draw none")
+    k0, k1 = (0, 0) if key is None else (int(key[0]) & MASK32,
+                                         int(key[1]) & MASK32)
     fn = load_library().smmc_law
     n_blocks = _launch_geometry(_sm_count(dev), valid, LAW_UNIT_PATHS,
                                 blocks_per_sm)
@@ -961,7 +1160,8 @@ def law_launcher(law, *, seed_base, tile0, valid, n_paths, v0, target,
             _f32(shift), _f32(inv_zmax), _f32(log_lo), _f32(inv_w), hb,
             _ptr(finals), _ptr(partials), _ptr(work) if binned else None,
             _ptr(work[cells:]), _ptr(stats),
-            None if spec_route else _ptr(hist), n_blocks,
+            None if spec_route else _ptr(hist), LAW_DRAWS[draw], k0, k1,
+            n_blocks,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
 
     def launch(held=(partials, work, out, finals)):  # for the kernel
@@ -1043,7 +1243,89 @@ def law_chunk(law, **kw):
     ``law_chunk_plain`` (``seed_base`` is the law stream's base), on a
     CUDA device with ``law_host``, a host copy of ``law`` (numpy), whose
     values the kernel takes by value. Same outputs as
-    ``month_loop_chunk`` (withdrawn row 0)."""
+    ``month_loop_chunk`` (withdrawn row 0). Counts its launch under the
+    draw's ``LAW_COUNTERS`` entry."""
     if law.device.type == "cpu":
         return law_chunk_plain(law, **kw)
-    return _launch_counted("law", law_launcher(law, **kw))
+    launcher = law_launcher(law, **kw)
+    return _launch_counted(LAW_COUNTERS[kw.get("draw", "counter")], launcher)
+
+
+def threefry_loop_launcher(table, keep, *, draw, key, strategy, amount,
+                           n_periods, tile0, valid, n_paths, v0, target,
+                           shift, lo, log_lo, inv_w, hb, with_hist,
+                           keep_finals, n_table=0, mean=0.0, std=0.0,
+                           direction=None, sobol_shift=None,
+                           index_offset=0):
+    """Checked inputs of one threefry-loop chunk on a CUDA device ->
+    ``(launch, outputs)`` (see ``_prepare``). ``launch()`` alone is the
+    kernel, uncounted: ``threefry_loop_chunk`` is the counted entry
+    point. Refuses more than ``THREEFRY_MAX_MONTHS`` months (the
+    counter's high word would not be 0)."""
+    from stock_market_monte_carlo_torch.ops import threefry
+
+    dev = keep.device
+    _check_chunk(dev, "threefry-loop", valid, n_paths)
+    _check(keep, "keep", dev, n_periods)
+    if draw not in THREEFRY_DRAWS:
+        raise ValueError(f"unknown threefry draw {draw!r}")
+    if not 0 < n_periods <= THREEFRY_MAX_MONTHS:
+        raise ValueError(
+            f"n_periods={n_periods} outside [1, {THREEFRY_MAX_MONTHS}]: "
+            "the threefry counter p * n_periods + m of a tile's 8192 paths "
+            "must stay below 2^32")
+    span_mult = 0
+    if draw == "historical":
+        # the table (at most 2^15 rows, 128 KB) and an in-place histogram
+        # fit a block's shared memory
+        if not 0 < n_table < (1 << 15):
+            raise ValueError(f"table length {n_table} outside [1, 2^15)")
+        _check(table, "table", dev, n_table)
+        span_mult = threefry.randint_multiplier(n_table)
+    elif table is not None:
+        raise ValueError(f"the {draw} draw takes no table")
+    dir_cols = 0
+    if draw == "sobol_gaussian":
+        if direction is None or sobol_shift is None:
+            raise ValueError("the sobol_gaussian draw needs direction and "
+                             "sobol_shift")
+        _check(direction, "direction", dev, dtype=torch.int32)
+        dir_cols = direction.shape[-1]
+        if direction.shape != (n_periods, dir_cols) or dir_cols not in (32,
+                                                                         64):
+            raise ValueError(
+                f"direction has shape {tuple(direction.shape)}, expected "
+                f"({n_periods}, 32) or ({n_periods}, 64)")
+        _check(sobol_shift, "sobol_shift", dev, n_periods, torch.int32)
+        if not 0 <= index_offset < (1 << 62):
+            raise ValueError(f"index_offset {index_offset} outside [0, 2^62)")
+        if index_offset and dir_cols != 64:
+            raise ValueError("a nonzero index_offset needs the (n_periods, "
+                             "64) direction table")
+    elif direction is not None or sobol_shift is not None:
+        raise ValueError(f"the {draw} draw takes no Sobol operands")
+    args = (THREEFRY_DRAWS[draw], _ptr(table), n_table, span_mult,
+            _f32(mean), _f32(std), _ptr(direction), _ptr(sobol_shift),
+            dir_cols, index_offset & MASK32, index_offset >> 32, _ptr(keep),
+            STRATEGY_CODES[strategy], _f32(amount), n_periods,
+            int(key[0]) & MASK32, int(key[1]) & MASK32, int(tile0) & MASK32,
+            valid, _f32(v0), _f32(np.float32(1.0) / np.float32(v0)),
+            _f32(target), _f32(shift), _f32(log_lo), _f32(inv_w), hb)
+    return _prepare("smmc_threefry_loop", args, dev, valid, lo=lo,
+                    log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
+                    keep_finals=keep_finals)
+
+
+def threefry_loop_chunk(table, keep, **kw):
+    """One chunk of the JAX package's XLA backend on the threefry stream
+    (the draws of ``THREEFRY_DRAWS``). ``table``: the float32 (n_table,)
+    growth table of the historical draw (``threefry_operands``), else
+    None; ``keep``: float32 (n_periods,) keep factors; ``key``: the seed
+    segment's threefry key as two ints; other keywords as
+    ``threefry_loop_chunk_plain``. Returns (stats, hist, finals-or-None) on
+    ``keep.device``; counts its launch under the draw's
+    ``THREEFRY_LOOP_COUNTERS`` entry."""
+    if keep.device.type == "cpu":
+        return threefry_loop_chunk_plain(table, keep, **kw)
+    launcher = threefry_loop_launcher(table, keep, **kw)
+    return _launch_counted(THREEFRY_LOOP_COUNTERS[kw["draw"]], launcher)

@@ -50,23 +50,26 @@ _PARITY = 0x1BD11BDA
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
-def _rotl(x, r: int):
-    return ((x << r) & MASK32) | (x >> (32 - r))
-
-
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds (``jax._src.prng._threefry2x32``): the
-    pair (x0, x1) under key (k0, k1). All operands hold uint32 values in
-    int64 tensors (or Python ints) and broadcast."""
+    pair (x0, x1) under key (k0, k1), as int64 tensors of the operands'
+    broadcast shape. All operands hold uint32 values in int64 tensors (or
+    Python ints) and broadcast. The rounds update two buffers in place:
+    the plain versions draw tens of millions of words a call, where a
+    fresh tensor an operation costs more than the operation."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
+    x0, x1 = (t.clone() for t in torch.broadcast_tensors(
+        torch.as_tensor((x0 + ks[0]) & MASK32),
+        torch.as_tensor((x1 + ks[1]) & MASK32)))
+    high = torch.empty_like(x1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = x0 ^ _rotl(x1, r)
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+            # x0 += x1; x1 = x0 ^ rotl(x1, r)
+            x0.add_(x1).bitwise_and_(MASK32)
+            torch.bitwise_left_shift(x1, r, out=high).bitwise_and_(MASK32)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(high).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(MASK32)
     return x0, x1
 
 
@@ -99,14 +102,21 @@ def split(k, num: int):
                         torch.zeros_like(i), i)
 
 
+def bits_at(k, counters):
+    """The words of key ``k`` at the int64 ``counters`` (below 2^64):
+    ``y0 ^ y1`` of threefry2x32 over (counter >> 32, counter mod 2^32),
+    element ``i`` of ``jax.random.bits``'s flat layout at counter i."""
+    y0, y1 = threefry2x32(k[0], k[1], counters >> 32, counters & MASK32)
+    return y0 ^ y1
+
+
 def bits(k, shape):
     """``jax.random.bits(k, shape)`` (uint32) as int64: batch + shape."""
     shape = tuple(shape)
     n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=k[0].device)
-    y0, y1 = threefry2x32(k[0][..., None], k[1][..., None], i >> 32,
-                          i & MASK32)
-    return (y0 ^ y1).reshape(k[0].shape + shape)
+    return bits_at((k[0][..., None], k[1][..., None]), i).reshape(
+        k[0].shape + shape)
 
 
 def _unit_floats(b):
@@ -115,30 +125,51 @@ def _unit_floats(b):
     return f - 1.0
 
 
-def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0):
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
+def uniform_of_bits(b, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform``'s float32 values of the words ``b``."""
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(lo))
-    return torch.clamp_min(_unit_floats(bits(k, shape)) * span + lo, lo)
+    return torch.clamp_min(_unit_floats(b) * span + lo, lo)
+
+
+def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
+    return uniform_of_bits(bits(k, shape), minval, maxval)
+
+
+def normal_of_bits(b):
+    """``jax.random.normal``'s float32 values of the words ``b``:
+    sqrt(2) * erfinv(u) with u uniform in (-1, 1)."""
+    return _SQRT2 * _erfinv_poly(uniform_of_bits(b, _NORMAL_LO, 1.0))
 
 
 def normal(k, shape):
-    """``jax.random.normal(k, shape, float32)``: sqrt(2) * erfinv(u) with
-    u uniform in (-1, 1)."""
-    return _SQRT2 * _erfinv_poly(uniform(k, shape, _NORMAL_LO, 1.0))
+    """``jax.random.normal(k, shape, float32)``."""
+    return normal_of_bits(bits(k, shape))
+
+
+def randint_multiplier(span: int) -> int:
+    """randint's (2^32 mod span) as it computes it: ((2^16 mod span)^2
+    mod 2^32) mod span."""
+    return (((1 << 16) % span) ** 2 & MASK32) % span
+
+
+def randint_of_bits(higher, lower, span: int):
+    """``jax.random.randint``'s offsets in [0, span) of its two words, from
+    ``split(k, 2)[0]`` and ``[1]``: each reduced mod the span, combined as
+    (hi * (2^32 mod span) + lo) mod span with uint32 wrapping."""
+    offset = _mul32(higher % span, randint_multiplier(span)) + lower % span
+    return (offset & MASK32) % span
 
 
 def randint(k, shape, minval: int, maxval: int):
     """``jax.random.randint(k, shape, minval, maxval)`` (int32 range) as
-    int64: two bit draws from ``split(k, 2)``, each reduced mod the span,
-    combined as (hi * (2^32 mod span) + lo) mod span."""
+    int64."""
     if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1):
         raise ValueError(f"randint bounds [{minval}, {maxval}) outside "
                          "int32")
     span = max(maxval - minval, 1)
     k0, k1 = split(k, 2)
-    higher = bits((k0[..., 0], k1[..., 0]), shape) % span
-    lower = bits((k0[..., 1], k1[..., 1]), shape) % span
-    multiplier = (((1 << 16) % span) ** 2 & MASK32) % span
-    offset = ((_mul32(higher, multiplier) + lower) & MASK32) % span
-    return minval + offset
+    return minval + randint_of_bits(bits((k0[..., 0], k1[..., 0]), shape),
+                                    bits((k0[..., 1], k1[..., 1]), shape),
+                                    span)

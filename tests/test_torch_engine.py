@@ -388,9 +388,14 @@ def test_unknown_model_rejected():
 
 
 def test_xla_backend_rejected():
-    with pytest.raises(ValueError, match="no XLA backend"):
-        smt.EngineOptions(backend="xla", device="cpu")
+    """The port takes both packages' backend names ("xla" is the JAX
+    package's XLA backend, tests/test_torch_xla_backend.py) and rejects a
+    name that neither package knows."""
+    assert smt.EngineOptions(backend="xla", device="cpu").backend == "xla"
     assert smt.EngineOptions(backend="pallas").backend == "pallas"
+    for name in ("triton", "XLA", "cuda"):
+        with pytest.raises(ValueError, match="backend must be"):
+            smt.EngineOptions(backend=name, device="cpu")
 
 
 def test_port_import_leaves_jax_out():

@@ -43,7 +43,12 @@ for bit; an NCCL mesh on the CPU and a mesh on another device than
 ``options.device`` refuse. The user surfaces: the CLI's
 ``benchmark-mc-gpu`` and ``benchmark-mc-reduceblock --terminal-law`` equal
 to direct runs, and the native library built with g++ equal to the
-Python reader.
+Python reader. The XLA backend: the threefry loop kernel under its three
+draws and every strategy, odd and absent histograms, the hostile and a
+20000-row table, a wrap of the tiles past 2^32 and 64-bit Sobol positions,
+and the terminal law's threefry draw, against their plain versions bit for
+bit; their input checks and launch counters; ``backend="xla"`` on the
+card against the CPU.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -1964,3 +1969,144 @@ def test_native_build_matches_the_python_reader(cuda, tmp_path):
     finally:
         del os.environ["SMMC_NATIVE_LIB"]
         native._LIB, native._LOAD_ATTEMPTED = None, False
+
+
+# ---------------------------------------------------------------------------
+# The XLA backend: the threefry loop and the terminal law's threefry draw.
+# ---------------------------------------------------------------------------
+
+
+def _threefry_args(cuda, draw, strategy, n_periods=24, hb=4096,
+                   with_hist=True, table_name="n1127", valid=2 * 8192 + 1001,
+                   tile0=37):
+    """(table, keep), kwargs of one threefry-loop chunk of four tiles."""
+    from stock_market_monte_carlo_torch.engine import engine as eng
+    from stock_market_monte_carlo_torch.ops import sobol
+
+    model = {"historical": smt.HistoricalBootstrap(_table(table_name)),
+             "gaussian": smt.GaussianReturns(),
+             "sobol_gaussian": smt.SobolGaussianReturns.create(n_periods)
+             }[draw]
+    shift = (sobol.digital_shift(eng._scramble_key(4, cuda), n_periods)
+             if draw == "sobol_gaussian" else None)
+    table, kw = ce.threefry_operands(model, cuda, n_periods, shift)
+    keep = np.random.default_rng(5).uniform(0.99, 1.0, n_periods).astype(
+        np.float32)
+    kw.update(_month_kw(strategy, kw["n_table"], n_periods, hb, with_hist),
+              key=eng._segment_key(4, 1), tile0=tile0, valid=valid)
+    del kw["seed_base"]
+    return (table, torch.as_tensor(keep, device=cuda)), kw
+
+
+def _assert_threefry_matches_plain(k_out, p_out):
+    """Path count, count below, min, max, cells and finals bit for bit;
+    the power sums and the withdrawn total within 1e-6 (float64 sums in
+    another order)."""
+    _assert_kernel_matches_plain(k_out, p_out)
+    assert torch.equal(k_out[1], p_out[1])
+    assert torch.equal(k_out[2], p_out[2])
+
+
+@pytest.mark.parametrize("draw", ["historical", "gaussian", "sobol_gaussian"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "fixed_amount"])
+@pytest.mark.parametrize("hb,with_hist", [(4096, True), (102, True),
+                                          (4096, False)])
+def test_threefry_loop_kernel_matches_plain(cuda, draw, strategy, hb,
+                                            with_hist):
+    ops, kw = _threefry_args(cuda, draw, strategy, hb=hb,
+                             with_hist=with_hist)
+    _assert_threefry_matches_plain(ce.threefry_loop_chunk(*ops, **kw),
+                                   ce.threefry_loop_chunk_plain(*ops, **kw))
+
+
+@pytest.mark.parametrize("table_name", ["hostile_n97", "n20000"])
+@pytest.mark.parametrize("valid,tile0", [(1, 0), (8192 + 3, (1 << 32) - 2),
+                                         (4 * 8192, 5)])
+def test_threefry_loop_tables_and_tiles_match_plain(cuda, table_name, valid,
+                                                    tile0):
+    """The hostile table and a 20000-row one (the shared-memory table past
+    48 KB), one path, a wrap of the tiles past 2^32, a full chunk."""
+    ops, kw = _threefry_args(cuda, "historical", "fixed_amount",
+                             table_name=table_name, valid=valid,
+                             tile0=tile0)
+    _assert_threefry_matches_plain(ce.threefry_loop_chunk(*ops, **kw),
+                                   ce.threefry_loop_chunk_plain(*ops, **kw))
+
+
+def test_threefry_loop_sobol_at_64_bit_positions_matches_plain(cuda):
+    from stock_market_monte_carlo_torch.engine import engine as eng
+    from stock_market_monte_carlo_torch.ops import sobol
+
+    model = smt.SobolGaussianReturns.create(24, index_offset=(1 << 33) + 777)
+    table, draw = ce.threefry_operands(model, cuda, 24, sobol.digital_shift(
+        eng._scramble_key(4, cuda), 24))
+    kw = dict(_month_kw("fixed_percent", 0, 24, 4096, True),
+              key=(0, 0), tile0=3, **draw)
+    del kw["seed_base"]
+    ops = (table, torch.full((24,), 0.995, device=cuda))
+    _assert_threefry_matches_plain(ce.threefry_loop_chunk(*ops, **kw),
+                                   ce.threefry_loop_chunk_plain(*ops, **kw))
+
+
+@pytest.mark.parametrize("case", sorted(LAW_CASES))
+@pytest.mark.parametrize("keep_finals", [True, False])
+@pytest.mark.parametrize("hb", [4096, 102])
+def test_law_threefry_matches_plain(cuda, case, keep_finals, hb):
+    """The law kernel's threefry draw, both instances, at the law cases'
+    tiles and grids, binned in place and by the histogram kernel."""
+    ops, kw = _law_args(cuda, *LAW_CASES[case], hb)
+    kw.update(draw="threefry", key=(0x12345678, 0x9ABCDEF0))
+    p_out = ce.law_chunk_plain(*ops, **kw)
+    ce.reset_launch_counts()
+    k_out = ce.law_chunk(*ops, **dict(kw, keep_finals=keep_finals))
+    assert ce.LAUNCHES["law_threefry"] == 1 and ce.LAUNCHES["law"] == 0
+    assert (k_out[2] is None) == (not keep_finals)
+    _assert_law_matches_plain(k_out, p_out)
+
+
+def test_threefry_wrappers_check_inputs_and_count_launches(cuda):
+    ops, kw = _threefry_args(cuda, "gaussian", "none")
+    ce.reset_launch_counts()
+    ce.threefry_loop_chunk_plain(*ops, **kw)
+    assert ce.LAUNCHES["threefry_loop_gaussian"] == 0
+    ce.threefry_loop_chunk(*ops, **kw)
+    assert ce.LAUNCHES["threefry_loop_gaussian"] == 1
+    with pytest.raises(ValueError, match="takes no table"):
+        ce.threefry_loop_chunk(ops[1], ops[1], **kw)
+    with pytest.raises(ValueError, match="unknown threefry draw"):
+        ce.threefry_loop_chunk(*ops, **dict(kw, draw="reference"))
+    long = ce.THREEFRY_MAX_MONTHS + 1
+    with pytest.raises(ValueError, match="must stay below 2"):
+        ce.threefry_loop_chunk(None, torch.ones(long, device=cuda),
+                               **dict(kw, n_periods=long))
+    assert ce.LAUNCHES["threefry_loop_gaussian"] == 1
+    law_ops, law_kw = _law_args(cuda)
+    with pytest.raises(ValueError, match="takes a key"):
+        ce.law_chunk(*law_ops, **dict(law_kw, draw="threefry"))
+
+
+@pytest.mark.parametrize("kind", ["historical", "gaussian",
+                                  "sobol_gaussian"])
+def test_xla_engine_on_cuda_matches_cpu(cuda, kind):
+    """``backend="xla"`` on the card (the threefry loop, in month order)
+    against the CPU (``chunk_stats``: XLA's structure, torch's product
+    order): finals within 2e-6 at 12 months, one launch a chunk."""
+    model = {"historical": smt.HistoricalBootstrap.from_csv(),
+             "gaussian": smt.GaussianReturns(),
+             "sobol_gaussian": smt.SobolGaussianReturns.create(12)}[kind]
+    args = (model, 3 * 8192 + 123, 12)
+    kw = dict(seed=4, strategy=smt.FixedPercentWithdrawal(0.3),
+              target_amount=1000.0, keep_final_values=True)
+    ce.reset_launch_counts()
+    got = smt.simulate_stats(*args, options=smt.EngineOptions(
+        backend="xla", chunk_paths=8192), **kw)
+    counter = ce.THREEFRY_LOOP_COUNTERS[kind]
+    assert ce.LAUNCHES[counter] == 4
+    assert sum(ce.LAUNCHES.values()) == 4
+    want = smt.simulate_stats(*args, options=smt.EngineOptions(
+        backend="xla", chunk_paths=8192, device="cpu"), **kw)
+    np.testing.assert_allclose(got.final_values, want.final_values,
+                               rtol=2e-6, atol=0)
+    assert got.mean == pytest.approx(want.mean, rel=2e-6)
+    assert got.histogram_counts.sum() == want.histogram_counts.sum()
