@@ -8,8 +8,8 @@ terminal law, the Gaussian ICDF month loop, the Gaussian CLT and the Sobol
 Gaussian, Sobol historical and reference-parity historical month loops;
 the CLT prefix and the ICDF month loop under ``FixedPercentWithdrawal(0.4)``
 with the withdrawn total tracked; the XLA backend (``backend="xla"``: the
-threefry loop's historical, Gaussian and Sobol Gaussian draws and the
-terminal law's threefry draw);
+threefry loop's historical and Gaussian draws, the Sobol Gaussian draw on
+the run loop and the terminal law's threefry draw);
 ``simulate_bands`` on the historical model in hist mode and on the
 Gaussian model in cdf mode, 32 sample paths each): one warm-up call, then
 ``torch.profiler`` (CPU and CUDA activity) over one call that ends in
@@ -82,8 +82,7 @@ def main():
             gauss, smt.FixedPercentWithdrawal(0.4)),
         "XLA historical (threefry loop)": stats(hist, backend="xla"),
         "XLA Gaussian (threefry loop)": stats(gauss, backend="xla"),
-        "XLA Sobol Gaussian (threefry loop)": stats(sobol_gauss,
-                                                    backend="xla"),
+        "XLA Sobol Gaussian (run loop)": stats(sobol_gauss, backend="xla"),
         "XLA terminal law (threefry)": stats(hist, backend="xla",
                                              terminal_law=True),
         "historical bands (hist)": bands(hist, band_mode="hist"),

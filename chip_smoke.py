@@ -51,10 +51,13 @@ native library built and held to its Python versions; ``benchmark-google``
 and ``benchmark-compare``; and the sweep (``bench/sweep.py``) at full
 size, which launches the ICDF and Sobol loops, the CLT, both band kernels
 and the law. Last, the JAX package's XLA backend (phase 13,
-``backend="xla"``): the threefry loop kernel (historical, Gaussian and
-Sobol Gaussian draws under no withdrawal, a fixed percent and a fixed
-amount) and the terminal law's threefry draw against their plain versions
-at the first and the ragged last 2^24-path chunk of a 100M-path run, the
+``backend="xla"``): the threefry loop kernel (historical and Gaussian
+draws; the Sobol Gaussian draw on the run kernel, ``run_loop_kernel<5,S>``)
+under no withdrawal, a fixed percent and a fixed amount, and the terminal
+law's threefry draw, against their plain versions at the first and the
+ragged last 2^24-path chunk of a 100M-path run (the Sobol draw also at its
+edges: one path, ragged runs, the ids' wrap, 64-bit positions, 1866
+months, odd and absent histograms), the
 four XLA paths at 100M x 360 each counted on its own (means against
 1000 * g^360), a golden of the JAX package's XLA backend, their walls
 and their chunk times.
@@ -187,8 +190,12 @@ KERNELS = {
     # not Pallas kernels: the JAX package's XLA backend, chunk_stats and
     # the terminal law's _law_finals_xla
     **{key: dict(source=f"{_CSRC}/threefry_loop.cu", replaces=f"{_ENG}:359")
-       for key in ("threefry_loop", "threefry_loop_gaussian",
-                   "threefry_loop_sobol_gaussian")},
+       for key in ("threefry_loop", "threefry_loop_gaussian")},
+    # the Sobol Gaussian draw of the same backend, on the run kernel
+    "threefry_loop_sobol_gaussian": dict(
+        source=f"{_CSRC}/run_loop.cu", replaces=f"{_ENG}:359",
+        design="run_loop_kernel<5,S>: runs of 8 paths a thread, the warp's "
+               "Gray-code recurrence, direction rows in shared memory"),
     "law_threefry": dict(source=f"{_CSRC}/terminal_law.cu",
                          replaces=f"{_ENG}:328"),
 }
@@ -223,6 +230,23 @@ TRAJ_PATHS = 10_000
 TRAJ_REL = 3e-5
 # a Sobol run positioned past 2^33: 64-bit positions, the (T, 64) table
 DEEP_OFFSET = (1 << 33) + 777
+# the XLA Sobol Gaussian draw's run kernel at its edges, in chunks of 4
+# tiles (phase 13): case -> (months, index_offset, tile0, valid, bins,
+# with_hist): one path, runs of 8 left with 1 to 7 paths, the 32-bit ids'
+# wrap between tiles, a carry inside a run, 64-bit positions, the windows
+# restaged at 1866 months, 102 cells (the histogram kernel) and none
+XLA_SOBOL_EDGES = {
+    "one path": (24, 0, 37, 1, 4094, True),
+    **{f"{r} of a run": (24, 0, 37, 3 * 8192 + 8 * 37 + r, 4094, True)
+       for r in range(1, 8)},
+    "ids' wrap": (24, 0, (1 << 19) - 1, 2 * 8192 + 1001, 4094, True),
+    "offset 3": (24, 3, 37, 2 * 8192 + 1001, 4094, True),
+    "offset 2^32-3": (24, (1 << 32) - 3, 37, 2 * 8192 + 1001, 4094, True),
+    "offset 2^33+777": (24, DEEP_OFFSET, 37, 2 * 8192 + 1001, 4094, True),
+    "1866 months": (1866, DEEP_OFFSET, 37, 8192 + 3, 4094, True),
+    "102 cells": (24, 0, 37, 2 * 8192 + 1001, 100, True),
+    "no histogram": (24, 0, 37, 2 * 8192 + 1001, 4094, False),
+}
 RQMC_REPLICATES = 8
 RQMC_PATHS = 1 << 24
 SOBOL_BAND_PATHS = 1 << 22
@@ -1237,6 +1261,37 @@ def xla_phase(card):
             if not keep_finals and tile0 == 0:
                 plain_ms["law_threefry"] = ms
                 cases["law_threefry"] = (ops, kw)
+    # ... and the Sobol draw's run kernel at its edges (XLA_SOBOL_EDGES)
+    # under the three strategies: the stats row as the card tests hold it
+    # (path count, min, max and count below exact; the power sums and the
+    # withdrawn total within 1e-6), cells and finals bit for bit
+    key = "threefry_loop_sobol_gaussian"
+    for case, (months, offset, tile0, valid, bins, with_hist) in \
+            XLA_SOBOL_EDGES.items():
+        model = smt.SobolGaussianReturns.create(months, index_offset=offset)
+        for sname, strategy in strategies.items():
+            ops, kw = threefry_chunk_args(model, strategy, months, valid,
+                                          4 * ce.TILE_PATHS, 2000.0, seed=0,
+                                          tile0=tile0, bins=bins)
+            kw["with_hist"] = with_hist
+            label = f"{key} {case}, {sname}"
+            ce.reset_launch_counts()
+            k_out = ce.threefry_loop_chunk(*ops, **kw)
+            check(ce.LAUNCHES[key] == 1, f"{label}: launches {ce.LAUNCHES}")
+            p_out = ce.threefry_loop_chunk_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            sk, sp = k_out[0].cpu().numpy(), p_out[0].cpu().numpy()
+            check(np.array_equal(sk[[0, 5, 6, 7]], sp[[0, 5, 6, 7]]),
+                  f"{label}: stats {sk} vs {sp}")
+            tol = 1e-6 * (np.abs(sp[[1, 2, 3, 4, 8]]) + abs(sp[2]))
+            check(np.all(np.abs(sk[[1, 2, 3, 4, 8]] - sp[[1, 2, 3, 4, 8]])
+                         <= tol), f"{label}: stats {sk} vs {sp}")
+            check(torch.equal(k_out[1], p_out[1])
+                  and torch.equal(k_out[2], p_out[2]),
+                  f"{label}: cells or finals differ")
+    say(13, f"{key}: equal to the plain version at "
+            f"{len(XLA_SOBOL_EDGES)} edges x {len(strategies)} strategies "
+            f"({', '.join(XLA_SOBOL_EDGES)})")
     say(13, f"threefry kernels against their plain versions in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -1323,6 +1378,9 @@ def xla_phase(card):
         timings[key] = dict(ms=ms, plain_ms=plain_ms[key],
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None)
+        design = KERNELS[key].get("design")
+        if design:
+            say(13, f"{key}: {KERNELS[key]['source']}, {design}")
         say(13, f"[{card}] {key}: kernel {ms!r} ms, wrapper {wrapper_ms!r} "
                 f"ms, plain {plain_ms[key]!r} ms, bound {bound_ms!r} ms "
                 f"({bound_by}: {work}), share {bound_ms / ms!r} per 2^24-"
@@ -1371,11 +1429,11 @@ def main():
 
     res = kres.ptxas_resources(report.getvalue())
     for kernel, instances, params in (
-            ("run_loop_kernel", 9, "draw,strategy"),
+            ("run_loop_kernel", 12, "draw,strategy"),
             ("month_loop_kernel", 6, "draw,strategy"),
             ("clt_kernel", 8, "variant,ablate"),
             ("law_kernel", 4, "draw,finals"),
-            ("threefry_loop_kernel", 9, "draw,strategy"),
+            ("threefry_loop_kernel", 6, "draw,strategy"),
             ("op_toy_kernel", 7, "op")):
         found = {args: v for name, v in res.items()
                  if (args := template_args(name, kernel))}
@@ -1387,7 +1445,7 @@ def main():
                f"{found}")
     plans = {"gaussian": ce.run_kernel_info("gaussian",
                                             n_periods=MAIN_MONTHS)}
-    for draw in ("sobol_gaussian", "sobol_historical"):
+    for draw in ("sobol_gaussian", "sobol_historical", "xla_sobol_gaussian"):
         for cols, months in ((32, MAIN_MONTHS), (64, MAIN_MONTHS),
                              (64, SOBOL_MONTHS)):
             plans[f"{draw} {cols} columns {months} months"] = \

@@ -9,7 +9,9 @@ Each case is one 2^24-path chunk at 360 months with the operands that
 ``chip_smoke.py`` builds for its phase-6 timings (its ``*_chunk_args``,
 seed 0, target 2000, 4096 histogram cells, no withdrawal unless the name
 says so; the terminal law without and with finals; the XLA backend's
-threefry loop, ``threefry_<draw>``, and terminal law, ``law_threefry``),
+threefry loop, ``threefry_<draw>``, the Sobol Gaussian draw also under
+0.4 % a month, ``threefry_sobol_gaussian_keep``, and terminal law,
+``law_threefry``),
 or the headline's
 and the probes' shapes for the histogram kernel (2^24 indices over 4096
 cells), the tile flatten (2048 tiles), the calibration kernels, the
@@ -91,6 +93,11 @@ def cases():
                          smt.SobolGaussianReturns.create(MONTHS))):
         out[name] = (ce.threefry_loop_launcher, *cs.threefry_chunk_args(
             model, none, MONTHS, CHUNK, CHUNK, TARGET, seed=0))
+    out["threefry_sobol_gaussian_keep"] = (
+        ce.threefry_loop_launcher, *cs.threefry_chunk_args(
+            smt.SobolGaussianReturns.create(MONTHS),
+            smt.FixedPercentWithdrawal(0.4), MONTHS, CHUNK, CHUNK, TARGET,
+            seed=0))
     out["law_threefry"] = (ce.law_launcher, *cs.law_chunk_args(
         hist, MONTHS, CHUNK, CHUNK, TARGET, seed=0, keep_finals=False,
         draw="threefry"))

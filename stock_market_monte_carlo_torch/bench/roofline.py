@@ -209,18 +209,20 @@ def work(name, ops, kw):
         # compounding (run * g), a percent strategy's g * keep and the
         # withdrawn term's four operations and add, a fixed amount's step;
         # per path the tile key (and the historical draw's split keys),
-        # the counter's start, v0 * run and the epilogue
+        # the counter's start, v0 * run and the epilogue. The Sobol draw
+        # reads no threefry word: no key and no counter, its word steps
+        # along consecutive positions (_SOBOL)
         strat = {"none": 0, "fixed_percent": 6, "variable_percent": 6,
                  "fixed_amount": 4}[kw["strategy"]]
         draw = kw["draw"]
         if draw == "historical":
-            per, keys = _RANDINT + 1, 3
+            per, keys, counter = _RANDINT + 1, 3, 1
         elif draw == "gaussian":
-            per, keys = _THREEFRY_BITS + _NORMAL_Z + _XLA_GROWTH, 1
+            per, keys, counter = _THREEFRY_BITS + _NORMAL_Z + _XLA_GROWTH, 1, 1
         else:
-            per, keys = _SOBOL + _SOBOL_ICDF + _XLA_GROWTH, 1
-        per_path = (t * (per + 2 + strat) + keys * _THREEFRY + 2
-                    + _EPILOGUE)
+            per, keys, counter = _SOBOL + _SOBOL_ICDF + _XLA_GROWTH, 0, 0
+        per_path = (t * (per + counter + 1 + strat) + keys * _THREEFRY
+                    + counter + 1 + _EPILOGUE)
         scalar = valid * per_path
         sobol_ops = [kw.get("direction"), kw.get("sobol_shift")]
         nbytes = _io_bytes(list(ops) + sobol_ops, kw, 256, 8)

@@ -19,8 +19,10 @@ prefix kernel, ``gaussian_sampler="clt-prefix"``) and
 ``chip_smoke.py`` phase 5b runs it (3 levels, 32 sample paths, timed
 alike): ``bands_hist`` (historical, 1024 bins) and ``bands_cdf``
 (Gaussian, 32 thresholds). The XLA backend (``backend="xla"``):
-``threefry_historical`` and ``threefry_gaussian`` (the threefry loop) and
-``law_threefry`` (the terminal law's threefry draw, historical). Prints
+``threefry_historical`` and ``threefry_gaussian`` (the threefry loop),
+``threefry_sobol_gaussian`` (``SobolGaussianReturns.create(360)``, its
+Sobol Gaussian draw on the run kernel) and ``law_threefry`` (the terminal
+law's threefry draw, historical). Prints
 the card's name and power limit, then
 one JSON line {name: {"median_s", "rep_times_s"}}. Imports neither jax
 nor the JAX package.
@@ -54,6 +56,8 @@ PATHS = {
     "gaussian_icdf_percent": ("gaussian", {}, PERCENT),
     "threefry_historical": ("historical", dict(backend="xla"), None),
     "threefry_gaussian": ("gaussian", dict(backend="xla"), None),
+    "threefry_sobol_gaussian": ("sobol_gaussian", dict(backend="xla"),
+                                None),
     "law_threefry": ("historical", dict(backend="xla", terminal_law=True),
                      None),
 }
@@ -93,7 +97,8 @@ def main(argv=None):
     headline._require_card()
     print(headline.card_line(), flush=True)
     models = {"historical": smt.HistoricalBootstrap.from_csv(),
-              "gaussian": smt.GaussianReturns()}
+              "gaussian": smt.GaussianReturns(),
+              "sobol_gaussian": smt.SobolGaussianReturns.create(N_PERIODS)}
     out = {}
     for name, (kind, opts, percent) in PATHS.items():
         if args.names and name not in args.names:

@@ -1,7 +1,7 @@
 // Run month-loop kernel: one chunk of paths compounded month by month,
 // each thread holding a run of K consecutive paths, under the counter
 // stream's Gaussian ICDF draw or the Sobol Gaussian or Sobol historical
-// draw.
+// draw; and the XLA backend's Sobol Gaussian draw.
 //
 // Replaces: stock_market_monte_carlo_tpu/ops/pallas_engine.py
 //   _build_kernel, built by _build_pallas_call (pl.pallas_call at :1097),
@@ -11,6 +11,12 @@
 //   routes its draws 1-3 here. Plain version: ops/cuda_engine.py
 //   month_loop_chunk_plain (the Sobol word from the byte tables,
 //   _sobol_words).
+// - kXlaSobolGaussian replaces no Pallas kernel: it is the Sobol Gaussian
+//   draw of the JAX package's XLA backend (EngineOptions(backend="xla"),
+//   engine.chunk_stats at stock_market_monte_carlo_tpu/engine/engine.py
+//   :359), with csrc/threefry_loop.cu's compounding and epilogue;
+//   ops/cuda_engine.py threefry_loop_launcher launches it.
+//   Plain version: ops/cuda_engine.py threefry_loop_chunk_plain.
 //
 // What it computes, per path and month: a 32-bit word, then a +
 // b*normal_z(word) (kGaussian, kSobolGaussian) or table row
@@ -23,6 +29,12 @@
 //   path's sequence position idx = index_offset + gid (gid = tile0 * 8192
 //   + p in uint32), word = shift[t] ^ XOR of dir[t][b] over the set bits b
 //   of gray(idx) = idx ^ (idx >> 1).
+// kXlaSobolGaussian maps the word as the XLA backend does
+// (sobol_normal_warp: float32(word) * 2^-32, the clip, sqrt(2) erfinv(2u -
+// 1)), grows by (100 + (mean + std z)) * 0.01 (a = mean, b = std) and
+// compounds in compound_final's order (xla_step: the run product, v0 *
+// run at the end, under none and the keep factors), as
+// threefry_loop_kernel does.
 //
 // What bounds it on an H100: operations. The counter word is a hash (~10
 // integer operations) a path-month and its month key one a tile-month;
@@ -37,15 +49,17 @@
 //
 // What the design does about it:
 // - A thread holds K consecutive chunk paths p0 .. p0+K-1 in registers
-//   (K = 8 for the Gaussian draws, 16 for the Sobol historical: the faster
-//   of 4, 8 and 16 on the H100, PERF.md), and a warp the 32K consecutive
-//   paths of 32 neighbouring runs. The runs never leave an 8192-path tile
-//   (32K divides 8192): the counter draw hashes its month key once a
-//   thread-month, and the Sobol positions are consecutive (gid wraps at
-//   2^32 only between tiles, and idx is 64-bit).
+//   (K = 8 for the Gaussian draws, the XLA one too, 16 for the Sobol
+//   historical: the faster of 4, 8 and 16 on the H100, PERF.md), and a
+//   warp the 32K consecutive paths of 32 neighbouring runs. The runs
+//   never leave an 8192-path tile (32K divides 8192): the counter draw
+//   hashes its month key once a thread-month, and the Sobol positions
+//   are consecutive (gid wraps at 2^32 only between tiles, and idx is
+//   64-bit).
 // - The Sobol step columns c_j = ctz(idx0 + j), j = 1..K, do not depend
 //   on the month; each thread works them out once per run, before the
-//   months (the counter draw does not read them).
+//   months (the counter draw does not read them). The XLA draw reads no
+//   threefry word, so it needs no tile key: the word is all its stream.
 // - Each month the warp folds its first Sobol position once, spread over
 //   the lanes: lane b holds dir[t][b] (and dir[t][32+b]) masked by
 //   bit b of that gray code, and a 5-step XOR butterfly gives every lane
@@ -68,9 +82,10 @@
 //   SM) was slower, and a window of 32 or 64 months no faster (PERF.md).
 // - The Gaussian draws evaluate the erfinv's tail polynomial (w >= 5,
 //   about one draw in 300) only where a lane of the warp needs it, behind
-//   a warp-uniform branch (normal_z_warp): the same operations on each
-//   value as the branch-free normal_z, which computes both polynomials.
-//   Every lane of a warp runs every path, so the warps stay whole.
+//   a warp-uniform branch (normal_z_warp, sobol_normal_warp): the same
+//   operations on each value as the branch-free erfinv_poly, which
+//   computes both polynomials. Every lane of a warp runs every path, so
+//   the warps stay whole.
 // - keep[t] is read once a thread-month; the growth table (historical)
 //   and the histogram sit in shared memory as in month_loop.cu; partial
 //   statistics are float64 per thread, one row a block; finals are
@@ -86,7 +101,13 @@ namespace {
 
 using namespace smmc;
 
-enum Draw { kGaussian = 1, kSobolGaussian = 2, kSobolHistorical = 3 };
+// draws 1-3 are smmc_month_loop's; 5 is the threefry loop's Sobol Gaussian
+enum Draw {
+  kGaussian = 1,
+  kSobolGaussian = 2,
+  kSobolHistorical = 3,
+  kXlaSobolGaussian = 5
+};
 // shared memory for a window of direction rows and shifts
 constexpr size_t kDirBudget = 16 * 1024;
 
@@ -100,7 +121,7 @@ struct Args {
   const float* table;     // (k_chunks*128,) growth table; historical
   int k_chunks;
   uint32_t n_table;
-  float a, b;             // growth a + b*z; Gaussian
+  float a, b;             // growth a + b*z; Gaussian (XLA: mean, std)
   const uint32_t* dir;    // (n_periods, dir_cols) direction numbers
   const uint32_t* shift;  // (n_periods,) digital shifts
   int dir_cols;           // 32, or 64 for 64-bit positions
@@ -189,7 +210,9 @@ __global__ void __launch_bounds__(kBlock) run_loop_kernel(const Args g) {
     float total[K], wsum[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      total[j] = g.v0;
+      // the XLA draw holds the run product (xla_start)
+      total[j] = DRAW == kXlaSobolGaussian ? xla_start<STRATEGY>(g.v0)
+                                           : g.v0;
       wsum[j] = 0.0f;
     }
     if constexpr (DRAW == kGaussian) {
@@ -243,13 +266,24 @@ __global__ void __launch_bounds__(kBlock) run_loop_kernel(const Args g) {
             float gfac;
             if constexpr (DRAW == kSobolGaussian)
               gfac = g.a + g.b * normal_z_warp(w);
+            else if constexpr (DRAW == kXlaSobolGaussian)
+              gfac = xla_growth(g.a, g.b, sobol_normal_warp(w));
             else
               gfac = s_table[idx_exact(w, n_table)];
-            step<STRATEGY>(total[j], wsum[j], gfac, keep_t, g.amount);
+            if constexpr (DRAW == kXlaSobolGaussian)
+              xla_step<STRATEGY>(total[j], wsum[j], gfac, keep_t, g.v0,
+                                 g.amount);
+            else
+              step<STRATEGY>(total[j], wsum[j], gfac, keep_t, g.amount);
             w ^= d[j];
           }
         }
       }
+    }
+    if constexpr (DRAW == kXlaSobolGaussian) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        total[j] = xla_final<STRATEGY>(total[j], g.v0);
     }
     if (g.finals && p0 + K <= g.valid) {
 #pragma unroll
@@ -294,6 +328,7 @@ KernelFn kernel_of(int draw, int strategy, int dir_cols) {
   switch (draw) {
     case kSobolGaussian: return kernel_of<kSobolGaussian>(strategy);
     case kSobolHistorical: return kernel_of<kSobolHistorical>(strategy);
+    case kXlaSobolGaussian: return kernel_of<kXlaSobolGaussian>(strategy);
     default: return nullptr;
   }
 }
@@ -310,12 +345,13 @@ int pick_window(int draw, int dir_cols, int n_periods) {
 }  // namespace
 
 // One chunk of draw 1 (counter Gaussian: a, b, seed_base), 2 (Sobol
-// Gaussian: a, b and the Sobol operands) or 3 (Sobol historical: table,
-// k_chunks, n_table and the Sobol operands), the operands as
-// smmc_month_loop takes them, which routes these draws here (tail_n is not
-// read; dir_cols is 0 for draw 1). The grid's blocks each take groups of
-// kBlock x K paths (smmc_run_info). Returns cudaGetLastError() after the
-// launch.
+// Gaussian: a, b and the Sobol operands), 3 (Sobol historical: table,
+// k_chunks, n_table and the Sobol operands) or 5 (the XLA Sobol Gaussian:
+// mean and std as a and b, and the Sobol operands), the operands as
+// smmc_month_loop takes them, which routes draws 1-3 here (draw 5 is
+// called by ops/cuda_engine.py threefry_loop_launcher; tail_n is not read;
+// dir_cols is 0 for draw 1). The grid's blocks each take groups of kBlock x
+// K paths (smmc_run_info). Returns cudaGetLastError() after the launch.
 extern "C" int smmc_run_loop(
     int draw, const float* table, int k_chunks, int n_table, int tail_n,
     float a, float b, const unsigned int* dir, const unsigned int* shift,
@@ -339,7 +375,7 @@ extern "C" int smmc_run_loop(
   return cudaGetLastError();
 }
 
-// What one chunk of draw 1, 2 or 3 launches, as smmc_run_loop would with
+// What one chunk of draw 1, 2, 3 or 5 launches, as smmc_run_loop would with
 // these operands (hist: whether the chunk bins in place): info[0] paths a
 // thread (K), [1] registers a thread, [2] dynamic shared memory (bytes),
 // [3] the window of months, [4] resident blocks a SM on the current device.

@@ -18,10 +18,10 @@
 //   reduced mod the table length and combined as randint combines them;
 // - kGaussian: mean + std * jax.random.normal (:59), one word a month
 //   under the tile key, growth (100 + r) * 0.01;
-// - kSobolGaussian: the XLA draw of SobolGaussianReturns, which is not
-//   its Pallas kernel's: the Sobol word of (month, sequence position) as
-//   float32 * 2^-32, clamped below 1, then normal_icdf (clip to [1e-7,
-//   1 - 1e-7], sqrt(2) * erfinv(2u - 1)), growth (100 + r) * 0.01.
+// - the Sobol Gaussian draw (SobolGaussianReturns' XLA draw, which is not
+//   its Pallas kernel's) runs on csrc/run_loop.cu's run design, draw
+//   kXlaSobolGaussian, with this kernel's compounding and epilogue
+//   (ops/cuda_engine.py threefry_loop_launcher launches it there).
 // Path p of the chunk lies at position pos = p mod 8192 of tile tile0 +
 // p / 8192; month m of it is element pos * T + m of the tile's (8192, T)
 // draw, the counter of jax.random.bits's partitionable layout (its high
@@ -32,7 +32,8 @@
 //   strategy, where g * 1 = g), finals = v0 * run; the withdrawn total
 //   adds (v0 * run_before * g) * (1 - keep) a month;
 // - fixed amount: apply_month's step, max(V * g - amount, 0), withdrawn
-//   grown - new (smmc::step).
+//   grown - new (smmc::step);
+// both as smmc::xla_step.
 // XLA multiplies the months of jnp.prod and jnp.cumprod in its own order
 // and contracts some steps into fmas on the CPU, so the finals agree with
 // the JAX package's to a few float32 ulps a month, not bit for bit.
@@ -43,8 +44,8 @@
 // and the combine's, about 180 operations a path-month; the Gaussian
 // draw one word, the uniform and erfinv, about 110. No device-memory
 // traffic inside the loop: the table and the histogram sit in shared
-// memory, the keep factors and the Sobol direction rows are read through
-// L1 (every thread of a warp reads the same word).
+// memory, the keep factors are read through L1 (every thread of a warp
+// reads the same word).
 //
 // What the design does about it: a simple first design, one thread a
 // path, the blocks striding over the chunk. The tile key and the split
@@ -60,16 +61,12 @@ namespace {
 
 using namespace smmc;
 
-enum Draw { kHistorical = 0, kGaussian = 1, kSobolGaussian = 2 };
+enum Draw { kHistorical = 0, kGaussian = 1 };
 
 struct Args {
   const float* table;             // (n_table,) growth table; historical
   uint32_t n_table, span_mult;    // randint's span and multiplier
   float mean, std_;               // monthly return (percent); Gaussian
-  const uint32_t* dir;            // (n_periods, dir_cols) Sobol directions
-  const uint32_t* sobol_shift;    // (n_periods,) digital shift
-  int dir_cols;                   // 32 or 64
-  uint32_t off_lo, off_hi;        // the Sobol index offset
   const float* keep;              // (n_periods,) keep factors; percent
   float amount;                   // fixed-amount withdrawal
   int n_periods;
@@ -87,18 +84,6 @@ struct Args {
 size_t smem_bytes(const Args& g, int draw) {
   return (draw == kHistorical ? (size_t)g.n_table * sizeof(float) : 0) +
          (g.hist ? g.hb * sizeof(int) : 0);
-}
-
-// The month's growth of the Gaussian draws: (100 + (mean + std * z)) * 0.01
-__device__ __forceinline__ float gaussian_growth(const Args& g, float z) {
-  return (100.0f + (g.mean + g.std_ * z)) * F(0.01);
-}
-
-// normal_icdf of a Sobol word's float32 point (sobol_points_f32)
-__device__ __forceinline__ float sobol_normal(uint32_t word) {
-  float u = fminf((float)word * F(2.3283064365386963e-10), 0x1.fffffep-1f);
-  u = fminf(fmaxf(u, F(1e-7)), 1.0f - F(1e-7));
-  return F(1.4142135623730951) * erfinv_poly(2.0f * u - 1.0f);
 }
 
 template <int DRAW, int STRATEGY>
@@ -127,16 +112,7 @@ __global__ void __launch_bounds__(kBlock)
       ka = threefry_fold_in(tk, 0u);
       kb = threefry_fold_in(tk, 1u);
     }
-    uint32_t gray_lo = 0u, gray_hi = 0u;
-    if constexpr (DRAW == kSobolGaussian) {
-      const uint64_t idx =
-          (((uint64_t)g.off_hi << 32) | g.off_lo) +
-          (uint64_t)(tile * (uint32_t)kTilePaths + pos);
-      const uint64_t gray = idx ^ (idx >> 1);
-      gray_lo = (uint32_t)gray;
-      gray_hi = (uint32_t)(gray >> 32);
-    }
-    float total = g.v0, wsum = 0.0f, run = 1.0f;
+    float x = xla_start<STRATEGY>(g.v0), wsum = 0.0f;
     uint32_t ctr = pos * n_periods;
     for (int t = 0; t < g.n_periods; ++t, ++ctr) {
       float gfac;
@@ -144,25 +120,15 @@ __global__ void __launch_bounds__(kBlock)
         gfac = s_table[threefry_randint(threefry_bits(ka, ctr),
                                         threefry_bits(kb, ctr), g.n_table,
                                         g.span_mult)];
-      } else if constexpr (DRAW == kGaussian) {
-        gfac = gaussian_growth(g, threefry_normal(threefry_bits(tk, ctr)));
       } else {
-        const uint32_t* row = g.dir + (size_t)t * g.dir_cols;
-        uint32_t word = sobol_fold32(row, gray_lo, g.sobol_shift[t]);
-        if (g.dir_cols == 64) word = sobol_fold32(row + 32, gray_hi, word);
-        gfac = gaussian_growth(g, sobol_normal(word));
+        gfac = xla_growth(g.mean, g.std_,
+                          threefry_normal(threefry_bits(tk, ctr)));
       }
-      if constexpr (STRATEGY == kFixedAmount) {
-        step<kFixedAmount>(total, wsum, gfac, 0.0f, g.amount);
-      } else if constexpr (STRATEGY == kKeep) {
-        const float keep_t = g.keep[t];
-        wsum = wsum + g.v0 * run * gfac * (1.0f - keep_t);
-        run = run * (gfac * keep_t);
-      } else {
-        run = run * gfac;
-      }
+      xla_step<STRATEGY>(x, wsum, gfac,
+                         STRATEGY == kKeep ? g.keep[t] : 0.0f, g.v0,
+                         g.amount);
     }
-    if constexpr (STRATEGY != kFixedAmount) total = g.v0 * run;
+    const float total = xla_final<STRATEGY>(x, g.v0);
     if (g.finals) g.finals[p] = total;
     st.add(total, wsum, g.inv0, g.shift_c, g.target);
     if (with_hist)
@@ -201,40 +167,31 @@ cudaError_t launch_strategy(const Args& g, int strategy, int n_blocks,
 }  // namespace
 
 // One chunk. draw: 0 historical (table of n_table growth factors, randint
-// multiplier span_mult), 1 Gaussian (mean, std), 2 Sobol Gaussian (mean,
-// std, dir, sobol_shift, dir_cols, off_lo, off_hi). key0, key1: the
-// segment's threefry key. strategy: 0 none, 1 keep factors (fixed and
-// variable percent), 2 fixed amount. Operands a draw or a strategy does
-// not read may be null or 0; finals and hist may be null. Returns
+// multiplier span_mult), 1 Gaussian (mean, std). key0, key1: the segment's
+// threefry key. strategy: 0 none, 1 keep factors (fixed and variable
+// percent), 2 fixed amount. Operands a draw or a strategy does not read
+// may be null or 0; finals and hist may be null. Returns
 // cudaGetLastError() after the launch.
 extern "C" int smmc_threefry_loop(
     int draw, const float* table, int n_table, unsigned int span_mult,
-    float mean, float std, const unsigned int* dir,
-    const unsigned int* sobol_shift, int dir_cols, unsigned int off_lo,
-    unsigned int off_hi, const float* keep, int strategy, float amount,
+    float mean, float std, const float* keep, int strategy, float amount,
     int n_periods, unsigned int key0, unsigned int key1, unsigned int tile0,
     int valid, float v0, float inv0, float target, float shift_c,
     float log_lo, float inv_w, int hb, float* finals, double* partials,
     int* hist, int n_blocks, void* stream) {
   if (n_blocks < 1 || n_periods < 1 || partials == nullptr ||
       (uint64_t)n_periods * kTilePaths > 0xFFFFFFFFull ||
-      (draw == kHistorical && (table == nullptr || n_table < 1)) ||
-      (draw == kSobolGaussian &&
-       (dir == nullptr || sobol_shift == nullptr ||
-        (dir_cols != 32 && dir_cols != 64))))
+      (draw == kHistorical && (table == nullptr || n_table < 1)))
     return cudaErrorInvalidValue;
-  const Args g{table, (uint32_t)n_table, span_mult, mean, std, dir,
-               sobol_shift, dir_cols, off_lo, off_hi, keep, amount, n_periods,
-               key0, key1, tile0, valid, v0, inv0, target, shift_c, log_lo,
-               inv_w, hb, finals, partials, hist};
+  const Args g{table, (uint32_t)n_table, span_mult, mean, std, keep, amount,
+               n_periods, key0, key1, tile0, valid, v0, inv0, target,
+               shift_c, log_lo, inv_w, hb, finals, partials, hist};
   auto s = static_cast<cudaStream_t>(stream);
   switch (draw) {
     case kHistorical:
       return launch_strategy<kHistorical>(g, strategy, n_blocks, s);
     case kGaussian:
       return launch_strategy<kGaussian>(g, strategy, n_blocks, s);
-    case kSobolGaussian:
-      return launch_strategy<kSobolGaussian>(g, strategy, n_blocks, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -46,9 +46,12 @@ _ARGTYPES = {
                         _vp, _i, _f, _i, _u, _u, _i, _f, _f, _f, _f, _f,
                         _f, _i, _vp, _vp, _vp, _i, _vp),
     "smmc_run_info": (_i, _i, _i, _i, _i, _i, _i, _vp),
-    "smmc_threefry_loop": (_i, _vp, _i, _u, _f, _f, _vp, _vp, _i, _u, _u,
-                           _vp, _i, _f, _i, _u, _u, _u, _i, _f, _f, _f, _f,
-                           _f, _f, _i, _vp, _vp, _vp, _i, _vp),
+    "smmc_run_loop": (_i, _vp, _i, _i, _i, _f, _f, _vp, _vp, _i, _u, _u,
+                      _vp, _i, _f, _i, _u, _u, _i, _f, _f, _f, _f, _f,
+                      _f, _i, _vp, _vp, _vp, _i, _vp),
+    "smmc_threefry_loop": (_i, _vp, _i, _u, _f, _f, _vp, _i, _f, _i, _u,
+                           _u, _u, _i, _f, _f, _f, _f, _f, _f, _i, _vp, _vp,
+                           _vp, _i, _vp),
     "smmc_law": (_vp, _i, _u, _u, _i, _f, _f, _f, _f, _f, _f, _i,
                  _vp, _vp, _vp, _vp, _vp, _vp, _i, _u, _u, _i, _vp),
     "smmc_clt": (_i, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _f, _f, _f,

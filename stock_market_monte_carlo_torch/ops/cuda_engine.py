@@ -17,7 +17,9 @@ Counterpart of ``stock_market_monte_carlo_tpu/ops/pallas_engine.py``:
 - ``threefry_loop_chunk`` replaces no Pallas kernel: it runs the JAX
   package's XLA backend (``EngineOptions(backend="xla")``: ``engine.
   chunk_stats``, the threefry stream of ``ops/threefry.py``), source
-  ``csrc/threefry_loop.cu``, in three draws (``THREEFRY_DRAWS``).
+  ``csrc/threefry_loop.cu``, in three draws (``THREEFRY_DRAWS``); the
+  Sobol Gaussian draw runs on ``csrc/run_loop.cu``'s runs of paths
+  (``run_kernel_info("xla_sobol_gaussian")``).
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -123,9 +125,15 @@ _TABLE_DRAWS = ("historical", "sobol_historical", "reference")
 _SOBOL_DRAWS = ("sobol_gaussian", "sobol_historical")
 # the draws of csrc/run_loop.cu, whose threads hold runs of paths
 RUN_DRAWS = ("gaussian", *_SOBOL_DRAWS)
+# its draw codes (smmc_run_loop, smmc_run_info): the month loop's, and the
+# XLA backend's Sobol Gaussian draw (the threefry loop's, launched there)
+RUN_DRAW_CODES = {**{d: DRAW_CODES[d] for d in RUN_DRAWS},
+                  "xla_sobol_gaussian": 5}
 
-# the threefry loop's draws (csrc/threefry_loop.cu) and launch counters
-THREEFRY_DRAWS = {"historical": 0, "gaussian": 1, "sobol_gaussian": 2}
+# the threefry loop's draws and launch counters; the draw codes of
+# csrc/threefry_loop.cu (the Sobol Gaussian draw runs on csrc/run_loop.cu)
+THREEFRY_DRAW_CODES = {"historical": 0, "gaussian": 1}
+THREEFRY_DRAWS = (*THREEFRY_DRAW_CODES, "sobol_gaussian")
 THREEFRY_LOOP_COUNTERS = {
     "historical": "threefry_loop",
     "gaussian": "threefry_loop_gaussian",
@@ -1060,17 +1068,20 @@ def month_loop_launcher(table, keep, *, strategy, amount, n_periods,
 
 def run_kernel_info(draw, strategy="none", *, n_table=0, dir_cols=32,
                     n_periods, hb=4096, with_hist=True, device=None):
-    """What one chunk of a draw of ``RUN_DRAWS`` launches on a CUDA device
-    (C ``smmc_run_info``): paths a thread (K), registers a thread, dynamic
-    shared memory (bytes), the window of months of direction rows (0 for
-    the counter Gaussian draw, which takes no ``dir_cols``) and resident
-    blocks a SM. A host query, cached; it does not wait for the device."""
+    """What one chunk of a draw of ``RUN_DRAW_CODES`` (``RUN_DRAWS``, and
+    ``"xla_sobol_gaussian"``, the threefry loop's Sobol Gaussian draw)
+    launches on a CUDA device (C ``smmc_run_info``): paths a thread (K),
+    registers a thread, dynamic shared memory (bytes), the window of
+    months of direction rows (0 for the counter Gaussian draw, which takes
+    no ``dir_cols``) and resident blocks a SM. A host query, cached; it
+    does not wait for the device."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     k_chunks = -(-n_table // 128) if draw == "sobol_historical" else 0
     if draw == "gaussian":
         dir_cols = 0
-    return dict(_run_info(index, DRAW_CODES[draw], STRATEGY_CODES[strategy],
+    return dict(_run_info(index, RUN_DRAW_CODES[draw],
+                          STRATEGY_CODES[strategy],
                           k_chunks, dir_cols, n_periods, hb,
                           in_kernel_hist(hb, with_hist)))
 
@@ -1261,7 +1272,10 @@ def threefry_loop_launcher(table, keep, *, draw, key, strategy, amount,
     ``(launch, outputs)`` (see ``_prepare``). ``launch()`` alone is the
     kernel, uncounted: ``threefry_loop_chunk`` is the counted entry
     point. Refuses more than ``THREEFRY_MAX_MONTHS`` months (the
-    counter's high word would not be 0)."""
+    counter's high word would not be 0). The Sobol Gaussian draw runs on
+    the run kernel (``csrc/run_loop.cu``, C ``smmc_run_loop``), whose
+    blocks take groups of 256 x K paths
+    (``run_kernel_info("xla_sobol_gaussian")``)."""
     from stock_market_monte_carlo_torch.ops import threefry
 
     dev = keep.device
@@ -1304,16 +1318,26 @@ def threefry_loop_launcher(table, keep, *, draw, key, strategy, amount,
                              "64) direction table")
     elif direction is not None or sobol_shift is not None:
         raise ValueError(f"the {draw} draw takes no Sobol operands")
-    args = (THREEFRY_DRAWS[draw], _ptr(table), n_table, span_mult,
-            _f32(mean), _f32(std), _ptr(direction), _ptr(sobol_shift),
-            dir_cols, index_offset & MASK32, index_offset >> 32, _ptr(keep),
-            STRATEGY_CODES[strategy], _f32(amount), n_periods,
-            int(key[0]) & MASK32, int(key[1]) & MASK32, int(tile0) & MASK32,
-            valid, _f32(v0), _f32(np.float32(1.0) / np.float32(v0)),
+    head = (_ptr(keep), STRATEGY_CODES[strategy], _f32(amount), n_periods)
+    tail = (valid, _f32(v0), _f32(np.float32(1.0) / np.float32(v0)),
             _f32(target), _f32(shift), _f32(log_lo), _f32(inv_w), hb)
-    return _prepare("smmc_threefry_loop", args, dev, valid, lo=lo,
-                    log_lo=log_lo, inv_w=inv_w, hb=hb, with_hist=with_hist,
-                    keep_finals=keep_finals)
+    common = dict(lo=lo, log_lo=log_lo, inv_w=inv_w, hb=hb,
+                  with_hist=with_hist, keep_finals=keep_finals)
+    if draw == "sobol_gaussian":
+        args = (RUN_DRAW_CODES["xla_sobol_gaussian"], None, 0, 0, 0,
+                _f32(mean), _f32(std), _ptr(direction), _ptr(sobol_shift),
+                dir_cols, index_offset & MASK32, index_offset >> 32, *head,
+                0, int(tile0) & MASK32, *tail)
+        plan = run_kernel_info("xla_sobol_gaussian", strategy,
+                               dir_cols=dir_cols, n_periods=n_periods,
+                               hb=hb, with_hist=with_hist, device=dev)
+        return _prepare("smmc_run_loop", args, dev, valid,
+                        rows_per_block=_BLOCK * plan["paths_a_thread"],
+                        **common)
+    args = (THREEFRY_DRAW_CODES[draw], _ptr(table), n_table, span_mult,
+            _f32(mean), _f32(std), *head, int(key[0]) & MASK32,
+            int(key[1]) & MASK32, int(tile0) & MASK32, *tail)
+    return _prepare("smmc_threefry_loop", args, dev, valid, **common)
 
 
 def threefry_loop_chunk(table, keep, **kw):

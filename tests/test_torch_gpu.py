@@ -46,9 +46,12 @@ to direct runs, and the native library built with g++ equal to the
 Python reader. The XLA backend: the threefry loop kernel under its three
 draws and every strategy, odd and absent histograms, the hostile and a
 20000-row table, a wrap of the tiles past 2^32 and 64-bit Sobol positions,
-and the terminal law's threefry draw, against their plain versions bit for
-bit; their input checks and launch counters; ``backend="xla"`` on the
-card against the CPU.
+the Sobol Gaussian draw on the run kernel at its edges (one path, runs of
+8 left with 1 to 7 paths, the 32-bit ids' wrap, offsets 3, 2^32 - 3 and
+2^33 + 777, 1866 months, 102 cells and none) and its launch plan, and the
+terminal law's threefry draw, against their plain versions bit for bit;
+their input checks and launch counters; ``backend="xla"`` on the card
+against the CPU.
 
 Skipped without a CUDA device. On the card (no jax there, so without the
 repository's conftest):
@@ -2047,6 +2050,74 @@ def test_threefry_loop_sobol_at_64_bit_positions_matches_plain(cuda):
     ops = (table, torch.full((24,), 0.995, device=cuda))
     _assert_threefry_matches_plain(ce.threefry_loop_chunk(*ops, **kw),
                                    ce.threefry_loop_chunk_plain(*ops, **kw))
+
+
+# The XLA Sobol Gaussian draw on the run kernel (csrc/run_loop.cu, runs of
+# 8 paths a thread): case -> (months, index_offset, tile0, valid, hb,
+# with_hist); the chunk is 4 tiles
+XLA_SOBOL_CASES = {
+    "one_path": (24, 0, 37, 1, 4096, True),
+    **{f"ragged_{r}": (24, 0, 37, 3 * 8192 + 8 * 37 + r, 4096, True)
+       for r in range(1, 8)},
+    "wrap": (24, 0, (1 << 19) - 1, 2 * 8192 + 1001, 4096, True),
+    "offset_3": (24, 3, 37, 2 * 8192 + 1001, 4096, True),
+    "offset_2^32-3": (24, (1 << 32) - 3, 37, 2 * 8192 + 1001, 4096, True),
+    "offset_2^33+777": (24, (1 << 33) + 777, 37, 2 * 8192 + 1001, 4096,
+                        True),
+    "months_1866": (1866, (1 << 33) + 777, 37, 8192 + 3, 4096, True),
+    "hb_102": (24, 0, 37, 2 * 8192 + 1001, 102, True),
+    "no_hist": (24, 0, 37, 2 * 8192 + 1001, 4096, False),
+}
+
+
+def _xla_sobol_args(cuda, strategy, case):
+    """(table, keep), kwargs of one XLA Sobol Gaussian chunk of a case of
+    ``XLA_SOBOL_CASES``: none, 0.4 % or 6.0 a month."""
+    from stock_market_monte_carlo_torch.engine import engine as eng
+    from stock_market_monte_carlo_torch.ops import sobol
+
+    months, offset, tile0, valid, hb, with_hist = XLA_SOBOL_CASES[case]
+    model = smt.SobolGaussianReturns.create(months, index_offset=offset)
+    table, kw = ce.threefry_operands(model, cuda, months, sobol.digital_shift(
+        eng._scramble_key(4, cuda), months))
+    kw.update(_month_kw(strategy, 0, months, hb, with_hist),
+              key=eng._segment_key(4, 1), tile0=tile0, valid=valid,
+              amount=6.0)
+    del kw["seed_base"]
+    return (table, torch.full((months,), 0.996, device=cuda)), kw
+
+
+@pytest.mark.parametrize("case", list(XLA_SOBOL_CASES))
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent",
+                                      "fixed_amount"])
+def test_xla_sobol_run_kernel_matches_plain(cuda, case, strategy):
+    """The XLA Sobol Gaussian draw on the run kernel against its plain
+    version (the per-position fold): one path, runs left with 1 to 7
+    paths, the 32-bit ids' wrap between tiles, offsets 3, 2^32 - 3 (a
+    carry inside a run) and 2^33 + 777, 1866 months (windows restaged),
+    odd and absent histograms; bit for bit, one launch."""
+    ops, kw = _xla_sobol_args(cuda, strategy, case)
+    p_out = ce.threefry_loop_chunk_plain(*ops, **kw)
+    ce.reset_launch_counts()
+    k_out = ce.threefry_loop_chunk(*ops, **kw)
+    assert ce.LAUNCHES["threefry_loop_sobol_gaussian"] == 1
+    assert sum(ce.LAUNCHES.values()) == 1 + (kw["with_hist"]
+                                             and kw["hb"] == 102)
+    _assert_threefry_matches_plain(k_out, p_out)
+
+
+def test_xla_sobol_run_kernel_plans(cuda):
+    """The XLA Sobol draw's launch plan: 8 paths a thread, windows of 124
+    months of the 32-column table and 63 of the 64-column one (16 KB),
+    and at least 2 blocks a SM."""
+    for cols, months, window in ((32, 360, 124), (64, 360, 63),
+                                 (64, 1866, 63)):
+        for strategy in ("none", "fixed_percent", "fixed_amount"):
+            plan = ce.run_kernel_info("xla_sobol_gaussian", strategy,
+                                      dir_cols=cols, n_periods=months)
+            assert plan["paths_a_thread"] == 8
+            assert plan["window"] == window
+            assert plan["blocks_per_sm"] >= 2
 
 
 @pytest.mark.parametrize("case", sorted(LAW_CASES))

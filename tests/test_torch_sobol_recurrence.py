@@ -10,8 +10,9 @@ the lanes and steps inside each run, word(i) = word(i-1) ^ dir[t][ctz(i)].
 The cases are the recurrence's edges: offsets that are not a multiple of
 K, a carry into the high word inside a run (2^32 - 3), positions near
 2^62, a chunk whose valid paths are not a multiple of K at a nonzero tile
-offset, and the 32-bit ids' wrap at 2^32 between the tiles of a chunk at
-tile0 = 2^19 - 1.
+offset, the 32-bit ids' wrap at 2^32 between the tiles of a chunk at
+tile0 = 2^19 - 1, and the Sobol table's 1866 dimensions at 64-bit
+positions.
 """
 
 import jax.numpy as jnp
@@ -31,16 +32,19 @@ RUNS = (4, 8, 16)
 # (tile0, valid): a ragged chunk of 2 tiles, and one of 3
 CHUNKS = ((5, 8192 + 3), (37, 2 * 8192 + 1001))
 WRAP_TILE0 = (1 << 19) - 1
+# the Sobol table's dimensions: the longest Sobol horizon (the kernel
+# restages its windows of direction rows there)
+SOBOL_MONTHS = 1866
 
 
-def _operands(index_offset):
+def _operands(index_offset, months=MONTHS):
     """(direction, shift): the 64-column table for a nonzero offset, as
     the models build it, else the 32-column one; a shift made with
     numpy."""
-    direction = (sobol.direction_numbers_hi32(MONTHS) if index_offset
-                 else sobol.direction_numbers(MONTHS))
+    direction = (sobol.direction_numbers_hi32(months) if index_offset
+                 else sobol.direction_numbers(months))
     shift = np.random.default_rng(index_offset % 1000).integers(
-        0, 1 << 32, MONTHS, dtype=np.uint64).astype(np.uint32)
+        0, 1 << 32, months, dtype=np.uint64).astype(np.uint32)
     return direction, shift
 
 
@@ -62,15 +66,16 @@ def _jax_words(direction, shift, index_offset, gid):
     return np.asarray(bits) ^ shift
 
 
-def _assert_recurrence_is_the_fold(index_offset, k, tile0, valid):
-    direction, shift = _operands(index_offset)
+def _assert_recurrence_is_the_fold(index_offset, k, tile0, valid,
+                                   months=MONTHS):
+    direction, shift = _operands(index_offset, months)
     gid = _gid(tile0, valid)
     twin = ce.sobol_words_recurrence(direction, shift, index_offset, gid, k)
     plain = ce._sobol_words(direction, shift, index_offset, gid)
     idx = index_offset + gid
     folded = ce.xor_fold(direction, idx ^ (idx >> 1)) ^ ce._as_u32(shift)
     jax_words = _jax_words(direction, shift, index_offset, gid)
-    for t in range(MONTHS):
+    for t in range(months):
         got = twin(t)
         assert got.shape == (valid,)
         assert torch.equal(got, plain(t))
@@ -95,6 +100,13 @@ def test_recurrence_across_the_32bit_wrap(k):
     assert int(gid[ce.TILE_PATHS - 1]) == ce.MASK32 and int(
         gid[ce.TILE_PATHS]) == 0
     _assert_recurrence_is_the_fold(0, k, WRAP_TILE0, 2 * ce.TILE_PATHS)
+
+
+def test_recurrence_at_1866_months():
+    """Every dimension of the Sobol table, at 64-bit positions past 2^32,
+    in the kernel's runs of 8 paths."""
+    _assert_recurrence_is_the_fold((1 << 33) + 777, 8, 37, 8192 + 3,
+                                   SOBOL_MONTHS)
 
 
 def test_recurrence_refuses_a_warp_across_a_jump():

@@ -32,6 +32,10 @@ what differs is float rounding, each bar below measured on these inputs
   below 5e-7 of it at 12 months and 9.9e-6 at 360).
 - JAX sums its float32 stats row in float32, the port in float64, so the
   moments are held to the float64 moments of JAX's finals.
+- The Sobol Gaussian draw's plain version at 360 months (one ragged chunk
+  at tile 3) sits within 3.2e-6 of JAX's finals under the fixed percent
+  and 5.0e-6 of the capital under the fixed amount: inside the bars
+  above.
 
 Counts and histogram cells are exact but for finals within the bar of the
 target or of a cell edge: the difference is bounded by those finals.
@@ -234,12 +238,13 @@ def _chunk_kw(model, strategy, t, valid, n_paths, tile0):
                 tile0=tile0)
 
 
-# (draw, strategy, months): every draw and strategy at 12 months, the
-# counter draws at 360
+# (draw, strategy, months): every draw and strategy at 12 months, every
+# draw at 360 under the two withdrawals
 PLAIN_CASES = [(kind, name, 12) for kind in ("historical", "gaussian",
                                              "sobol_gaussian")
                for name in ("none", "fixed_percent", "fixed_amount")] + [
-    (kind, name, 360) for kind in ("historical", "gaussian")
+    (kind, name, 360) for kind in ("historical", "gaussian",
+                                   "sobol_gaussian")
     for name in ("fixed_percent", "fixed_amount")]
 
 
