@@ -1,0 +1,4 @@
+"""``device_idle_share`` of the bands cells, where it moves the bands' end-to-end
+metrics: the same reading."""
+
+from smmc_bench.layer_metrics.device_idle_share import read  # noqa: F401
