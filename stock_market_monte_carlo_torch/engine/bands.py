@@ -47,6 +47,7 @@ from stock_market_monte_carlo_torch.ops import bands as kb
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 from stock_market_monte_carlo_torch.ops import reductions as red
 from stock_market_monte_carlo_torch.ops import threefry
+from stock_market_monte_carlo_torch.utils.timing import span, spanned
 
 Z_RANGE = 12.0
 
@@ -180,6 +181,7 @@ def _linear_chunk_paths(n_periods: int, options: EngineOptions) -> int:
     return min(b, options.chunk_paths)
 
 
+@spanned("smmc.simulate_bands")
 def simulate_bands(
     model,
     n_paths: int,
@@ -209,155 +211,124 @@ def simulate_bands(
     n_paths)`` is called after every absorbed chunk. Runs on
     ``options.device``.
     """
-    eng._check_model(model)
-    n_dev = eng._check_mesh(mesh)
-    rank = 0 if mesh is None else mesh.rank
-    eng._validate_run(model, n_paths, options.chunk_paths * n_dev, n_periods)
-    months = np.arange(n_periods + 1)
-    # fixed-amount withdrawals shift values additively, which a log-z grid
-    # cannot bracket: they bin linearly on [0, hi_t]
-    linear = not eng._is_multiplicative(strategy)
-    centers, scales = band_grid(model, strategy, n_periods, initial_capital)
-    # the XLA backend takes the trajectory route, as the JAX package's does
-    use_kernels = (not linear and eng.resolve_backend(options) != "xla"
-                   and kb.bands_supported(model, strategy.kind))
-    if use_kernels:
-        b = min(options.chunk_paths, 1 << 24)
-        b = max(kb.TILE_PATHS, (b // kb.TILE_PATHS) * kb.TILE_PATHS)
-    else:
-        b = min(_linear_chunk_paths(n_periods, options), 1 << 24)
-    if band_mode not in ("hist", "cdf", "analytic"):
-        raise ValueError(f"band_mode must be 'hist', 'cdf', or "
-                         f"'analytic', got {band_mode!r}")
-    if options.terminal_law:
-        raise ValueError(
-            "terminal_law samples only the FINAL value's law; bands are "
-            "month-resolved — use band_mode='analytic' for the exact "
-            "infinite-path bands, or the default month-loop engine"
-        )
-    dev = eng._resolve_device(options)
-    eng._check_mesh(mesh, dev)
     qs = tuple(quantile_levels)
     k = min(sample_paths, n_paths)
 
     def sample():
-        return (eng.simulate_paths(model, k, n_periods, initial_capital,
-                                   seed, strategy, options=options)
-                if k > 0 else np.empty((0, n_periods + 1)))
+        with span("smmc.sample_paths"):
+            return (eng.simulate_paths(model, k, n_periods, initial_capital,
+                                       seed, strategy, options=options)
+                    if k > 0 else np.empty((0, n_periods + 1)))
 
     if band_mode == "analytic":
-        from stock_market_monte_carlo_torch.ops import analytic as ana
+        _checked_call(model, n_paths, n_periods, options, mesh, band_mode)
+        return _analytic_bands(model, n_periods, initial_capital, strategy,
+                               qs, sample)
 
-        if linear:
-            raise ValueError(
-                "band_mode='analytic' needs a multiplicative strategy "
-                "(fixed-amount withdrawals have no closed marginal law)"
-            )
-        if model.kind not in ("gaussian", "historical"):
-            raise ValueError(
-                "band_mode='analytic' supports gaussian/historical "
-                f"models (the marginal law is closed-form); got "
-                f"{model.kind!r}"
-            )
-        if model.kind == "gaussian":
-            kind, params = "gaussian", (float(model.mean_pct),
-                                        float(model.std_pct))
-        else:
-            kind, params = "bootstrap", np.asarray(model.returns_pct,
-                                                   np.float64)
-        keep = (None if isinstance(strategy, NoWithdrawal)
-                else eng._keep_factors_np(strategy, n_periods).astype(
-                    np.float64))
-        values = ana.marginal_value_quantiles(
-            kind, params, n_periods, float(initial_capital), qs, keep=keep)
-        return TrajectoryBands(
-            quantile_levels=qs, values=values, months=months,
-            sample_paths=sample(),
-            n_paths=0,      # exact law, not an n-path estimate
-            month_hist=np.zeros((n_periods + 1, 0)), centers=centers,
-            scales=scales, mode="analytic",
-        )
-
-    use_cdf = band_mode == "cdf"
-    if use_kernels:
-        keep_np = (None if isinstance(strategy, NoWithdrawal)
-                   else eng._keep_factors_np(strategy, n_periods))
-    if use_cdf:
-        if linear:
-            raise ValueError(
-                "band_mode='cdf' needs a multiplicative strategy (the "
-                "log-space threshold grid cannot bracket fixed-amount "
-                "withdrawals) — use band_mode='hist'"
-            )
-        if not use_kernels:
-            raise ValueError(
-                "band_mode='cdf' runs on the fused Pallas band kernels "
-                "only: set EngineOptions(backend='pallas') and use a "
-                "gaussian/historical counter-rng model"
-            )
-        if not kb.cdf_supported(model, strategy.kind, n_periods,
-                                n_thresholds):
-            raise ValueError(
-                f"band_mode='cdf' unsupported for n_periods={n_periods}, "
-                f"n_thresholds={n_thresholds}: K must be a multiple of 8 "
-                f">= 8 and the (T*K, 128) int32 accumulator must fit the "
-                f"VMEM budget (T*K <= {kb._CDF_VMEM_CAP // 512})"
-            )
-        coef_a, coef_b, kap_lo, kap_hi, logthr, m0row = cdf_coefficients(
-            centers, scales, n_thresholds, initial_capital)
-        # the kernel checks the order of the thresholds on the host copy
-        reduce_kw = dict(kappa_lo=kap_lo, kappa_hi=kap_hi,
-                         n_thresholds=n_thresholds, coef_b_host=coef_b)
-        chunk_fn = kb.month_cdf_chunk
-        total = np.zeros((n_periods + 1, n_thresholds), np.float64)
-
-        def absorb(counts, valid):
-            out = np.zeros_like(total)
-            out[0] = float(valid) * m0row
-            out[1:] = counts.numpy()
-            return out
-    else:
+    with span("smmc.prepare"):
+        n_dev, rank, dev = _checked_call(model, n_paths, n_periods, options,
+                                         mesh, band_mode)
+        months = np.arange(n_periods + 1)
+        # fixed-amount withdrawals shift values additively, which a log-z
+        # grid cannot bracket: they bin linearly on [0, hi_t]
+        linear = not eng._is_multiplicative(strategy)
+        centers, scales = band_grid(model, strategy, n_periods,
+                                    initial_capital)
+        # the XLA backend takes the trajectory route, as the JAX package's
+        # does
+        use_kernels = (not linear and eng.resolve_backend(options) != "xla"
+                       and kb.bands_supported(model, strategy.kind))
         if use_kernels:
-            coef_a, coef_b, idx0 = hist_coefficients(
-                centers, scales, n_bins, initial_capital)
-            # the kernel checks A_t > 0 on the host copy; the cell edges
-            # are computed once for every chunk
-            reduce_kw = dict(n_bins=n_bins, coef_a_host=coef_a)
-            chunk_fn = kb.month_hist_chunk
-        total = np.zeros((n_periods + 1, n_bins + 2), np.float64)
+            b = min(options.chunk_paths, 1 << 24)
+            b = max(kb.TILE_PATHS, (b // kb.TILE_PATHS) * kb.TILE_PATHS)
+        else:
+            b = min(_linear_chunk_paths(n_periods, options), 1 << 24)
+        use_cdf = band_mode == "cdf"
+        if use_kernels:
+            keep_np = (None if isinstance(strategy, NoWithdrawal)
+                       else eng._keep_factors_np(strategy, n_periods))
+        if use_cdf:
+            if linear:
+                raise ValueError(
+                    "band_mode='cdf' needs a multiplicative strategy (the "
+                    "log-space threshold grid cannot bracket fixed-amount "
+                    "withdrawals) — use band_mode='hist'"
+                )
+            if not use_kernels:
+                raise ValueError(
+                    "band_mode='cdf' runs on the fused Pallas band kernels "
+                    "only: set EngineOptions(backend='pallas') and use a "
+                    "gaussian/historical counter-rng model"
+                )
+            if not kb.cdf_supported(model, strategy.kind, n_periods,
+                                    n_thresholds):
+                raise ValueError(
+                    f"band_mode='cdf' unsupported for n_periods="
+                    f"{n_periods}, n_thresholds={n_thresholds}: K must be "
+                    f"a multiple of 8 >= 8 and the (T*K, 128) int32 "
+                    f"accumulator must fit the VMEM budget (T*K <= "
+                    f"{kb._CDF_VMEM_CAP // 512})"
+                )
+            coef_a, coef_b, kap_lo, kap_hi, logthr, m0row = \
+                cdf_coefficients(centers, scales, n_thresholds,
+                                 initial_capital)
+            # the kernel checks the order of the thresholds on the host
+            # copy
+            reduce_kw = dict(kappa_lo=kap_lo, kappa_hi=kap_hi,
+                             n_thresholds=n_thresholds, coef_b_host=coef_b)
+            chunk_fn = kb.month_cdf_chunk
+            total = np.zeros((n_periods + 1, n_thresholds), np.float64)
 
-        def absorb(counts, valid):
-            return _expand(counts.numpy(), valid, use_kernels,
-                           idx0 if use_kernels else 0)
+            def absorb(counts, valid):
+                out = np.zeros_like(total)
+                out[0] = float(valid) * m0row
+                out[1:] = counts.numpy()
+                return out
+        else:
+            if use_kernels:
+                coef_a, coef_b, idx0 = hist_coefficients(
+                    centers, scales, n_bins, initial_capital)
+                # the kernel checks A_t > 0 on the host copy; the cell
+                # edges are computed once for every chunk
+                reduce_kw = dict(n_bins=n_bins, coef_a_host=coef_a)
+                chunk_fn = kb.month_hist_chunk
+            total = np.zeros((n_periods + 1, n_bins + 2), np.float64)
 
-    if use_kernels:
-        table, draw = ce.draw_operands(model, dev)
-        keep_t = (None if keep_np is None
-                  else torch.as_tensor(keep_np, device=dev))
-        coef_a_t = torch.as_tensor(coef_a, device=dev)
-        coef_b_t = torch.as_tensor(coef_b, device=dev)
-        if not use_cdf and dev.type == "cuda":
-            reduce_kw["edges"] = kb.hist_edges(coef_a_t, coef_b_t, n_bins)
-        base = eng._segment_base(seed, 0)
+            def absorb(counts, valid):
+                return _expand(counts.numpy(), valid, use_kernels,
+                               idx0 if use_kernels else 0)
 
-        def run_chunk(offset, valid, this_b):
-            return chunk_fn(table, keep_t, coef_a_t, coef_b_t,
-                            n_periods=n_periods, seed_base=base,
-                            tile0=offset // kb.TILE_PATHS, valid=valid,
-                            n_paths=this_b, v0=initial_capital, **draw,
-                            **reduce_kw)
-    else:
-        root_key = threefry.key(seed, dev)
-        scramble_key = eng._scramble_key(seed, dev)
-        centers_t = torch.as_tensor(centers.astype(np.float32), device=dev)
-        inv_scales = torch.as_tensor((1.0 / scales).astype(np.float32),
-                                     device=dev)
+        if use_kernels:
+            table, draw = ce.draw_operands(model, dev)
+            keep_t = (None if keep_np is None
+                      else torch.as_tensor(keep_np, device=dev))
+            coef_a_t = torch.as_tensor(coef_a, device=dev)
+            coef_b_t = torch.as_tensor(coef_b, device=dev)
+            if not use_cdf and dev.type == "cuda":
+                reduce_kw["edges"] = kb.hist_edges(coef_a_t, coef_b_t,
+                                                   n_bins)
+            base = eng._segment_base(seed, 0)
 
-        def run_chunk(offset, valid, this_b):
-            return _chunk_month_hist(model, strategy, root_key, scramble_key,
-                                     initial_capital, offset, valid,
-                                     centers_t, inv_scales, this_b,
-                                     n_periods, n_bins, linear)
+            def run_chunk(offset, valid, this_b):
+                return chunk_fn(table, keep_t, coef_a_t, coef_b_t,
+                                n_periods=n_periods, seed_base=base,
+                                tile0=offset // kb.TILE_PATHS, valid=valid,
+                                n_paths=this_b, v0=initial_capital, **draw,
+                                **reduce_kw)
+        else:
+            root_key = threefry.key(seed, dev)
+            scramble_key = eng._scramble_key(seed, dev)
+            centers_t = torch.as_tensor(centers.astype(np.float32),
+                                        device=dev)
+            inv_scales = torch.as_tensor((1.0 / scales).astype(np.float32),
+                                         device=dev)
+
+            def run_chunk(offset, valid, this_b):
+                return _chunk_month_hist(model, strategy, root_key,
+                                         scramble_key, initial_capital,
+                                         offset, valid, centers_t,
+                                         inv_scales, this_b, n_periods,
+                                         n_bins, linear)
 
     if use_kernels:
         rows = n_periods
@@ -380,11 +351,14 @@ def simulate_bands(
                                    device=dev))
         return eng.pinned_copy(summed(counts, True))
 
-    def absorb_pending():
+    def fetch_pending():
+        # the pending dispatch's host counts once copied, and its valid
+        # paths
         (counts, copied), valid = pending
-        if copied is not None:
-            copied.synchronize()
-        return absorb(summed(counts, False), valid), valid
+        with span("smmc.wait"):
+            if copied is not None:
+                copied.synchronize()
+            return summed(counts, False), valid
 
     done, offset, remaining = 0, 0, n_paths
     per_dispatch = b * n_dev
@@ -395,58 +369,126 @@ def simulate_bands(
         valid = min(remaining, per_dispatch)
         this_b = (b if n_paths > per_dispatch else eng._round_up(
             eng._round_up(valid, n_dev) // n_dev, eng.KEY_TILE))
-        counts = run_dispatch(offset, eng._shard_valids(valid, this_b, n_dev),
-                              this_b)
+        with span("smmc.dispatch"):
+            counts = run_dispatch(
+                offset, eng._shard_valids(valid, this_b, n_dev), this_b)
         if pending is not None:
-            block, n = absorb_pending()
-            total += block
+            host, n = fetch_pending()
+            # ``block`` lives until the next merge has made its own: freed
+            # sooner, its pages go back to the system and the next block
+            # faults them in again (a hist merge ~3x slower)
+            with span("smmc.merge"):
+                block = absorb(host, n)
+                total += block
             done += n
             if progress is not None:
                 progress(done, n_paths)
         pending = (counts, valid)
         offset += this_b * n_dev
         remaining -= valid
-    block, n = absorb_pending()
-    total += block
+    host, n = fetch_pending()
+    with span("smmc.merge"):
+        block = absorb(host, n)
+        total += block
     done += n
     if progress is not None:
         progress(done, n_paths)
 
     # invert to fund values per quantile per month (host, O(T))
     values = np.empty((len(qs), n_periods + 1))
-    if use_cdf:
-        # probit-space interpolation of the K-point per-month CDF; ranks
-        # below the underflow-guard threshold (depleted mass) -> 0.0
-        values[:, 0] = initial_capital  # month 0 is exactly v0
-        for tt in range(1, n_periods + 1):
-            lq = red.cdf_band_quantiles(total[tt], logthr[tt], qs, n_paths)
-            v = np.exp(lq)
-            v[~np.isfinite(lq)] = 0.0
-            values[:, tt] = v
-        return TrajectoryBands(
-            quantile_levels=qs, values=values, months=months,
-            sample_paths=sample(), n_paths=n_paths, month_hist=total,
-            centers=centers, scales=scales, mode="cdf",
-            log_thresholds=logthr,
-        )
-    if linear:
-        z_edges = np.linspace(0.0, 1.0, n_bins + 1)
-    else:
-        z_edges = np.linspace(-Z_RANGE, Z_RANGE, n_bins + 1)
-    pad = z_edges[1] - z_edges[0]
-    full_edges = np.concatenate(
-        [[z_edges[0] - pad], z_edges, [z_edges[-1] + pad]])
-    for tt in range(n_periods + 1):
-        zq = red.grid_quantiles(total[tt], full_edges, qs)
-        depleted = zq < z_edges[0]   # rank fell in the underflow bin
-        if linear:
-            v = zq * scales[tt]
+    with span("smmc.invert"):
+        if use_cdf:
+            # probit-space interpolation of the K-point per-month CDF;
+            # ranks below the underflow-guard threshold (depleted mass) ->
+            # 0.0
+            values[:, 0] = initial_capital  # month 0 is exactly v0
+            for tt in range(1, n_periods + 1):
+                lq = red.cdf_band_quantiles(total[tt], logthr[tt], qs,
+                                            n_paths)
+                v = np.exp(lq)
+                v[~np.isfinite(lq)] = 0.0
+                values[:, tt] = v
         else:
-            v = np.exp(centers[tt] + zq * scales[tt])
-        v[depleted] = 0.0
-        values[:, tt] = v
+            if linear:
+                z_edges = np.linspace(0.0, 1.0, n_bins + 1)
+            else:
+                z_edges = np.linspace(-Z_RANGE, Z_RANGE, n_bins + 1)
+            pad = z_edges[1] - z_edges[0]
+            full_edges = np.concatenate(
+                [[z_edges[0] - pad], z_edges, [z_edges[-1] + pad]])
+            for tt in range(n_periods + 1):
+                zq = red.grid_quantiles(total[tt], full_edges, qs)
+                depleted = zq < z_edges[0]   # rank fell in the underflow bin
+                if linear:
+                    v = zq * scales[tt]
+                else:
+                    v = np.exp(centers[tt] + zq * scales[tt])
+                v[depleted] = 0.0
+                values[:, tt] = v
     return TrajectoryBands(
         quantile_levels=qs, values=values, months=months,
         sample_paths=sample(), n_paths=n_paths, month_hist=total,
-        centers=centers, scales=scales,
+        centers=centers, scales=scales, mode=band_mode,
+        log_thresholds=logthr if use_cdf else None,
+    )
+
+
+def _checked_call(model, n_paths: int, n_periods: int,
+                  options: EngineOptions, mesh, band_mode: str):
+    """The checks of a ``simulate_bands`` call in every band mode: (ranks,
+    this rank, device)."""
+    eng._check_model(model)
+    n_dev = eng._check_mesh(mesh)
+    rank = 0 if mesh is None else mesh.rank
+    eng._validate_run(model, n_paths, options.chunk_paths * n_dev, n_periods)
+    if band_mode not in ("hist", "cdf", "analytic"):
+        raise ValueError(f"band_mode must be 'hist', 'cdf', or "
+                         f"'analytic', got {band_mode!r}")
+    if options.terminal_law:
+        raise ValueError(
+            "terminal_law samples only the FINAL value's law; bands are "
+            "month-resolved — use band_mode='analytic' for the exact "
+            "infinite-path bands, or the default month-loop engine"
+        )
+    dev = eng._resolve_device(options)
+    eng._check_mesh(mesh, dev)
+    return n_dev, rank, dev
+
+
+def _analytic_bands(model, n_periods: int, initial_capital: float, strategy,
+                    qs, sample) -> TrajectoryBands:
+    """``band_mode="analytic"``: the exact infinite-path bands (month t's
+    marginal law, one FFT on the host) and ``sample()``'s fan curves."""
+    from stock_market_monte_carlo_torch.ops import analytic as ana
+
+    if not eng._is_multiplicative(strategy):
+        raise ValueError(
+            "band_mode='analytic' needs a multiplicative strategy "
+            "(fixed-amount withdrawals have no closed marginal law)"
+        )
+    if model.kind not in ("gaussian", "historical"):
+        raise ValueError(
+            "band_mode='analytic' supports gaussian/historical "
+            f"models (the marginal law is closed-form); got "
+            f"{model.kind!r}"
+        )
+    centers, scales = band_grid(model, strategy, n_periods, initial_capital)
+    if model.kind == "gaussian":
+        kind, params = "gaussian", (float(model.mean_pct),
+                                    float(model.std_pct))
+    else:
+        kind, params = "bootstrap", np.asarray(model.returns_pct,
+                                               np.float64)
+    keep = (None if isinstance(strategy, NoWithdrawal)
+            else eng._keep_factors_np(strategy, n_periods).astype(
+                np.float64))
+    with span("smmc.invert"):
+        values = ana.marginal_value_quantiles(
+            kind, params, n_periods, float(initial_capital), qs, keep=keep)
+    return TrajectoryBands(
+        quantile_levels=qs, values=values, months=np.arange(n_periods + 1),
+        sample_paths=sample(),
+        n_paths=0,      # exact law, not an n-path estimate
+        month_hist=np.zeros((n_periods + 1, 0)), centers=centers,
+        scales=scales, mode="analytic",
     )

@@ -75,6 +75,7 @@ from stock_market_monte_carlo_torch.ops import reductions as red
 from stock_market_monte_carlo_torch.ops import sobol
 from stock_market_monte_carlo_torch.ops import threefry
 from stock_market_monte_carlo_torch.parallel.mesh import PathsMesh
+from stock_market_monte_carlo_torch.utils.timing import span, spanned
 
 KEY_TILE = cuda_engine.TILE_PATHS
 
@@ -682,14 +683,15 @@ def _to_host(fetched, mesh, n_dev):
     (n_dev, hb) histograms in rank order (``_split``) and the (n_dev,
     paths) finals or None."""
     (parts, finals), copied = fetched
-    if copied is not None:
-        copied.synchronize()
-    stats, hist = _split(
-        [_gathered(mesh, p, False).numpy().reshape(n_dev, -1)
-         for p in parts])
-    if finals is not None:
-        finals = _gathered(mesh, finals.cpu(), False).numpy().reshape(
-            n_dev, -1)
+    with span("smmc.wait"):
+        if copied is not None:
+            copied.synchronize()
+        stats, hist = _split(
+            [_gathered(mesh, p, False).numpy().reshape(n_dev, -1)
+             for p in parts])
+        if finals is not None:
+            finals = _gathered(mesh, finals.cpu(), False).numpy().reshape(
+                n_dev, -1)
     return stats, hist, finals
 
 
@@ -711,6 +713,7 @@ def _split(parts):
     return parts[0][..., :9], parts[0][..., 9:]
 
 
+@spanned("smmc.simulate_stats")
 def simulate_stats(
     model,
     n_paths: int,
@@ -754,54 +757,56 @@ def simulate_stats(
     package does not (its float32 chunk sums run in another order).
     """
     t_start = time.perf_counter()
-    _check_model(model)
-    dev = _resolve_device(options)
-    n_dev = _check_mesh(mesh, dev)
-    rank = 0 if mesh is None else mesh.rank
-    xla = resolve_backend(options) == "xla"
-    chunk_b = options.chunk_paths
-    if xla and dev.type == "cpu" and not options.terminal_law:
-        chunk_b = _xla_chunk_paths(n_periods, options)
-    per_dispatch = chunk_b * n_dev
-    _validate_run(model, n_paths, per_dispatch, n_periods,
-                  draws_bootstrap=not options.terminal_law,
-                  seg_paths=options.seed_segment_paths)
-    v0f = float(initial_capital)
-    if not (v0f > 0.0 and np.isfinite(v0f)):
-        raise ValueError(
-            f"initial_capital must be positive and finite, got "
-            f"{initial_capital}"
+    with span("smmc.prepare"):
+        _check_model(model)
+        dev = _resolve_device(options)
+        n_dev = _check_mesh(mesh, dev)
+        rank = 0 if mesh is None else mesh.rank
+        xla = resolve_backend(options) == "xla"
+        chunk_b = options.chunk_paths
+        if xla and dev.type == "cpu" and not options.terminal_law:
+            chunk_b = _xla_chunk_paths(n_periods, options)
+        per_dispatch = chunk_b * n_dev
+        _validate_run(model, n_paths, per_dispatch, n_periods,
+                      draws_bootstrap=not options.terminal_law,
+                      seg_paths=options.seed_segment_paths)
+        v0f = float(initial_capital)
+        if not (v0f > 0.0 and np.isfinite(v0f)):
+            raise ValueError(
+                f"initial_capital must be positive and finite, got "
+                f"{initial_capital}"
+            )
+        keep_finals = (options.keep_final_values
+                       if keep_final_values is None else keep_final_values)
+        if checkpoint_path is not None and keep_finals:
+            raise ValueError(
+                "checkpoint_path is not supported with keep_final_values "
+                "(per-path buffers are not checkpointed)"
+            )
+        if keep_finals and 4 * n_paths > 8 << 30:
+            raise ValueError(
+                f"keep_final_values at n_paths={n_paths} would materialize "
+                f"~{4 * n_paths / 2**30:.0f} GiB of finals on the host; use "
+                "the fused statistics/histogram or split the run"
+            )
+        spec = make_histogram_spec(model, strategy, n_periods,
+                                   initial_capital, options.histogram_bins)
+        fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed)
+        shift_c = analytic_moment_shift(model, strategy, n_periods)
+        hb = spec.n_bins + 2
+        common = dict(
+            v0=v0f,
+            target=np.inf if target_amount is None else target_amount,
+            shift=shift_c, lo=spec.lo, log_lo=spec.log_lo,
+            inv_w=1.0 / spec.width,
+            hb=hb, with_hist=options.histogram,
+            keep_finals=keep_finals,
         )
-    keep_finals = (options.keep_final_values
-                   if keep_final_values is None else keep_final_values)
-    if checkpoint_path is not None and keep_finals:
-        raise ValueError(
-            "checkpoint_path is not supported with keep_final_values "
-            "(per-path buffers are not checkpointed)"
-        )
-    if keep_finals and 4 * n_paths > 8 << 30:
-        raise ValueError(
-            f"keep_final_values at n_paths={n_paths} would materialize "
-            f"~{4 * n_paths / 2**30:.0f} GiB of finals on the host; use "
-            "the fused statistics/histogram or split the run"
-        )
-    spec = make_histogram_spec(
-        model, strategy, n_periods, initial_capital, options.histogram_bins
-    )
-    fn = _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed)
-    shift_c = analytic_moment_shift(model, strategy, n_periods)
-    hb = spec.n_bins + 2
-    common = dict(
-        v0=v0f, target=np.inf if target_amount is None else target_amount,
-        shift=shift_c, lo=spec.lo, log_lo=spec.log_lo,
-        inv_w=1.0 / spec.width,
-        hb=hb, with_hist=options.histogram,
-        keep_finals=keep_finals,
-    )
-    # restores absolute units of the v0-normalized device power sums
-    stat_scale = np.array(
-        [1.0, v0f, v0f**2, v0f**3, v0f**4, v0f, v0f, 1.0, v0f], np.float64
-    )
+        # restores absolute units of the v0-normalized device power sums
+        stat_scale = np.array(
+            [1.0, v0f, v0f**2, v0f**3, v0f**4, v0f, v0f, 1.0, v0f],
+            np.float64)
+        base = _segment_stream(seed, 0, options)
 
     total_stats = red.zero_packed_stats()
     total_hist = np.zeros(spec.n_bins + 2, np.float64)
@@ -814,7 +819,6 @@ def simulate_stats(
     seg_paths = options.seed_segment_paths
     segmented = n_paths > seg_paths and not model.is_quasi
     seg = 0
-    base = _segment_stream(seed, 0, options)
     defer_absorb = (stream is None and progress is None
                     and checkpoint_path is None and not keep_finals)
     fingerprint = None
@@ -892,11 +896,14 @@ def simulate_stats(
         if not deferred:
             return
         rows = torch.cat([t for parts, _ in deferred for t in parts])
-        rows = _gathered(mesh, rows.view(len(deferred), -1), True).cpu()
-        rows = _gathered(mesh, rows, False).numpy().reshape(
-            n_dev, len(deferred), -1)
-        for j, (_, valids) in enumerate(deferred):
-            _absorb_dispatch(rows[:, j, :9], rows[:, j, 9:], None, valids)
+        rows = _gathered(mesh, rows.view(len(deferred), -1), True)
+        with span("smmc.wait"):
+            rows = _gathered(mesh, rows.cpu(), False).numpy().reshape(
+                n_dev, len(deferred), -1)
+        with span("smmc.merge"):
+            for j, (_, valids) in enumerate(deferred):
+                _absorb_dispatch(rows[:, j, :9], rows[:, j, 9:], None,
+                                 valids)
         deferred.clear()
 
     def _report():
@@ -911,7 +918,9 @@ def simulate_stats(
 
     def _absorb_pending():
         fetched, valids, offset_after = pending
-        _absorb_dispatch(*_to_host(fetched, mesh, n_dev), valids)
+        host = _to_host(fetched, mesh, n_dev)
+        with span("smmc.merge"):
+            _absorb_dispatch(*host, valids)
         _checkpoint(offset_after)
 
     while remaining > 0:
@@ -932,9 +941,10 @@ def simulate_stats(
             b = _round_up(_round_up(this_valid, n_dev) // n_dev, KEY_TILE)
             b = min(chunk_b, 1 << (b - 1).bit_length())
         valids = _shard_valids(this_valid, b, n_dev)
-        out = (fn(base, offset + b * rank, valid=valids[rank], n_paths=b,
-                  **common)
-               if valids[rank] else _identity_out(dev, hb, keep_finals))
+        with span("smmc.dispatch"):
+            out = (fn(base, offset + b * rank, valid=valids[rank],
+                      n_paths=b, **common)
+                   if valids[rank] else _identity_out(dev, hb, keep_finals))
         offset += b * n_dev
         remaining -= this_valid
         if defer_absorb:
