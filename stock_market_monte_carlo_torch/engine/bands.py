@@ -394,20 +394,18 @@ def simulate_bands(
     if progress is not None:
         progress(done, n_paths)
 
-    # invert to fund values per quantile per month (host, O(T))
-    values = np.empty((len(qs), n_periods + 1))
+    # invert to fund values per quantile per month (host, one pass over
+    # the (T+1, cells) table)
     with span("smmc.invert"):
         if use_cdf:
             # probit-space interpolation of the K-point per-month CDF;
             # ranks below the underflow-guard threshold (depleted mass) ->
             # 0.0
+            lq = red.cdf_band_quantiles_table(total[1:], logthr[1:], qs,
+                                              n_paths)
+            values = np.empty((len(qs), n_periods + 1))
             values[:, 0] = initial_capital  # month 0 is exactly v0
-            for tt in range(1, n_periods + 1):
-                lq = red.cdf_band_quantiles(total[tt], logthr[tt], qs,
-                                            n_paths)
-                v = np.exp(lq)
-                v[~np.isfinite(lq)] = 0.0
-                values[:, tt] = v
+            values[:, 1:] = np.where(np.isfinite(lq), np.exp(lq), 0.0)
         else:
             if linear:
                 z_edges = np.linspace(0.0, 1.0, n_bins + 1)
@@ -416,15 +414,10 @@ def simulate_bands(
             pad = z_edges[1] - z_edges[0]
             full_edges = np.concatenate(
                 [[z_edges[0] - pad], z_edges, [z_edges[-1] + pad]])
-            for tt in range(n_periods + 1):
-                zq = red.grid_quantiles(total[tt], full_edges, qs)
-                depleted = zq < z_edges[0]   # rank fell in the underflow bin
-                if linear:
-                    v = zq * scales[tt]
-                else:
-                    v = np.exp(centers[tt] + zq * scales[tt])
-                v[depleted] = 0.0
-                values[:, tt] = v
+            zq = red.grid_quantiles_table(total, full_edges, qs)
+            values = (zq * scales if linear
+                      else np.exp(centers + zq * scales))
+            values[zq < z_edges[0]] = 0.0  # rank fell in the underflow bin
     return TrajectoryBands(
         quantile_levels=qs, values=values, months=months,
         sample_paths=sample(), n_paths=n_paths, month_hist=total,

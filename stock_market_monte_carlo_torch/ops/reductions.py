@@ -194,6 +194,41 @@ def grid_quantiles(counts: np.ndarray, grid_edges: np.ndarray,
     return np.asarray(out)
 
 
+def _count_below(table: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """(Q, T): for row t of a (T, n) table that never decreases along its
+    rows, the count of its entries below x[q, t] (x broadcast to (Q, T)),
+    which is ``np.searchsorted(table[t], x[q, t], side="left")``; a binary
+    search of every (q, t) at once."""
+    n = table.shape[1]
+    rows = np.arange(table.shape[0])[None, :]
+    count = np.zeros(np.broadcast_shapes(x.shape, rows.shape), np.int64)
+    step = 1 << (n.bit_length() - 1)
+    while step:
+        cand = count + step
+        below = (cand <= n) & (table[rows, np.minimum(cand, n) - 1] < x)
+        count = np.where(below, cand, count)
+        step >>= 1
+    return count
+
+
+def grid_quantiles_table(counts: np.ndarray, grid_edges: np.ndarray,
+                         qs) -> np.ndarray:
+    """``grid_quantiles`` of every row of a (T, cells) count table in one
+    pass: (len(qs), T), equal to it row by row bit for bit (integer counts
+    sum exactly in any order)."""
+    counts = np.asarray(counts, np.float64)
+    edges = np.asarray(grid_edges, np.float64)
+    cdf = np.cumsum(counts, axis=1)
+    rank = np.atleast_1d(qs)[:, None] * counts.sum(axis=1)[None, :]
+    b = np.minimum(_count_below(cdf, rank), counts.shape[1] - 1)
+    rows = np.arange(counts.shape[0])[None, :]
+    prev = np.where(b > 0, cdf[rows, np.maximum(b - 1, 0)], 0.0)
+    inbin = counts[rows, b]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = np.where(inbin > 0, (rank - prev) / inbin, 0.5)
+    return edges[b] + frac * (edges[b + 1] - edges[b])
+
+
 def quantiles_from_histogram(spec: HistogramSpec, counts: np.ndarray,
                              qs) -> np.ndarray:
     """Quantiles with intra-bin linear interpolation in log space (error
@@ -281,6 +316,34 @@ def cdf_band_quantiles(counts_below: np.ndarray,
             w = float(np.clip((zq - za) / (zb - za), 0.0, 1.0))
         out.append(L[j - 1] + w * (L[j] - L[j - 1]))
     return np.asarray(out)
+
+
+def cdf_band_quantiles_table(counts_below: np.ndarray,
+                             log_thresholds: np.ndarray, qs,
+                             n_valid: int) -> np.ndarray:
+    """``cdf_band_quantiles`` of every row of (T, K) tables of counts
+    below and log thresholds in one pass: (len(qs), T), equal to it row by
+    row bit for bit."""
+    F = np.asarray(counts_below, np.float64) / float(n_valid)
+    L = np.asarray(log_thresholds, np.float64)
+    eps = 0.5 / float(max(n_valid, 1))
+    z = norm_icdf64(np.clip(F, eps, 1.0 - eps))
+    q = np.atleast_1d(qs)
+    zq = norm_icdf64(np.clip(q, eps, 1.0 - eps))[:, None]
+    # counts below ascending thresholds never decrease along a row
+    k = F.shape[1]
+    j = _count_below(F, q[:, None])
+    rows = np.arange(F.shape[0])[None, :]
+    lo, hi = np.maximum(j - 1, 0), np.minimum(j, k - 1)
+    za, zb = z[rows, lo], z[rows, hi]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # a flat segment (both clipped / zero mass between) takes 0.5
+        w = np.where(zb <= za, 0.5,
+                     np.clip((zq - za) / (zb - za), 0.0, 1.0))
+    la = L[rows, lo]
+    out = la + w * (L[rows, hi] - la)
+    out = np.where(j >= k, L[:, -1][None, :], out)
+    return np.where(j == 0, -np.inf, out)
 
 
 def exact_quantiles(finals, qs) -> np.ndarray:

@@ -24,7 +24,8 @@ The spans of the two entry points (``engine.simulate_stats``,
   outside the span);
 - ``smmc.wait``: the host blocked on the card for a chunk's results;
 - ``smmc.merge``: the host's float64 merge of fetched results;
-- ``smmc.invert``: the bands' quantile inversion, month by month;
+- ``smmc.invert``: the bands' quantile inversion, one pass over the
+  month table;
 - ``smmc.sample_paths``: the bands' sample paths.
 """
 

@@ -29,6 +29,7 @@ from stock_market_monte_carlo_torch.engine import engine as port_engine
 from stock_market_monte_carlo_torch.models.convert import from_reference
 from stock_market_monte_carlo_torch.ops import bands as kb
 from stock_market_monte_carlo_torch.ops import cuda_engine as ce
+from stock_market_monte_carlo_torch.ops import reductions as port_red
 from stock_market_monte_carlo_tpu.config import EngineOptions as JaxOptions
 from test_torch_engine import CPU, _strategy
 
@@ -192,3 +193,79 @@ def test_hist_bands_chunk_invariance_and_progress(monkeypatch):
     jax_bands(monkeypatch, "historical", "none", n=n, n_bins=N_BINS,
               progress=lambda d, t: want_calls.append((d, t)))
     assert calls == want_calls == [(8192, n), (2 * 8192, n), (n, n)]
+
+
+def full_edges(n_bins, linear):
+    """The inversion's grid: the z-grid's (or the linear grid's) n_bins + 1
+    edges and a pseudo-edge a bin beyond each end."""
+    z = (np.linspace(0.0, 1.0, n_bins + 1) if linear
+         else np.linspace(-port_bands.Z_RANGE, port_bands.Z_RANGE,
+                          n_bins + 1))
+    pad = z[1] - z[0]
+    return np.concatenate([[z[0] - pad], z, [z[-1] + pad]])
+
+
+def grid_month_loop(counts, edges, qs):
+    """(len(qs), T): ``grid_quantiles`` row by row, the inversion's month
+    loop."""
+    return np.stack([port_red.grid_quantiles(c, edges, qs) for c in counts],
+                    axis=1)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+@pytest.mark.parametrize("n_bins", [2, N_BINS, 1024])
+def test_grid_quantiles_table_equals_the_month_loop(linear, n_bins):
+    """The one pass over a (T, cells) table against the month loop, bit
+    for bit: a row all in one cell, ranks on a cell edge, empty cells
+    (levels 0 and 1, an empty row), on the log and the linear grid."""
+    rng = np.random.default_rng(n_bins + linear)
+    qs = (0.0, 0.05, 0.25, 0.5, 0.75, 0.95, 1.0)
+    cells = n_bins + 2
+    counts = (rng.integers(0, 4, (30, cells))
+              * rng.integers(0, 2, (30, cells)) * 1000).astype(np.float64)
+    counts[0] = 0
+    counts[0, cells // 2] = 8192
+    counts[1] = 0
+    counts[2] = 0
+    counts[2, [0, 1, cells - 1]] = (5, 20, 75)   # cumsum 5, 25, 100
+    counts[3, 0] = 0
+    edges = full_edges(n_bins, linear)
+    got = port_red.grid_quantiles_table(counts, edges, qs)
+    want = grid_month_loop(counts, edges, qs)
+    assert got.shape == want.shape == (len(qs), 30)
+    assert np.array_equal(got, want)
+    # every case is met
+    assert (got[:, 1] == edges[0] + 0.5 * (edges[1] - edges[0])).all()
+    rank = np.asarray(qs)[:, None] * counts.sum(axis=1)[None, :]
+    assert (rank[:, 2][:, None] == np.cumsum(counts[2])[None, :]).any(
+        axis=1)[1:3].all()
+
+
+def month_loop_values(bands, n_bins, linear):
+    """The band values of the inversion's month loop over a run's own
+    month table."""
+    z = grid_month_loop(bands.month_hist, full_edges(n_bins, linear),
+                        bands.quantile_levels)
+    v = (z * bands.scales if linear
+         else np.exp(bands.centers + z * bands.scales))
+    v[z < full_edges(n_bins, linear)[1]] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("kind, name, backend", [
+    ("historical", "variable_percent", "auto"),
+    ("gaussian", "fixed_percent", "xla"),
+    ("historical", "fixed_amount", "auto"),
+])
+def test_hist_bands_values_equal_the_month_loop(kind, name, backend):
+    """``simulate_bands`` in hist mode, on the kernels' route, the XLA
+    backend's trajectory route and the fixed-amount (linear) route: its
+    values are the month loop's over its own month table, bit for bit."""
+    got = smt.simulate_bands(
+        from_reference(MODELS[kind]), N, 12, seed=2,
+        strategy=from_reference(_strategy(name)), sample_paths=3,
+        n_bins=N_BINS, options=smt.EngineOptions(**dict(CPU,
+                                                        backend=backend)))
+    want = month_loop_values(got, N_BINS, name == "fixed_amount")
+    assert got.values.shape == (5, 13)
+    assert np.array_equal(got.values, want)

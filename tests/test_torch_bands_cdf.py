@@ -232,3 +232,69 @@ def test_marginal_value_quantiles_match_jax(kind, with_keep):
                                                qs, keep=keep),
         jax_analytic.marginal_value_quantiles(kind, params, 120, 1000.0,
                                               qs, keep=keep))
+
+
+def cdf_month_loop(counts, logthr, qs, n):
+    """(len(qs), T): ``cdf_band_quantiles`` row by row, the inversion's
+    month loop."""
+    return np.stack([port_red.cdf_band_quantiles(c, lt, qs, n)
+                     for c, lt in zip(counts, logthr)], axis=1)
+
+
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("n", [3, 1000, 10**8])
+def test_cdf_band_quantiles_table_equals_the_month_loop(k, n):
+    """The one pass over a (T, K) table against the month loop, bit for
+    bit: a depleted row (j == 0 at every level), a row past the last
+    threshold (j >= K), runs of equal counts, F equal to a level, and
+    levels and F that eps clips. Row 6's fractional counts put the levels
+    0.0001 and 0.9999 between two F that eps clips to one z: a flat
+    segment, which integer counts below n reach only at n < 2 / q."""
+    rng = np.random.default_rng(k * 7 + n)
+    qs = (0.0001, 0.05, 0.25, 0.5, 0.75, 0.95, 0.9999)
+    counts = np.sort(rng.integers(0, n + 1, (40, k)), axis=1).astype(
+        np.float64)
+    counts[0] = n
+    counts[1] = 0
+    counts[2, 1:k - 1] = counts[2, 1]
+    counts[3] = np.sort(np.resize(np.round(np.asarray(qs) * n), k))
+    counts[4, : k // 2] = 0
+    counts[4, k // 2:] = n
+    counts[6] = n * np.concatenate([[5e-5, 3e-4],
+                                    np.linspace(0.01, 0.99, k - 4),
+                                    [0.99985, 1.0]])
+    logthr = np.sort(rng.normal(7.0, 1.0, (40, k)), axis=1)
+    logthr[5, 2:6] = logthr[5, 2]
+    got = port_red.cdf_band_quantiles_table(counts, logthr, qs, n)
+    want = cdf_month_loop(counts, logthr, qs, n)
+    assert got.shape == want.shape == (len(qs), 40)
+    assert np.array_equal(got, want)
+    # every case is met
+    F = counts / n
+    j = np.stack([np.searchsorted(f, qs, side="left") for f in F], axis=1)
+    assert (j[:, 0] == 0).all() and (j[:, 1] >= k).all()
+    assert (got[:, 0] == -np.inf).all() and (got[:, 1] == logthr[1, -1]).all()
+    flat = np.diff(F, axis=1) == 0
+    assert flat[2, 1:k - 2].all()
+    flat_mid = logthr[6, [0, -2]] + 0.5 * np.diff(logthr[6])[[0, -1]]
+    assert (got[[0, -1], 6] == flat_mid).all() == (n < 10**8)
+    if n == 3:
+        assert min(qs) < 0.5 / n
+    else:
+        assert (F[3][:, None] == np.asarray(qs)[None, :]).sum() >= 5
+
+
+def test_cdf_bands_values_equal_the_month_loop():
+    """``simulate_bands`` in cdf mode: its values are the month loop's
+    over its own counts below, bit for bit, month 0 at v0 and the depleted
+    levels at 0.0."""
+    got = port_bands_run("gaussian", "variable_percent", t=12,
+                         band_mode="cdf", n_thresholds=K)
+    lq = cdf_month_loop(got.month_hist[1:], got.log_thresholds[1:],
+                        got.quantile_levels, got.n_paths)
+    want = np.empty_like(got.values)
+    want[:, 0] = 1000.0
+    want[:, 1:] = np.exp(lq)
+    want[:, 1:][~np.isfinite(lq)] = 0.0
+    assert got.values.shape == (5, 13)
+    assert np.array_equal(got.values, want)
