@@ -551,6 +551,7 @@ def _keep_np(strategy, n_periods: int) -> np.ndarray:
     return np.ones((n_periods,), np.float32)
 
 
+@spanned("smmc.law_operand")
 def _law_operand(model, strategy, n_periods, v0f, options, dev):
     """(law, law_host, inv_zmax) of a terminal-law run: the fitted
     operand on ``dev`` and on the host, and the normal's scale."""

@@ -24,6 +24,7 @@ import numpy as np
 
 from stock_market_monte_carlo_torch.ops import analytic
 from stock_market_monte_carlo_torch.ops.reductions import norm_icdf64
+from stock_market_monte_carlo_torch.utils.timing import spanned
 
 # Chebyshev domain half-width in z (probit) space. 23-bit uniforms cannot
 # reach past |z| ~ 5.54 (cuda_engine._u23_from_bits keeps 2u-1 strictly
@@ -126,9 +127,17 @@ def fit_terminal_law(model, strategy, n_periods: int,
     key = (_law_cache_key(model, keep, n_periods, initial_capital),
            float(tol))
     hit = _FIT_CACHE.get(key)
-    if hit is not None:
-        return hit
+    if hit is None:
+        hit = _FIT_CACHE[key] = _fit(model, keep, n_periods,
+                                     initial_capital, tol)
+    return hit
 
+
+@spanned("smmc.law_fit")
+def _fit(model, keep, n_periods: int, initial_capital: float,
+         tol: float) -> TerminalLawFit:
+    """``fit_terminal_law`` on a cache miss: the FFT oracle, the Chebyshev
+    fit and its float32 validation."""
     log_shift = 0.0
     if keep is not None:
         if np.any(keep <= 0.0):
@@ -185,7 +194,5 @@ def fit_terminal_law(model, strategy, n_periods: int,
     c_mag = float(np.max(np.abs(coefs32))) if coefs32.size else 0.0
     nz = np.nonzero(np.abs(coefs32) > 1e-7 * max(c_mag, 1e-30))[0]
     degree = int(nz[-1]) if len(nz) else 0
-    fit = TerminalLawFit(scale=scale, coefs=coefs32, max_err=max_err,
-                         degree=degree)
-    _FIT_CACHE[key] = fit
-    return fit
+    return TerminalLawFit(scale=scale, coefs=coefs32, max_err=max_err,
+                          degree=degree)

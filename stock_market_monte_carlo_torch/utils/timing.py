@@ -26,7 +26,11 @@ The spans of the two entry points (``engine.simulate_stats``,
 - ``smmc.merge``: the host's float64 merge of fetched results;
 - ``smmc.invert``: the bands' quantile inversion, one pass over the
   month table;
-- ``smmc.sample_paths``: the bands' sample paths.
+- ``smmc.sample_paths``: the bands' sample paths;
+- ``smmc.law_operand``: a terminal-law run's operand, inside
+  ``smmc.prepare`` (the fit cache's lookup, the host-to-device copy);
+- ``smmc.law_fit``: inside ``smmc.law_operand`` on a fit cache miss only
+  (the FFT oracle, the fit, its validation).
 """
 
 from __future__ import annotations

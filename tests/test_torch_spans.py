@@ -3,7 +3,8 @@ no profiler enters no ``record_function``; under ``torch.profiler`` the
 two entry points, ``simulate_stats`` and ``simulate_bands``, record
 exactly the documented spans, each nested in its entry span, at the
 documented counts, and return the same results bit for bit as without a
-profiler."""
+profiler. A terminal-law run adds its operand's span inside
+``smmc.prepare``, and the fit's inside that on a fit cache miss."""
 
 import json
 
@@ -90,13 +91,16 @@ def test_span_nests_under_a_profiler(tmp_path):
     assert spans[2][1] >= oe
 
 
-def _stats(**kw):
-    res = smt.simulate_stats(smt.HistoricalBootstrap(_table()), N_PATHS,
-                             N_PERIODS, seed=11, target_amount=1500.0,
-                             options=CPU, **kw)
+def _stats_of(res):
     m = res.moments
     return (m.n, m.mean, m.std, m.min, m.max, m.count_below,
             res.histogram_counts.tolist())
+
+
+def _stats(**kw):
+    return _stats_of(smt.simulate_stats(
+        smt.HistoricalBootstrap(_table()), N_PATHS, N_PERIODS, seed=11,
+        target_amount=1500.0, options=CPU, **kw))
 
 
 def _bands(mode, strategy=smt.NoWithdrawal()):
@@ -157,3 +161,41 @@ def test_entry_spans_on_the_cpu(case, tmp_path):
     # the children follow one another: no two overlap
     for (_, _, e0), (_, s1, _) in zip(spans[1:], spans[2:]):
         assert e0 <= s1
+
+
+def _law_stats(backend):
+    options = smt.EngineOptions(device="cpu", chunk_paths=CHUNK,
+                                terminal_law=True, backend=backend)
+    return _stats_of(smt.simulate_stats(
+        smt.GaussianReturns(), N_PATHS, N_PERIODS, seed=13,
+        target_amount=1100.0, options=options))
+
+
+def _inside(spans, inner, outer):
+    """Each ``inner`` span lies inside an ``outer`` span."""
+    outers = [(s, e) for n, s, e in spans if n == outer]
+    return all(any(os_ <= s <= e <= oe for os_, oe in outers)
+               for n, s, e in spans if n == inner)
+
+
+# the counter law's kernel route and the XLA backend's threefry law: both
+# take their operand from engine._law_operand
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_law_spans_on_the_cpu(backend, tmp_path, monkeypatch):
+    from stock_market_monte_carlo_torch.ops import terminal_law
+
+    monkeypatch.setattr(terminal_law, "_FIT_CACHE", {})
+    off = _law_stats(backend)  # fits without a profiler
+    for name, cached in (("cached", True), ("new", False)):
+        if not cached:
+            monkeypatch.setattr(terminal_law, "_FIT_CACHE", {})
+        with timing.trace(str(tmp_path / name)):
+            on = _law_stats(backend)
+        assert on == off  # bit for bit with the profiler on
+        spans = _spans(tmp_path / name)
+        names = [n for n, _, _ in spans]
+        assert names.count("smmc.prepare") == 1
+        assert names.count("smmc.law_operand") == 1
+        assert names.count("smmc.law_fit") == (0 if cached else 1)
+        assert _inside(spans, "smmc.law_operand", "smmc.prepare")
+        assert _inside(spans, "smmc.law_fit", "smmc.law_operand")
