@@ -795,7 +795,7 @@ def mesh_phase(card, main_results, band_results):
             rank=0, world_size=1,
             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
         try:
-            mesh = PathsMesh(group=None, rank=0, size=1, backend="nccl",
+            mesh = PathsMesh(group=None, rank=0, size=1,
                              device=torch.device(
                                  "cuda", torch.cuda.current_device()))
             for key in ("month_loop", "law"):
@@ -842,8 +842,8 @@ def mesh_phase(card, main_results, band_results):
         path = os.path.join(tmp, "mesh.npz")
         t = time.perf_counter()
         ranks = run_ranks(MESH_RANKS, "chip_smoke:mesh_rank",
-                          dict(checkpoint=path), backend="gloo",
-                          device="cuda", timeout=MESH_TIMEOUT_S)
+                          dict(checkpoint=path), device="cuda",
+                          timeout=MESH_TIMEOUT_S)
         children_s = time.perf_counter() - t
         sobol = smt.SobolGaussianReturns.create(MAIN_MONTHS)
         single_rqmc = smt.rqmc_estimate(

@@ -173,14 +173,6 @@ def cdf_coefficients(centers, scales, n_thresholds: int,
     return cdf_a[1:], cdf_b[1:], kap_lo, kap_hi, logthr, m0row
 
 
-def _linear_chunk_paths(n_periods: int, options: EngineOptions) -> int:
-    """Paths per chunk of the linear route: the (B, T) growth buffer
-    bounded to ~1 GiB of float32 (the JAX package's _xla_chunk_paths)."""
-    b = (1 << 30) // (n_periods * 4 * 3)
-    b = max(eng.KEY_TILE, (b // eng.KEY_TILE) * eng.KEY_TILE)
-    return min(b, options.chunk_paths)
-
-
 @spanned("smmc.simulate_bands")
 def simulate_bands(
     model,
@@ -238,11 +230,10 @@ def simulate_bands(
         # does
         use_kernels = (not linear and eng.resolve_backend(options) != "xla"
                        and kb.bands_supported(model, strategy.kind))
-        if use_kernels:
-            b = min(options.chunk_paths, 1 << 24)
-            b = max(kb.TILE_PATHS, (b // kb.TILE_PATHS) * kb.TILE_PATHS)
-        else:
-            b = min(_linear_chunk_paths(n_periods, options), 1 << 24)
+        # the trajectory route materialises the (B, T) growth buffer, as
+        # the XLA backend's CPU route does
+        b = (options.chunk_paths if use_kernels
+             else eng._xla_chunk_paths(n_periods, options))
         use_cdf = band_mode == "cdf"
         if use_kernels:
             keep_np = (None if isinstance(strategy, NoWithdrawal)
@@ -336,29 +327,25 @@ def simulate_bands(
     else:
         rows, cells = n_periods + 1, n_bins + 2
 
-    def summed(counts, at_launch):
-        # the ranks' counts summed as int64 where the mesh's backend
-        # exchanges (NCCL: on the card; gloo: the host copies)
-        if mesh is None or mesh.exchanges_on_device != at_launch:
-            return counts
-        return mesh.sum(counts.to(torch.int64))
-
     def run_dispatch(offset, valids, this_b):
         # this rank's shard; one with no valid path launches nothing
         valid = valids[rank]
         counts = (run_chunk(offset + this_b * rank, valid, this_b) if valid
                   else torch.zeros((rows, cells), dtype=torch.int64,
                                    device=dev))
-        return eng.pinned_copy(summed(counts, True))
+        return eng.pinned_copy(counts if mesh is None
+                               else mesh.start_sum(counts))
 
     def fetch_pending():
-        # the pending dispatch's host counts once copied, and its valid
-        # paths
+        # the pending dispatch's host counts once copied (under a mesh the
+        # ranks' counts summed as int64), and its valid paths
         (counts, copied), valid = pending
         with span("smmc.wait"):
             if copied is not None:
                 copied.synchronize()
-            return summed(counts, False), valid
+            if mesh is not None:
+                counts = mesh.finish_sum(counts)
+            return counts, valid
 
     done, offset, remaining = 0, 0, n_paths
     per_dispatch = b * n_dev

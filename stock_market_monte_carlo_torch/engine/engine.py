@@ -655,63 +655,42 @@ def _identity_out(dev, hb, keep_finals):
             torch.empty((0,), **f32) if keep_finals else None)
 
 
-def _gathered(mesh, x, at_launch: bool):
-    """``x`` stacked over the mesh's ranks in rank order, where this step
-    is the one at which the mesh's backend exchanges (NCCL: tensors on the
-    card, right after the launch; gloo: the host copies, once they are
-    done); else ``x`` as it is."""
-    if mesh is None or mesh.exchanges_on_device != at_launch:
-        return x
-    return mesh.gather(x)
-
-
-def _fetch(parts, finals, mesh, b):
-    """A dispatch's chunk parts (``_parts``) and finals on their way to the
-    host: gathered on the card under NCCL, each part copied behind the
-    chunk's kernel (``pinned_copy``) and the event after the last copy. A
-    mesh pads each rank's finals to the shard's ``b`` paths."""
-    if mesh is not None and finals is not None:
-        finals = torch.nn.functional.pad(finals, (0, b - finals.numel()))
-    copies = [pinned_copy(_gathered(mesh, p, True)) for p in parts]
-    if finals is not None:
-        finals = _gathered(mesh, finals, True)
+def _fetch(out, mesh, b):
+    """A dispatch's chunk outputs on their way to the host: the stats row
+    and histogram each copied behind the chunk's kernel (``pinned_copy``)
+    and the event after the last copy, and the finals as they are. Under a
+    mesh the rows are packed into one, so a dispatch takes one collective,
+    and each rank's finals padded to the shard's ``b`` paths, and both
+    start their gathers (``PathsMesh.start_gather``)."""
+    stats, hist, finals = out
+    parts = (stats, hist)
+    if mesh is not None:
+        parts = (mesh.start_gather(torch.cat(parts)),)
+        if finals is not None:
+            finals = mesh.start_gather(torch.nn.functional.pad(
+                finals, (0, b - finals.numel())))
+    copies = [pinned_copy(p) for p in parts]
     return ([host for host, _ in copies], finals), copies[-1][1]
 
 
 def _to_host(fetched, mesh, n_dev):
-    """A fetched dispatch as numpy arrays once its copies are done,
-    gathered on the host under gloo: the (n_dev, 9) stats rows and
-    (n_dev, hb) histograms in rank order (``_split``) and the (n_dev,
-    paths) finals or None."""
+    """A fetched dispatch as numpy arrays once its copies are done (under
+    a mesh its gathers finished): the (n_dev, 9) stats rows and (n_dev,
+    hb) histograms in rank order and the (n_dev, paths) finals or None."""
     (parts, finals), copied = fetched
     with span("smmc.wait"):
         if copied is not None:
             copied.synchronize()
-        stats, hist = _split(
-            [_gathered(mesh, p, False).numpy().reshape(n_dev, -1)
-             for p in parts])
         if finals is not None:
-            finals = _gathered(mesh, finals.cpu(), False).numpy().reshape(
-                n_dev, -1)
-    return stats, hist, finals
-
-
-def _parts(out, mesh):
-    """What of a chunk travels to the host, chunk by chunk: its stats row
-    and histogram as they are on one device; under a mesh packed into one
-    float32 row, so a dispatch takes one collective."""
-    if mesh is None:
-        return out[0], out[1]
-    return (torch.cat([out[0], out[1]]),)
-
-
-def _split(parts):
-    """(stats rows, histograms) of host parts from ``_parts`` whose last
-    axis is a chunk's: the pair as it is, or the packed rows cut after the
-    9 stats."""
-    if len(parts) == 2:
-        return parts[0], parts[1]
-    return parts[0][..., :9], parts[0][..., 9:]
+            finals = finals.cpu()
+        if mesh is not None:
+            rows = mesh.finish_gather(parts[0])
+            parts = rows[:, :9], rows[:, 9:]
+            if finals is not None:
+                finals = mesh.finish_gather(finals)
+    stats, hist = parts
+    return (stats.numpy().reshape(n_dev, -1), hist.numpy().reshape(n_dev, -1),
+            None if finals is None else finals.numpy().reshape(n_dev, -1))
 
 
 @spanned("smmc.simulate_stats")
@@ -860,10 +839,8 @@ def simulate_stats(
                 base = _segment_stream(seed, seg, options)
         if mesh is not None:
             # the first collective: every rank must resume at one point
-            here = torch.tensor([done, offset], dtype=torch.int64)
-            if mesh.exchanges_on_device:
-                here = here.to(mesh.device)
-            seen = mesh.gather(here).cpu()
+            seen = mesh.gather(torch.tensor([done, offset],
+                                            dtype=torch.int64))
             if not bool((seen == seen[0]).all()):
                 raise RuntimeError(
                     f"the mesh's ranks loaded different checkpoints from "
@@ -896,11 +873,15 @@ def simulate_stats(
         # sequential f64 merges in chunk order
         if not deferred:
             return
-        rows = torch.cat([t for parts, _ in deferred for t in parts])
-        rows = _gathered(mesh, rows.view(len(deferred), -1), True)
+        rows = torch.cat([t for parts, _ in deferred for t in parts]).view(
+            len(deferred), -1)
+        if mesh is not None:
+            rows = mesh.start_gather(rows)
         with span("smmc.wait"):
-            rows = _gathered(mesh, rows.cpu(), False).numpy().reshape(
-                n_dev, len(deferred), -1)
+            rows = rows.cpu()
+            if mesh is not None:
+                rows = mesh.finish_gather(rows)
+            rows = rows.numpy().reshape(n_dev, len(deferred), -1)
         with span("smmc.merge"):
             for j, (_, valids) in enumerate(deferred):
                 _absorb_dispatch(rows[:, j, :9], rows[:, j, 9:], None,
@@ -958,8 +939,7 @@ def simulate_stats(
         if pending is not None:
             _absorb_pending()
             _report()
-        pending = (_fetch(_parts(out, mesh), out[2], mesh, b), valids,
-                   offset)
+        pending = (_fetch(out, mesh, b), valids, offset)
 
     _flush_deferred()
     if pending is not None:  # None when a checkpoint was already complete

@@ -6,9 +6,9 @@ deployment starts its ranks with ``torchrun`` instead.
     results = run_ranks(2, "my_module:my_fn", {"n": 8192}, device="cpu")
 
 spawns 2 processes (``torch.multiprocessing.spawn``, which hands them this
-process's ``sys.path``). Each joins a process group through a ``file://``
-store in a temporary directory (gloo, or NCCL with ``backend="nccl"``, one
-card a rank), builds ``paths_mesh`` on ``device``, calls
+process's ``sys.path``). Each joins a gloo process group through a
+``file://`` store in a temporary directory, builds ``paths_mesh`` on
+``device``, calls
 ``my_fn(mesh, n=8192)`` and saves the dict of arrays it returns;
 ``run_ranks`` returns those dicts in rank order. A rank that fails fails
 the call and ends the others; so does ``timeout``, which is the process
@@ -17,8 +17,9 @@ raises as well. Each rank runs torch on one CPU thread, set before it
 imports its target: ranks spawned beside other busy processes (the test
 workers) would otherwise each start one thread per core.
 
-Gloo ranks may share one card (``device="cuda"``): the kernels run on the
-card in every rank and only the exchange goes through the host.
+The gloo ranks may share one card (``device="cuda"``): the kernels run on
+the card in every rank and only the exchange goes through the host. NCCL
+ranks, one on each card, are started with ``torchrun``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ import time
 import numpy as np
 
 
-def _rank(rank, world, target, kwargs, store, backend, device, timeout,
-          out_dir):
+def _rank(rank, world, target, kwargs, store, device, timeout, out_dir):
     import torch
     import torch.distributed as dist
 
@@ -44,10 +44,10 @@ def _rank(rank, world, target, kwargs, store, backend, device, timeout,
     module, name = target.split(":")
     fn = getattr(importlib.import_module(module), name)
     dist.init_process_group(
-        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
     try:
-        mesh = paths_mesh(device=device if backend == "gloo" else None)
+        mesh = paths_mesh(device=device)
         out = fn(mesh, **kwargs)
     finally:
         dist.destroy_process_group()
@@ -55,19 +55,17 @@ def _rank(rank, world, target, kwargs, store, backend, device, timeout,
              **{k: np.asarray(v) for k, v in out.items()})
 
 
-def run_ranks(world, target, kwargs=None, *, device, backend="gloo",
-              timeout=300.0):
+def run_ranks(world, target, kwargs=None, *, device, timeout=300.0):
     """[rank 0's dict, ..., rank world-1's dict] of ``target``
     (``"module:function"``) called as ``function(mesh, **kwargs)`` in
     ``world`` fresh processes, each on ``device`` (``"cuda"`` or
-    ``"cpu"``; an NCCL rank takes its own card), on one torch thread
-    each."""
+    ``"cpu"``), on one torch thread each."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.spawn(_rank, args=(world, target, kwargs or {},
-                                    os.path.join(tmp, "store"), backend,
-                                    device, timeout, tmp),
+                                    os.path.join(tmp, "store"), device,
+                                    timeout, tmp),
                        nprocs=world, join=False)
         deadline = time.monotonic() + timeout
         try:

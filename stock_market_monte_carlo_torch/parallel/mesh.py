@@ -11,8 +11,12 @@ the same arguments and gets the same result (SPMD).
 The engine exchanges each dispatch's per-rank chunk rows (a float32 stats
 row and histogram, ~16 KB at 4096 cells) with one all-gather and merges
 them on the host in rank order, which is global chunk order; the band
-counts are all-reduced as int64 sums. ``exchanges_on_device`` says which
-copy a backend takes: NCCL the rows on the card, gloo the host copies.
+counts are all-reduced as int64 sums. Where an exchange runs follows the
+group's backend, which only this module reads: an NCCL group exchanges
+the device tensors on the cards right after the launch, and the engine
+copies the result; a gloo group exchanges the host copies once they are
+done. The engine calls ``start_gather`` (``start_sum``) before its copy
+and ``finish_gather`` (``finish_sum``) after it, and each does its half.
 
     import torch.distributed as dist
     dist.init_process_group("nccl", ...)        # torchrun sets the env
@@ -23,6 +27,7 @@ copy a backend takes: NCCL the rows on the card, gloo the host copies.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Optional
 
@@ -41,27 +46,15 @@ def device_count() -> int:
 class PathsMesh:
     """A 1-D mesh of ``size`` ranks over the path axis.
 
-    ``group`` is the process group, ``rank`` this process's rank in it,
-    ``backend`` ``"nccl"`` or ``"gloo"`` and ``device`` the device its
-    shards run on. A process outside the group (``paths_mesh`` with fewer
-    ranks than the world) holds a mesh with ``rank`` -1, which raises when
-    used."""
+    ``group`` is the process group (None: the default group), ``rank``
+    this process's rank in it and ``device`` the device its shards run on.
+    A process outside the group (``paths_mesh`` with fewer ranks than the
+    world) holds a mesh with ``rank`` -1, which raises when used."""
 
     group: Any
     rank: int
     size: int
-    backend: str
     device: torch.device
-
-    def __post_init__(self):
-        if self.backend not in ("nccl", "gloo"):
-            raise ValueError(
-                f"a paths mesh runs on NCCL or gloo, not {self.backend!r}")
-        if self.backend == "nccl" and torch.device(self.device).type != \
-                "cuda":
-            raise ValueError(
-                f"an NCCL paths mesh runs on the cards, not on "
-                f"{self.device}; use gloo on the CPU")
 
     def check_member(self) -> None:
         """Raise in a process that is not one of the mesh's ranks."""
@@ -70,12 +63,6 @@ class PathsMesh:
                 f"this process is not a rank of the {self.size}-rank paths "
                 "mesh (paths_mesh spans the group's first ranks); only its "
                 "ranks may run on it")
-
-    @property
-    def exchanges_on_device(self) -> bool:
-        """Whether the collectives take device tensors (NCCL) or host
-        ones (gloo)."""
-        return self.backend == "nccl"
 
     def check_device(self, device: torch.device) -> None:
         """Raise unless ``device`` (an engine's ``options.device``) is the
@@ -87,18 +74,51 @@ class PathsMesh:
                 f"but EngineOptions(device={str(device)!r}); pass the "
                 "mesh's device")
 
+    @functools.cached_property
+    def _on_cards(self) -> bool:
+        """Whether the group exchanges device tensors on the cards (NCCL)
+        rather than host copies (gloo)."""
+        self.check_member()
+        on_cards = str(dist.get_backend(self.group)) == "nccl"
+        if on_cards and torch.device(self.device).type != "cuda":
+            raise ValueError(
+                f"an NCCL paths mesh runs on the cards, not on "
+                f"{self.device}; use gloo on the CPU")
+        return on_cards
+
+    def start_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """A gather's first half, on this rank's device tensor ``x`` right
+        after its launch: on the cards every rank's ``x`` stacked in rank
+        order; else ``x`` as it is. Copy the result to the host, then
+        ``finish_gather`` it."""
+        return self._gather(x) if self._on_cards else x
+
+    def finish_gather(self, host: torch.Tensor) -> torch.Tensor:
+        """(size, *x.shape) on the host: ``start_gather``'s result once
+        copied, gathered here where the group exchanges host copies."""
+        return host if self._on_cards else self._gather(host)
+
+    def start_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``start_gather``'s twin for the int64 sum of every rank's
+        integer ``x``."""
+        return self._sum(x) if self._on_cards else x
+
+    def finish_sum(self, host: torch.Tensor) -> torch.Tensor:
+        """``finish_gather``'s twin for the int64 sum."""
+        return host if self._on_cards else self._sum(host)
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """(size, *x.shape): every rank's ``x``, stacked in rank order, on
-        every rank."""
-        self.check_member()
+        the host of every rank."""
+        return self.finish_gather(self.start_gather(x.to(self.device)).cpu())
+
+    def _gather(self, x):
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.stack(parts)
 
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``x`` (integer tensors sum exactly)."""
-        self.check_member()
-        x = x.clone()
+    def _sum(self, x):
+        x = x.to(torch.int64, copy=True)
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
@@ -186,5 +206,4 @@ def paths_mesh(n_devices: Optional[int] = None, group=None,
             raise RuntimeError(
                 f"paths_mesh(device={device!r}) but torch finds no CUDA "
                 "device")
-    return PathsMesh(group=group, rank=rank, size=n_devices,
-                     backend=backend, device=dev)
+    return PathsMesh(group=group, rank=rank, size=n_devices, device=dev)

@@ -37,9 +37,10 @@ holding its outputs after its outputs closure is dropped (ROADMAP queue
 3, F4), a checkpoint written on the CPU resumed on the card, and the
 stats loop waiting for one chunk at a time under a progress callback and
 a checkpoint. The paths mesh on the card: a 1-rank NCCL mesh in this
-process and a 2-rank gloo mesh of two child processes sharing the card,
-every case of tests/test_torch_mesh.py equal to the single-device run bit
-for bit; an NCCL mesh on the CPU and a mesh on another device than
+process, a 2-rank gloo mesh of two child processes sharing the card and,
+with two or more cards, one NCCL rank a card under ``torchrun``, every
+case of tests/test_torch_mesh.py equal to the single-device run bit for
+bit; an NCCL mesh on the CPU and a mesh on another device than
 ``options.device`` refuse. The user surfaces: the CLI's
 ``benchmark-mc-gpu`` and ``benchmark-mc-reduceblock --terminal-law`` equal
 to direct runs, and the native library built with g++ equal to the
@@ -1867,9 +1868,9 @@ def _mesh_cases():
 
 def test_nccl_mesh_equals_single_device(cuda, tmp_path):
     """A 1-rank NCCL mesh (``paths_mesh(1)`` is the single-device path, so
-    the test builds it): every case bit for bit against the single device;
-    the mesh refuses another device than its own, and NCCL refuses the
-    CPU."""
+    the test builds it): the rows gathered on the card, every case bit for
+    bit against the single device; the mesh refuses another device than
+    its own, and NCCL refuses the CPU."""
     import datetime
 
     import torch.distributed as dist
@@ -1881,22 +1882,102 @@ def test_nccl_mesh_equals_single_device(cuda, tmp_path):
         "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=300))
     try:
-        mesh = PathsMesh(group=None, rank=0, size=1, backend="nccl",
+        mesh = PathsMesh(group=None, rank=0, size=1,
                          device=torch.device("cuda",
                                              torch.cuda.current_device()))
+        rows = torch.ones(3, device=mesh.device)
+        assert mesh.start_gather(rows).device == mesh.device
         got = tm.split_cases(tm.run_cases(mesh, names, device="cuda"))
         with pytest.raises(ValueError, match="runs rank 0 on cuda"):
             smt.simulate_stats(smt.HistoricalBootstrap.from_csv(), 8192, 12,
                                options=smt.EngineOptions(device="cpu"),
                                mesh=mesh)
+        with pytest.raises(ValueError,
+                           match="NCCL paths mesh runs on the cards"):
+            PathsMesh(group=None, rank=0, size=1,
+                      device=torch.device("cpu")).gather(rows.cpu())
     finally:
         dist.destroy_process_group()
     want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
     for name in names:
         tm.check_case(name, [got[name]], want[name])
-    with pytest.raises(ValueError, match="NCCL paths mesh runs on the cards"):
-        PathsMesh(group=None, rank=0, size=1, backend="nccl",
-                  device=torch.device("cpu"))
+
+
+def nccl_rank(out_dir, names):
+    """One rank of ``test_nccl_mesh_across_cards`` under ``torchrun``: the
+    NCCL group from torchrun's environment, ``paths_mesh()`` over it, and
+    the rank's placement and cases saved to ``out_dir``."""
+    import datetime
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from stock_market_monte_carlo_torch.parallel import paths_mesh
+
+    tm, _ = _mesh_cases()
+    dist.init_process_group("nccl", timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = paths_mesh()
+        mine = torch.full((3,), float(mesh.rank), device=mesh.device)
+        started = mesh.start_gather(mine)
+        where = dict(
+            rank=mesh.rank, size=mesh.size, device=str(mesh.device),
+            current=torch.cuda.current_device(),
+            local_rank=int(os.environ["LOCAL_RANK"]),
+            backend=str(dist.get_backend(mesh.group)),
+            started_on=str(started.device),
+            gathered=mesh.finish_gather(started.cpu()).tolist())
+        out = tm.run_cases(mesh, names, device="cuda")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{where['rank']}.json"), "w") as f:
+        json.dump(where, f)
+    np.savez(os.path.join(out_dir, f"rank{where['rank']}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+
+
+def test_nccl_mesh_across_cards(cuda, tmp_path):
+    """One NCCL rank a card, started by ``torchrun``, each building its
+    mesh with ``paths_mesh()``: rank i on cuda:i, the rows gathered on the
+    cards, and every case on every rank bit for bit against the single
+    device. Skips with fewer than two cards."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: one NCCL rank a card")
+    tm, names = _mesh_cases()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    code = (f"import test_torch_gpu as g; "
+            f"g.nccl_rank({str(tmp_path)!r}, {names!r})")
+    subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(n), "--master-addr", "localhost", "--master-port", str(port),
+         "--no-python", sys.executable, "-c", code],
+        env=env, check=True, timeout=900)
+    ranks = []
+    for rank in range(n):
+        with open(tmp_path / f"rank{rank}.json") as f:
+            where = json.load(f)
+        assert where == dict(
+            rank=rank, size=n, device=f"cuda:{rank}", current=rank,
+            local_rank=rank, backend="nccl", started_on=f"cuda:{rank}",
+            gathered=[[float(r)] * 3 for r in range(n)])
+        with np.load(tmp_path / f"rank{rank}.npz") as z:
+            ranks.append(tm.split_cases({k: z[k] for k in z.files}))
+    want = tm.split_cases(tm.run_cases(None, names, device="cuda"))
+    for name in names:
+        tm.check_case(name, [r[name] for r in ranks], want[name])
 
 
 def test_gloo_mesh_on_one_card(cuda):

@@ -61,7 +61,7 @@ def test_paths_mesh_needs_a_rank(one_rank, n):
 
 
 def _mesh(**kw):
-    return PathsMesh(**dict(dict(group=None, rank=0, size=2, backend="gloo",
+    return PathsMesh(**dict(dict(group=None, rank=0, size=2,
                                  device=torch.device("cpu")), **kw))
 
 
@@ -78,15 +78,27 @@ def _engine_calls(mesh, options=CPU):
     }
 
 
-def test_mesh_backend_and_device():
-    """NCCL runs on the cards only; no backend but NCCL and gloo."""
+def test_mesh_backend_and_device(one_rank, monkeypatch):
+    """A gloo group exchanges the host copies: ``start_gather`` and
+    ``start_sum`` leave the tensor as it is and the finishing halves
+    stack and sum on the host (the sum in int64), as ``gather`` stacks.
+    NCCL runs on the cards only."""
+    mesh = _mesh(size=1)
+    rows = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    counts = torch.arange(6, dtype=torch.int32)
+    assert mesh.start_gather(rows) is rows
+    assert mesh.start_sum(counts) is counts
+    for got in (mesh.finish_gather(rows), mesh.gather(rows)):
+        assert got.device.type == "cpu"
+        assert torch.equal(got, rows[None])
+    got = mesh.finish_sum(counts)
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    assert torch.equal(got, counts.to(torch.int64))
+    import stock_market_monte_carlo_torch.parallel.mesh as mesh_module
+
+    monkeypatch.setattr(mesh_module.dist, "get_backend", lambda g: "nccl")
     with pytest.raises(ValueError, match="NCCL paths mesh runs on the cards"):
-        _mesh(backend="nccl")
-    with pytest.raises(ValueError, match="NCCL or gloo"):
-        _mesh(backend="mpi")
-    assert _mesh(backend="nccl", device=torch.device("cuda", 0)) \
-        .exchanges_on_device
-    assert not _mesh().exchanges_on_device
+        _mesh(size=1).gather(rows)
 
 
 @pytest.mark.parametrize("call", sorted(_engine_calls(None)))
@@ -106,8 +118,8 @@ def rank_checks(mesh):
     """A rank's view of test_parallel.py's cases on the full mesh and on
     a 2-rank subgroup of it, on one torch thread."""
     torch.set_num_threads(1)
-    out = dict(size=mesh.size, rank=mesh.rank, backend=mesh.backend,
-               device_count=device_count())
+    out = dict(size=mesh.size, rank=mesh.rank, device_count=device_count(),
+               backend=str(dist.get_backend(mesh.group)))
     try:
         paths_mesh(10_000, device="cpu")
     except ValueError as e:
