@@ -3,7 +3,9 @@ counterparts of ``experiments/exp_pallas_hist.py``, ``exp_rowhist.py`` and
 ``exp_flatten_cost.py`` (the histogram probes), ``exp_clt_roofline.py``
 (the CLT's op-class toys), ``exp_clt_ablate.py`` (its ablation),
 ``exp_clt_ts2.py`` (its tile grouping), ``exp_prng_bytes.py`` and
-``exp_prng_crossword.py`` (the counter stream's byte planes).
+``exp_prng_crossword.py`` (the counter stream's byte planes); and
+``erfinv_tail_share``, how often the band kernels' Gaussian draw takes the
+erfinv's tail polynomial (a function, with no report).
 
     python -m stock_market_monte_carlo_torch.bench.probes \\
         [--device cuda|cpu] [--n N]
@@ -57,6 +59,7 @@ from stock_market_monte_carlo_torch.bench import headline
 from stock_market_monte_carlo_torch.ops import byte_planes as bp
 from stock_market_monte_carlo_torch.ops import calibration as cal
 from stock_market_monte_carlo_torch.ops import clt
+from stock_market_monte_carlo_torch.ops import cuda_engine as ce
 from stock_market_monte_carlo_torch.ops import histogram
 
 CELLS = 4096
@@ -66,6 +69,9 @@ N = 1 << 24
 CLT_MONTHS = 360
 ABLATE_SEED, GROUPING_SEED = 99, 77
 CLT_A, CLT_B, CLT_TARGET, CLT_V0 = 1.005, 1.0 / 120.0, 2000.0, 1000.0
+# the erfinv's tail polynomial runs where w = -log1p(-x^2) >= 5, which a
+# uniform x in (-1, 1) meets with probability 1 - sqrt(1 - e^-5)
+TAIL_P = 1.0 - float(np.sqrt(1.0 - np.exp(-5.0)))
 
 
 def inputs(n, dev):
@@ -344,6 +350,38 @@ def crossword_report(seeds=bp.CROSSWORD_SEEDS, device="cuda", k=headline.K,
                      reps=headline.REPS):
     """``exp_prng_crossword.py`` at its 16 seeds on the counter stream."""
     return _planes_report(seeds, crossword_stats, device, k, reps)
+
+
+def erfinv_tail_share(seed_base, *, tile0=0, n_tiles=8,
+                      n_periods=CLT_MONTHS, device="cpu"):
+    """How often the Gaussian draw of the band kernels (``csrc/bands.cu``
+    ``item_growth``, ``normal_z_warp``) runs the erfinv's tail
+    polynomial, from the plain counter stream of tiles ``tile0`` ..
+    ``tile0 + n_tiles - 1`` over ``n_periods`` months: a lane's draw
+    needs it where w = -log1p(-x^2) >= 5 (x = 2u - 1 of its word; torch's
+    log1p), and a warp runs it for a (warp item, month, path slot) group,
+    its 32 lanes' draws of one slot, where any lane needs it. A warp item
+    is 256 paths of a tile, and lane l's slot i is its path 32 i + l.
+    Returns the share of groups and of single draws, each beside its
+    value for independent uniforms, 1 - (1 - p)^32 and p = ``TAIL_P``."""
+    dev = torch.device(device)
+    tiles = (int(tile0) + torch.arange(n_tiles, device=dev)) & ce.MASK32
+    seeds = ce._tile_seed_i32(int(seed_base) & ce.MASK32, tiles)
+    pos_term = ce._mul32(torch.arange(ce.TILE_PATHS, device=dev), ce._GOLDEN)
+    groups = lanes = 0
+    for t in range(n_periods):
+        h = ce._tile_seed_i32(seeds, t)[:, None]
+        x = 2.0 * ce._u23_from_bits(ce._finalize((h + pos_term)
+                                                 & ce.MASK32)) - 1.0
+        tail = ~(-torch.log1p(-(x * x)) < 5.0)
+        # (tiles, warp items, path slots, lanes)
+        groups += int(tail.reshape(n_tiles, -1, 8, 32).any(-1).sum())
+        lanes += int(tail.sum())
+    draws = n_tiles * ce.TILE_PATHS * n_periods
+    return {"groups": draws // 32, "group_share": groups / (draws // 32),
+            "group_share_independent": 1.0 - (1.0 - TAIL_P) ** 32,
+            "draws": draws, "draw_share": lanes / draws,
+            "draw_share_independent": TAIL_P}
 
 
 REPORTS = ("hist", "flatten", "toys", "ablation", "grouping", "bytes",

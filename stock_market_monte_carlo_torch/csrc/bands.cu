@@ -63,13 +63,6 @@
 //     shared memory and walked only where the check fails: exactly the
 //     plain version's cell, NaN and values under 1e-37 in the cell of
 //     1e-37, +inf in the last.
-//   * A warp item is two whole 128-path rows of its tile, and a row's
-//     lane-0 word (the rotation of the historical draw) is lane 0's own
-//     word of path i = 0 (i = 4): one shuffle a row-month in place of a
-//     hash a path-month. The source lane's word stays a recomputed hash.
-//   * The Gaussian draw takes normal_z_warp (every lane runs every path,
-//     so the warps stay whole): the erfinv's tail only where a lane of the
-//     warp needs it.
 //   * Paths at or past `valid` are simulated and not counted.
 // - cdf_kernel (counts below thresholds). Its table is small: T x (K+1)
 //   int32, 47.5 KB at 360 x 33, so each block keeps all of it in shared
@@ -112,6 +105,17 @@
 //     month key, position), so any split of a tile gives the same sample;
 //     a warp hashes its item's tile seed and each tile-month key itself.
 //   * Paths at or past `valid` are simulated and not counted.
+// - Both kernels draw a warp item's month with item_growth. A warp item is
+//   two whole 128-path rows of its tile, and a row's lane-0 word (the
+//   rotation of the historical draw) is lane 0's own word of path i = 0
+//   (i = 4): one shuffle a row-month in place of a hash a path-month. The
+//   source lane's word stays a recomputed hash. The Gaussian draw takes
+//   normal_z_warp: the item and month loops are the same for every lane of
+//   a warp, and every lane runs every path (paths at or past `valid` too),
+//   so the warp is whole at its vote, and the erfinv's tail polynomial runs
+//   only where one of the warp's 32 lanes needs it (w >= 5; about one warp
+//   draw in ten), not on every path. The same operations on every value,
+//   so the same bits.
 // - The draw key of a tile-month is hashed once per thread and month, not
 //   once per path.
 // - Built with -fmad=false: the draw rounds as the torch versions do.
@@ -161,18 +165,6 @@ struct Args {
   float* vals;          // (warp items x 256,) running values; kHist only
 };
 
-// The growth of path `pos` of the tile-month keyed by h.
-template <int DRAW>
-__device__ __forceinline__ float growth(const Args& g, const float* s_table,
-                                        uint32_t h, uint32_t pos) {
-  const uint32_t w = arith_word(h, pos);
-  if (DRAW == kHistorical)
-    return bootstrap_growth(s_table, g.n_table, g.tail_n,
-                            (uint32_t)g.k_chunks, h, w, pos & 127u,
-                            pos & ~127u);
-  return g.a + g.b * normal_z(w);
-}
-
 // The guess, in [1, k-1], of the number of a month's k thresholds (the
 // cell edges, for the histogram) on a log grid that v is not below: gc =
 // (a, c) of the month.
@@ -192,8 +184,8 @@ __device__ __forceinline__ int cdf_walk(float v, const float* thr, int j,
 
 // The growth of the 8 paths pos0 + 32 i of a warp item (pos0 = the item's
 // first path + lane), keyed by h: the two rows' lane-0 words are shuffled
-// from lane 0's paths 0 and 4 (historical draw; every lane of the warp
-// takes part).
+// from lane 0's paths 0 and 4 (historical draw), the erfinv's tail taken
+// by a warp vote (Gaussian draw). Every lane of the warp takes part.
 template <int DRAW>
 __device__ __forceinline__ void item_growth(const Args& g,
                                             const float* s_table, uint32_t h,
@@ -328,7 +320,7 @@ __global__ void __launch_bounds__(kCdfCopies * kCdfCopyThreads)
   const int n_cnt = g.n_periods * cells;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const uint32_t lane = threadIdx.x & 31;
   // the table, each warp's month pairs (thr[j-1], thr[j]) and row, then
   // the count table: cell c of copy r at c * copies + r
   float* s_table = reinterpret_cast<float*>(smem);
@@ -379,13 +371,14 @@ __global__ void __launch_bounds__(kCdfCopies * kCdfCopyThreads)
         if (c > 0) w_pair[c] = make_float2(__ldg(thr + c - 1), hi);
       }
       __syncwarp();
+      float gfac[kCdfPaths];
+      item_growth<DRAW>(g, s_table, h, pos0, lane, gfac);
       int j[kCdfPaths];
       bool ok[kCdfPaths];
 #pragma unroll
       for (int i = 0; i < kCdfPaths; ++i) {
-        float gfac = growth<DRAW>(g, s_table, h, pos0 + 32u * i);
-        if (KEEP) gfac = gfac * keep;
-        v[i] = v[i] * gfac;
+        if (KEEP) gfac[i] = gfac[i] * keep;
+        v[i] = v[i] * gfac[i];
         j[i] = cdf_guess(v[i], gc, k);
         const float2 pair = w_pair[j[i]];
         ok[i] = !(v[i] < pair.x) && v[i] < pair.y;

@@ -144,7 +144,7 @@ __device__ __forceinline__ void historical_items(const Args& g,
       __syncwarp();
 #pragma unroll
       for (int i = 0; i < kLanePaths; ++i) {
-        // the sliced-rotation draw (bootstrap_growth) of lane c of row
+        // the sliced-rotation draw (bootstrap_growth_w0) of lane c of row
         // i / 4, the row's words from the warp: the source lane's is
         // s_row's (its own where w_col == c)
         const uint32_t c = lane + 32u * (i % 4);

@@ -8,7 +8,8 @@ ulp either side, 0, 1e-38, denormals, huge values, +inf and NaN; B_t so
 small that the thresholds tie in float32 and the guess is off by many
 cells; B_t so large that the thresholds overflow to +inf and underflow
 to 0. ``month_cdf_chunk_plain`` rebuilt on the twin gives its counts
-exactly.
+exactly. The kernels' Gaussian draw takes the erfinv's tail for a warp's
+group of 32 draws about as often as independent uniforms would have it.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 import torch_cpu_share  # noqa: F401
 
 import stock_market_monte_carlo_torch as smt
+from stock_market_monte_carlo_torch.bench import probes
 from stock_market_monte_carlo_torch.engine import bands as port_bands
 from stock_market_monte_carlo_torch.engine import engine as port_engine
 from stock_market_monte_carlo_torch.ops import bands as kb
@@ -139,3 +141,19 @@ def test_plain_on_twin_matches_plain(kind, strategy):
     assert got.dtype == want.dtype == torch.int32
     assert torch.equal(got, want)
     assert torch.equal(kb.month_cdf_chunk(*ops, **kw), want)
+
+
+def test_erfinv_tail_share_of_warp_groups():
+    """A (warp item, month, path slot) group of the band kernels' Gaussian
+    draw takes the erfinv's tail where any of its 32 lanes has w >= 5:
+    over 4 tiles x 120 months of the plain counter stream, within a few
+    tenths of a point of 1 - (1 - 0.0033747)^32 = 10.25 % of groups, and
+    of 0.33747 % of single draws."""
+    got = probes.erfinv_tail_share(0x9E3779B9, tile0=37, n_tiles=4,
+                                   n_periods=120)
+    assert got["groups"] == 4 * 32 * 8 * 120
+    assert got["draws"] == 32 * got["groups"]
+    assert abs(got["draw_share_independent"] - 0.0033747) < 1e-7
+    assert abs(got["group_share_independent"] - 0.10253) < 1e-5
+    assert abs(got["group_share"] - got["group_share_independent"]) < 0.003
+    assert abs(got["draw_share"] - got["draw_share_independent"]) < 0.0002

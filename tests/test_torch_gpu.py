@@ -5,11 +5,13 @@ table needs the opt-in above 48 KB), odd histogram sizes and no
 histogram; the Gaussian month loop under every strategy; the CLT kernel's
 three variants over one and two 128-month blocks; the two band kernels
 under both draws and every percent strategy, odd bin and threshold
-counts, one and two months. The terminal law's two instances at a
-partial tile, under a warp of paths, across the tiles' wrap past 2^32 and
-at 1024 blocks, its chunks back to back on two streams, and its
-operand-length guard. The historical month loop's warp items at
-partial items and three grids, the CLT at three grids, and the CLT's
+counts, one and two months; the counts below thresholds' warp draw at a
+partial warp item where some warp groups take the erfinv's tail. The
+terminal law's two instances at a partial tile, under a warp of paths,
+across the tiles' wrap past 2^32 and at 1024 blocks, its chunks back to
+back on two streams, and its operand-length guard. The historical month
+loop's warp items at partial items and three grids, the CLT at three
+grids, and the CLT's
 finish against its CPU twin (``clt.finals_twin``; the prefix variant's
 ``clt.prefix_finish_twin`` at three grids) bit for bit. Also the
 wrappers' input checks and launch counters, the launch counts of the
@@ -779,6 +781,23 @@ def test_cdf_kernel_partial_items_match_plain(cuda, valid):
     a tile and most warps of the grid without paths."""
     _assert_band_kernel_matches_plain("cdf", *_band_args(
         cuda, "cdf", "gaussian", "fixed_percent", n_periods=60, valid=valid))
+
+
+@pytest.mark.parametrize("draw", ["historical", "gaussian"])
+@pytest.mark.parametrize("strategy", ["none", "fixed_percent"])
+def test_cdf_kernel_warp_draw_matches_plain(cuda, draw, strategy):
+    """The counts-below kernel's draw of a warp item (item_growth), with
+    and without a keep factor: 2^16 + 777 paths x 60 months, the last
+    warp item partial; about one warp group of the Gaussian draw in ten
+    takes the erfinv's tail, the rest skip it."""
+    from stock_market_monte_carlo_torch.bench import probes
+
+    ops, kw = _band_args(cuda, "cdf", draw, strategy, n_periods=60,
+                         valid=(1 << 16) + 777, n_paths=9 * 8192)
+    tail = probes.erfinv_tail_share(kw["seed_base"], tile0=kw["tile0"],
+                                    n_tiles=9, n_periods=60, device=cuda)
+    assert 0.05 < tail["group_share"] < 0.2
+    _assert_band_kernel_matches_plain("cdf", ops, kw)
 
 
 @pytest.mark.parametrize("table_name,n_periods,k,copies", [
