@@ -510,16 +510,8 @@ def _chunk_fn(model, strategy, n_periods, v0f, options, dev, seed):
     if sampler.startswith("clt"):
         variant = {"clt": "plain", "clt-nw": "keep_fold",
                    "clt-prefix": "prefix"}[sampler]
-        a, b = cuda_engine.gaussian_ab(model.mean_pct, model.std_pct)
-        arow, cs = clt.block_consts(
-            a, b, n_periods, keep_np if variant == "keep_fold" else None)
-        q = clt.q_tensor(dev)
-        arow, cs = torch.as_tensor(arow, device=dev), torch.as_tensor(
-            cs, device=dev)
-        keep_rows = (torch.as_tensor(clt.keep_rows(keep_np, n_periods),
-                                     device=dev)
-                     if variant == "prefix" else None)
-        p_tile = clt.tile_paths(variant)
+        q, arow, cs, keep_rows, p_tile = _clt_operand(model, variant,
+                                                      keep_np, n_periods, dev)
 
         def fn(base, offset, **kw):
             return clt.clt_chunk(
@@ -549,6 +541,24 @@ def _keep_np(strategy, n_periods: int) -> np.ndarray:
     if _is_multiplicative(strategy):
         return _keep_factors_np(strategy, n_periods)
     return np.ones((n_periods,), np.float32)
+
+
+@spanned("smmc.clt_operand")
+def _clt_operand(model, variant, keep_np, n_periods, dev):
+    """(q, arow, cs, keep_rows, p_tile) of a CLT run: Q, the per-column
+    growth constants (the keep folded in for ``keep_fold``) and the
+    prefix variant's keep rows (else None) on ``dev``, and the paths of
+    the variant's stream tile."""
+    a, b = cuda_engine.gaussian_ab(model.mean_pct, model.std_pct)
+    arow, cs = clt.block_consts(
+        a, b, n_periods, keep_np if variant == "keep_fold" else None)
+    q = clt.q_tensor(dev)
+    arow, cs = torch.as_tensor(arow, device=dev), torch.as_tensor(
+        cs, device=dev)
+    keep_rows = (torch.as_tensor(clt.keep_rows(keep_np, n_periods),
+                                 device=dev)
+                 if variant == "prefix" else None)
+    return q, arow, cs, keep_rows, clt.tile_paths(variant)
 
 
 @spanned("smmc.law_operand")

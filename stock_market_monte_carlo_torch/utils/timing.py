@@ -30,7 +30,10 @@ The spans of the two entry points (``engine.simulate_stats``,
 - ``smmc.law_operand``: a terminal-law run's operand, inside
   ``smmc.prepare`` (the fit cache's lookup, the host-to-device copy);
 - ``smmc.law_fit``: inside ``smmc.law_operand`` on a fit cache miss only
-  (the FFT oracle, the fit, its validation).
+  (the FFT oracle, the fit, its validation);
+- ``smmc.clt_operand``: a CLT run's operand, inside ``smmc.prepare``
+  (Q, the per-column growth constants, the prefix variant's keep rows
+  and their host-to-device copies).
 """
 
 from __future__ import annotations

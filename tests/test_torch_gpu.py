@@ -3,7 +3,9 @@ shapes the smoke test does not reach: ragged chunks at a nonzero tile
 offset, the hostile 97-row table, a 20000-row table (whose shared-memory
 table needs the opt-in above 48 KB), odd histogram sizes and no
 histogram; the Gaussian month loop under every strategy; the CLT kernel's
-three variants over one and two 128-month blocks; the two band kernels
+three variants over one and two 128-month blocks, and the prefix variant
+at 2^20 paths x 360 months against the gaussian-clt-prefix-pct cell's
+plain reference; the two band kernels
 under both draws and every percent strategy, odd bin and threshold
 counts, one and two months; the counts below thresholds' warp draw at a
 partial warp item where some warp groups take the erfinv's tail. The
@@ -577,6 +579,35 @@ def test_engine_gaussian_launch_counts(cuda, sampler, key):
     np.testing.assert_allclose(got.final_values, want.final_values,
                                rtol=CLT_KERNEL_REL, atol=0)
     assert got.histogram_counts.sum() == want.histogram_counts.sum()
+
+
+def test_clt_reference_against_the_prefix_kernel(cuda):
+    """The gaussian-clt-prefix-pct cell's plain reference
+    (``smmc_bench/reference/draws/counter_clt.py``) against the prefix
+    kernel at 2^20 paths x 360 months, one chunk, through the cell's
+    program: inside the cell's limits; the bfloat16 control outside
+    them."""
+    from pathlib import Path
+
+    from smmc_bench import cells, check, reference
+    from smmc_bench.program import Program
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = dict(cells.config(root, "gaussian_clt_100M_360"),
+               n_paths=1 << 20)
+    mix = cells.traffic(root, "stats_pct")
+    limits = cells.limits(root, "gaussian-clt-prefix-pct")
+    prog = Program(cfg, mix, None, "cuda")
+    ce.reset_launch_counts()
+    answer = prog.answer(prog(2**31 + 9))
+    assert ce.LAUNCHES["clt"] == 1
+    ref = reference.query(cfg, mix, None, 2**31 + 9, cuda)
+    ctl = reference.query(cfg, mix, None, 2**31 + 9, cuda, torch.bfloat16)
+    n = cfg["n_paths"]
+    ok, rows = check.judge(check.gaps("stats", answer, ref, n), limits)
+    assert ok, rows
+    ok, rows = check.judge(check.gaps("stats", ctl, ref, n), limits)
+    assert not ok, rows
 
 
 def test_engine_on_cuda_matches_cpu(cuda):

@@ -4,7 +4,8 @@ two entry points, ``simulate_stats`` and ``simulate_bands``, record
 exactly the documented spans, each nested in its entry span, at the
 documented counts, and return the same results bit for bit as without a
 profiler. A terminal-law run adds its operand's span inside
-``smmc.prepare``, and the fit's inside that on a fit cache miss."""
+``smmc.prepare``, and the fit's inside that on a fit cache miss; a CLT
+run adds its operand's span, once a query, inside ``smmc.prepare``."""
 
 import json
 
@@ -199,3 +200,34 @@ def test_law_spans_on_the_cpu(backend, tmp_path, monkeypatch):
         assert names.count("smmc.law_fit") == (0 if cached else 1)
         assert _inside(spans, "smmc.law_operand", "smmc.prepare")
         assert _inside(spans, "smmc.law_fit", "smmc.law_operand")
+
+
+def _clt_stats(sampler):
+    """A CLT run of each route: "clt" with no withdrawal, "clt-nw" a
+    percent strategy without its total, "clt-prefix" with it."""
+    prefix = sampler == "clt-prefix"
+    options = smt.EngineOptions(
+        device="cpu", chunk_paths=CHUNK,
+        gaussian_sampler="clt" if sampler == "clt-nw" else sampler,
+        track_withdrawn=sampler != "clt-nw")
+    strategy = (smt.NoWithdrawal() if sampler == "clt"
+                else smt.FixedPercentWithdrawal(0.4))
+    res = smt.simulate_stats(smt.GaussianReturns(), N_PATHS, N_PERIODS,
+                             seed=17, target_amount=1100.0,
+                             strategy=strategy, options=options)
+    return _stats_of(res) + ((res.moments.total_withdrawn,) if prefix
+                             else ())
+
+
+@pytest.mark.parametrize("sampler", ["clt", "clt-nw", "clt-prefix"])
+def test_clt_operand_span_on_the_cpu(sampler, tmp_path):
+    off = _clt_stats(sampler)
+    with timing.trace(str(tmp_path)):
+        on = _clt_stats(sampler)
+    assert on == off  # bit for bit with the profiler on
+    spans = _spans(tmp_path)
+    names = [n for n, _, _ in spans]
+    assert names.count("smmc.simulate_stats") == 1
+    assert names.count("smmc.prepare") == 1
+    assert names.count("smmc.clt_operand") == 1
+    assert _inside(spans, "smmc.clt_operand", "smmc.prepare")
